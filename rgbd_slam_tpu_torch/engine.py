@@ -1,0 +1,580 @@
+"""RGB-D SLAM engine: the per-frame tracking step (port of
+``rgbd_slam_tpu/engine.py``), points only.
+
+``step(state, gray, depth) -> (state, output)`` over the JAX package's
+fixed-capacity masked state: pyramid, forward-backward LK of the tracked map
+points (CUDA kernel on the card), FAST + BRIEF and windowed matching on refresh
+frames, RANSAC pose optimization with a Monte-Carlo covariance, Kalman map
+updates, lifecycle, insertion and the next tracked set.  Planes
+(``with_planes=True``) and lines (``with_lines=True``) raise until their slices
+are ported.
+
+Differences from the JAX step that do not change its results:
+
+* ``lax.cond`` on the detection flag is a Python branch: one ``.item()`` host
+  sync per frame decides both the detection and the matching branch.
+* ``.at[i].set(..., mode="drop")`` is :func:`_scatter_set`: out-of-range rows go
+  to a sink row, and among duplicate indices the last write wins, which is what
+  XLA's serial scatter does (the compacted blocks scatter their unfilled rows to
+  slot 0, so the order matters there).
+* Randomness comes from the state's ``torch.Generator`` (which ``step``
+  advances), or from ``draws``, which replaces every draw of the step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .config import CameraIntrinsics, SlamConfig
+from .geometry import covariances as cov_mod
+from .geometry import inverse_depth as idp
+from .geometry import pinhole, se3
+from .mapping import maps
+from .ops import brief, fast, image, matching, optical_flow
+from .pose.features import MatchedFeatures
+from .pose.optimizer import PoseDraws, compact_rows, compute_optimized_pose
+from .tracking import inverse_depth_tracking as idt
+from .tracking import kalman, motion_model
+
+
+class SlamState(NamedTuple):
+    quat: torch.Tensor
+    position: torch.Tensor
+    pose_cov: torch.Tensor          # [6, 6]
+    motion: motion_model.MotionModelState
+    points: maps.PointMap
+    points2d: maps.Point2DMap
+    planes: maps.PlaneMap
+    lines: maps.LineMap
+    prev_pyramid: tuple             # previous frame's LK pyramid (levels+1 images)
+    tracked_uv: torch.Tensor        # [T, 2] screen pos of tracked map points
+    tracked_ok: torch.Tensor        # [T]
+    tracked_map_idx: torch.Tensor   # [T] int32 map slot of each tracked row
+    frame_idx: torch.Tensor
+    failed_count: torch.Tensor
+    is_lost: torch.Tensor
+    next_id: torch.Tensor
+    generator: torch.Generator      # takes the place of the JAX state's key
+
+
+class StepOutput(NamedTuple):
+    quat: torch.Tensor
+    position: torch.Tensor
+    pose_cov: torch.Tensor
+    success: torch.Tensor
+    is_lost: torch.Tensor
+    n_point_matches: torch.Tensor
+    n_point_inliers: torch.Tensor
+    n_points_alive: torch.Tensor
+    n_planes_alive: torch.Tensor
+    n_detected: torch.Tensor
+    n_lines: torch.Tensor
+    n_line_matches: torch.Tensor
+    n_lines_alive: torch.Tensor
+    n_cylinders: torch.Tensor
+    n_plane_merge_dropped: torch.Tensor
+    cylinder_cells: torch.Tensor
+    point_obs_uv: torch.Tensor      # [M3, 2] matched screen observation
+    point_obs_z: torch.Tensor       # [M3] measured depth (0 = depth-less)
+    point_matched: torch.Tensor     # [M3] bool (match AND RANSAC inlier)
+    point_fid: torch.Tensor         # [M3] map feature id (-1 = empty)
+    n_evicted: torch.Tensor
+    point_evicted: torch.Tensor
+    point_evict_pos: torch.Tensor
+    point2d_evicted: torch.Tensor
+    point2d_evict_pos: torch.Tensor
+    plane_evicted: torch.Tensor
+    plane_evict_params: torch.Tensor
+    plane_evict_verts: torch.Tensor
+    plane_evict_count: torch.Tensor
+    plane_evict_center: torch.Tensor
+    plane_evict_u: torch.Tensor
+    plane_evict_v: torch.Tensor
+    line_evicted: torch.Tensor
+    line_evict_eps: torch.Tensor
+
+
+class StepDraws(NamedTuple):
+    """Every random draw of one :func:`step` (engine.py:963 and the pose
+    optimizer's in the JAX package)."""
+    drop: torch.Tensor   # [M3] int in [0, 2 * keypoint_refresh_frequency)
+    pose: PoseDraws
+
+
+def init_state(cam: CameraIntrinsics, cfg: SlamConfig, quat=None, position=None,
+               seed: int = 0, device="cpu") -> SlamState:
+    dt = torch.float32
+    t_cap = cfg.mapping.max_tracked_points
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+
+    return SlamState(
+        quat=se3.quat_identity(dt, device) if quat is None
+        else torch.as_tensor(quat, dtype=dt, device=device),
+        position=torch.zeros(3, dtype=dt, device=device) if position is None
+        else torch.as_tensor(position, dtype=dt, device=device),
+        pose_cov=torch.eye(6, dtype=dt, device=device) * 1e-3,
+        motion=motion_model.reset(dt, device),
+        points=maps.empty_point_map(cfg.mapping.max_points_3d, device=device),
+        points2d=maps.empty_point2d_map(cfg.mapping.max_points_2d, device=device),
+        planes=maps.empty_plane_map(cfg.mapping.max_planes, device=device),
+        lines=maps.empty_line_map(cfg.mapping.max_lines, device=device),
+        prev_pyramid=tuple(image.build_pyramid(
+            torch.zeros((cam.height, cam.width), dtype=dt, device=device),
+            cfg.detection.optical_flow_pyramid_depth)),
+        tracked_uv=torch.zeros((t_cap, 2), dtype=dt, device=device),
+        tracked_ok=torch.zeros((t_cap,), dtype=torch.bool, device=device),
+        tracked_map_idx=torch.full((t_cap,), -1, dtype=torch.int32, device=device),
+        frame_idx=i32(0), failed_count=i32(0),
+        is_lost=torch.tensor(False, device=device), next_id=i32(1),
+        generator=generator,
+    )
+
+
+def _compact_mask(mask, cap: int):
+    """Indices of the masked rows in a fixed-capacity block (idx [cap], keep
+    [cap] bool), so rare per-slot work runs at a small static size."""
+    return compact_rows(mask, cap)
+
+
+def _sample_depth(depth, uv):
+    """Nearest-pixel depth lookup."""
+    h, w = depth.shape
+    x = torch.round(uv[..., 0]).clamp(-1e9, 1e9).to(torch.int64).clamp(0, w - 1)
+    y = torch.round(uv[..., 1]).clamp(-1e9, 1e9).to(torch.int64).clamp(0, h - 1)
+    return depth[y, x]
+
+
+def _scatter_set(dst, idx, src):
+    """``dst.at[idx].set(src, mode="drop")`` along axis 0: indices outside
+    [0, len) are dropped and, among duplicate indices, the last row wins."""
+    n = dst.shape[0]
+    idx = idx.to(torch.int64)
+    shape = idx.shape + dst.shape[1:]
+    if isinstance(src, torch.Tensor):
+        src = src.to(dst.dtype).expand(shape)
+    else:  # a Python scalar fills on the device (no host-to-device copy)
+        src = torch.full(shape, src, dtype=dst.dtype, device=dst.device)
+    order = torch.argsort(idx, stable=True)
+    sorted_idx = idx[order]
+    last_sorted = torch.ones_like(sorted_idx, dtype=torch.bool)
+    last_sorted[:-1] = sorted_idx[1:] != sorted_idx[:-1]
+    last = torch.empty_like(last_sorted).scatter_(0, order, last_sorted)
+    target = torch.where(last & (idx >= 0) & (idx < n), idx, n)
+    out = torch.cat([dst, dst[:1]], dim=0)   # row n is a sink
+    out[target] = src
+    return out[:n]
+
+
+def _sync_detect_flag(do_detect) -> bool:
+    """The step's one host sync: the Python branch on the detection flag."""
+    return bool(do_detect.item())
+
+
+def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
+         with_planes: bool = True, with_lines: bool = False,
+         draws: StepDraws | None = None):
+    """Process one RGB-D frame.  ``gray`` and ``depth`` are [H, W] float32 on the
+    state's device.  Returns (new_state, StepOutput)."""
+    if with_planes:
+        raise NotImplementedError(
+            "with_planes=True: the CAPE plane/cylinder path (ROADMAP queue 1 #5 and "
+            "the plane parts of #7-#8) is not ported yet; pass with_planes=False")
+    if with_lines:
+        raise NotImplementedError(
+            "with_lines=True: line features (ROADMAP queue 1 #10) are not ported yet")
+    dev = gray.device
+    dt = gray.dtype
+    det_cfg = cfg.detection
+    m3 = cfg.mapping.max_points_3d
+    m2 = cfg.mapping.max_points_2d
+    mp = cfg.mapping.max_planes
+    ml = cfg.mapping.max_lines
+    drop_chance = 2 * det_cfg.keypoint_refresh_frequency  # 1/10 drop
+    if draws is None:
+        drop = torch.randint(0, drop_chance, (m3,), generator=state.generator, device=dev)
+        pose_draws = None
+    else:
+        drop, pose_draws = draws.drop, draws.pose
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    def i32(x):
+        return x.to(torch.int32)
+
+    # --- predicted pose ---------------------------------------------------
+    if cfg.engine.use_motion_model_prediction:
+        pred_quat, pred_pos = motion_model.predict_pose(state.motion, state.quat,
+                                                        state.position)
+    else:
+        pred_quat, pred_pos = state.quat, state.position
+    w2c = se3.world_to_camera(pred_quat, pred_pos)
+
+    # --- feature extraction -----------------------------------------------
+    levels = det_cfg.optical_flow_pyramid_depth
+    win_w = cam.width // det_cfg.optical_flow_window_width
+    win_h = cam.height // det_cfg.optical_flow_window_height
+    pyr_cur = image.build_pyramid(gray, levels)
+
+    of_uv_t, of_ok_t = optical_flow.track_forward_backward(
+        list(state.prev_pyramid), pyr_cur, state.tracked_uv, state.tracked_ok,
+        max_roundtrip_px=det_cfg.optical_flow_roundtrip_px,
+        levels=levels, win_h=win_h, win_w=win_w,
+        iterations=det_cfg.optical_flow_iterations,
+        bwd_levels=(None if det_cfg.optical_flow_backward_depth >= levels
+                    else det_cfg.optical_flow_backward_depth),
+        coarse_win=det_cfg.optical_flow_coarse_window_px,
+        coarse_from_level=det_cfg.optical_flow_coarse_from_level,
+        eps=det_cfg.optical_flow_eps_px)
+    of_ok_t = of_ok_t & state.tracked_ok & (state.frame_idx > 0)
+    t_idx = torch.where(of_ok_t & (state.tracked_map_idx >= 0),
+                        state.tracked_map_idx.to(torch.int64), m3)
+    of_uv = _scatter_set(full((m3, 2), 0.0, dt), t_idx, of_uv_t)
+    of_ok = _scatter_set(full((m3,), False, torch.bool), t_idx, True)
+
+    n_tracked = torch.sum(of_ok_t)
+    do_detect = _sync_detect_flag(
+        (state.frame_idx % det_cfg.keypoint_refresh_frequency == 0)
+        | (n_tracked < det_cfg.max_point_per_frame) | state.is_lost)
+    n_det = det_cfg.max_point_per_frame
+    if do_detect:
+        det_mask = fast.tracked_points_mask((cam.height, cam.width), of_uv_t, of_ok_t,
+                                            det_cfg.tracked_mask_radius_px)
+        deficit = torch.clamp_min(det_cfg.max_point_per_frame - n_tracked, 10).to(dt)
+        thr = det_cfg.fast_curve_scale * torch.pow(
+            det_cfg.fast_curve_decay, det_cfg.fast_deficit_mult_high * deficit)
+        thr_low = det_cfg.fast_curve_scale * torch.pow(
+            det_cfg.fast_curve_decay, det_cfg.fast_deficit_mult_low * deficit)
+        det_xy, _, det_valid = fast.detect_fast_grid(
+            gray, detection_mask=det_mask, threshold=thr, low_threshold=thr_low,
+            max_points=n_det,
+            cell_rows=det_cfg.keypoint_cell_detection_height_count,
+            cell_cols=det_cfg.keypoint_cell_detection_width_count)
+        det_desc, det_valid = brief.compute_brief(gray, det_xy, det_valid)
+    else:
+        det_xy = full((n_det, 2), 0.0, dt)
+        det_valid = full((n_det,), False, torch.bool)
+        det_desc = full((n_det, brief.N_WORDS), 0, torch.int32)
+    det_z = _sample_depth(depth, det_xy)
+    det_depth_ok = pinhole.is_depth_valid(det_z, cfg.engine.min_depth_mm,
+                                          cfg.engine.max_depth_mm) & det_valid
+
+    # --- data association ---------------------------------------------------
+    pts = state.points
+    pts_alive = maps.alive(pts)
+    proj3, proj3_ok = pinhole.world_to_screen(pts.pos, w2c, cam)
+    need_desc_match = pts_alive & ~of_ok & proj3_ok
+    p2 = state.points2d
+    p2_alive = maps.alive(p2)
+    proj2, proj2_ok = pinhole.world_to_screen(idp.to_world(p2.state), w2c, cam)
+
+    if do_detect:
+        det_taken = torch.zeros_like(det_valid)
+        ham3, dsq3 = matching.match_precompute(pts.desc, proj3[:, :2], det_desc, det_xy)
+
+        def match_pass(mask, taken, radius):
+            idx, dist = matching.match_from_distances(
+                ham3, dsq3, mask, det_valid, taken, search_radius=radius,
+                lowe_ratio=cfg.matching.max_match_distance)
+            idx = matching.resolve_match_conflicts(idx, dist, n_det)
+            return idx, _scatter_set(taken, torch.where(idx >= 0, idx, n_det), True)
+
+        radius = cfg.matching.match_search_radius_px
+        idx_loc, det_taken = match_pass(need_desc_match & pts.is_local, det_taken, radius)
+        idx_stg, det_taken = match_pass(need_desc_match & ~pts.is_local, det_taken, radius)
+        p_match_idx = torch.where(idx_loc >= 0, idx_loc, idx_stg)
+
+        # advanced search: 2x radius retry when below minimumPointForOptimization
+        n_matched_now = torch.sum(of_ok) + torch.sum(p_match_idx >= 0)
+        idx_adv, det_taken_adv = match_pass(need_desc_match & (p_match_idx < 0),
+                                            det_taken, radius * 2.0)
+        use_adv = n_matched_now < cfg.ransac.min_point_count
+        p_match_idx = torch.where(use_adv & (p_match_idx < 0), idx_adv, p_match_idx)
+        det_taken = torch.where(use_adv, det_taken_adv, det_taken)
+
+        q_match_idx, q_dist = matching.match_descriptors(
+            p2.desc, proj2[:, :2], p2_alive & proj2_ok, det_desc, det_xy, det_valid,
+            det_taken, search_radius=cfg.matching.match_search_radius_px,
+            lowe_ratio=cfg.matching.max_match_distance)
+        q_match_idx = matching.resolve_match_conflicts(q_match_idx, q_dist, n_det)
+        det_taken = _scatter_set(det_taken, torch.where(q_match_idx >= 0, q_match_idx,
+                                                        n_det), True)
+    else:
+        p_match_idx = full((m3,), -1, torch.int32)
+        q_match_idx = full((m2,), -1, torch.int32)
+        det_taken = torch.zeros_like(det_valid)
+
+    def det_rows(match_idx):
+        return match_idx.clamp(0, n_det - 1).to(torch.int64)
+
+    p_obs_uv = torch.where(of_ok[:, None], of_uv, det_xy[det_rows(p_match_idx)])
+    p_matched = of_ok | (p_match_idx >= 0)
+    p_obs_z = _sample_depth(depth, p_obs_uv)
+    p_obs_depth_ok = pinhole.is_depth_valid(p_obs_z, cfg.engine.min_depth_mm,
+                                            cfg.engine.max_depth_mm)
+    q_matched = q_match_idx >= 0
+    q_obs_uv = det_xy[det_rows(q_match_idx)]
+    q_obs_z = _sample_depth(depth, q_obs_uv)
+    q_obs_depth_ok = pinhole.is_depth_valid(q_obs_z, cfg.engine.min_depth_mm,
+                                            cfg.engine.max_depth_mm)
+
+    n_grid_cells = (cam.height // det_cfg.depth_patch_size_px) \
+        * (cam.width // det_cfg.depth_patch_size_px)
+
+    # --- pose optimization --------------------------------------------------
+    def std_of(cov):
+        return torch.sqrt(torch.abs(torch.diagonal(cov, dim1=-2, dim2=-1)))
+
+    feats = MatchedFeatures(
+        point_obs_uv=p_obs_uv, point_world=pts.pos, point_world_std=std_of(pts.cov),
+        point_mask=p_matched & pts_alive,
+        point2d_obs_uv=q_obs_uv, point2d_state=p2.state,
+        point2d_state_std=std_of(p2.cov), point2d_mask=q_matched & p2_alive,
+        plane_cam=full((mp, 4), 0.0, dt), plane_world=state.planes.params,
+        plane_world_std=std_of(state.planes.cov),
+        plane_mask=full((mp,), False, torch.bool),
+        line_obs_p0=full((ml, 2), 0.0, dt), line_obs_p1=full((ml, 2), 0.0, dt),
+        line_world=state.lines.endpoints,
+        line_world_std=std_of(state.lines.cov).reshape(ml, 6),
+        line_mask=full((ml,), False, torch.bool),
+    )
+    opt = compute_optimized_pose(pred_quat, pred_pos, feats, cam,
+                                 ransac_cfg=cfg.ransac, engine_cfg=cfg.engine,
+                                 generator=state.generator, draws=pose_draws)
+
+    first_frame = state.frame_idx == 0
+    pose_ok = (cov_mod.is_covariance_valid_fast(opt.covariance)
+               & torch.isfinite(opt.quat).all() & torch.isfinite(opt.position).all())
+    success = opt.success & pose_ok & ~first_frame
+
+    new_quat = torch.where(success, opt.quat, pred_quat)
+    new_pos = torch.where(success, opt.position, pred_pos)
+    new_pose_cov = torch.where(success, opt.covariance, state.pose_cov)
+    new_c2w = se3.camera_to_world(new_quat, new_pos)
+    new_w2c = se3.world_to_camera(new_quat, new_pos)
+    pose_cov3 = new_pose_cov[:3, :3]
+
+    # --- map update ---------------------------------------------------------
+    # final per-slot "matched" = matched AND RANSAC inlier, on successful frames
+    p_final = success & p_matched & opt.point_inliers
+    q_final = success & q_matched & opt.point2d_inliers
+    k_final = full((mp,), False, torch.bool)
+
+    # 3D point Kalman updates on a compacted 256-slot block; depth-less matches
+    # fuse an inverse-depth observation's cartesian projection (nested 64 block)
+    midx, mkeep = _compact_mask(p_final & pts_alive, 256)
+    uv_c = p_obs_uv[midx]
+    obs_screen = torch.stack([uv_c[:, 0], uv_c[:, 1], p_obs_z[midx]], dim=-1)
+    obs_world = pinhole.screen_to_world(obs_screen, new_c2w, cam)
+    obs_cov = cov_mod.screen_point_to_world_covariance(obs_screen, new_c2w, cam, pose_cov3)
+    didx, dkeep = _compact_mask(mkeep & ~p_obs_depth_ok[midx], 64)
+    id_state_c = idp.from_screen_observation(
+        uv_c[didx], new_c2w, cam, baseline_rho=det_cfg.inverse_depth_baseline / 2.0)
+    id_cov_c = idt.initial_covariance(pose_cov3.expand(64, 3, 3), det_cfg)
+    obs_world = _scatter_set(obs_world, didx, torch.where(
+        dkeep[:, None], idp.to_world(id_state_c), obs_world[didx]))
+    obs_cov = _scatter_set(obs_cov, didx, torch.where(
+        dkeep[:, None, None], idt.cartesian_covariance(id_state_c, id_cov_c),
+        obs_cov[didx]))
+    upd_pos, upd_cov, _, moving = kalman.track_points(pts.pos[midx], pts.cov[midx],
+                                                      obs_world, obs_cov)
+    # rows whose fused covariance is invalid keep their previous state
+    kf_ok = (cov_mod.is_covariance_valid_fast(upd_cov)
+             & torch.isfinite(upd_pos).all(dim=-1))
+    mkeep = mkeep & kf_ok
+    match_c = p_match_idx[midx]
+    desc_upd = mkeep & ~of_ok[midx] & (match_c >= 0)
+    desc_c = det_desc[det_rows(match_c)]
+    new_points = pts._replace(
+        pos=_scatter_set(pts.pos, midx, torch.where(mkeep[:, None], upd_pos, pts.pos[midx])),
+        cov=_scatter_set(pts.cov, midx, torch.where(mkeep[:, None, None], upd_cov,
+                                                    pts.cov[midx])),
+        desc=_scatter_set(pts.desc, midx, torch.where(desc_upd[:, None], desc_c,
+                                                      pts.desc[midx])),
+        is_moving=_scatter_set(pts.is_moving, midx, torch.where(mkeep, moving,
+                                                                pts.is_moving[midx])),
+    )
+
+    # 2D point fusion on a compacted 64-slot block
+    q_obs_screen = torch.stack([q_obs_uv[:, 0], q_obs_uv[:, 1], q_obs_z], dim=-1)
+    qidx, qkeep = _compact_mask(q_final & p2_alive, 64)
+    st3, cov3_, _ = idt.fuse_screen_observation_3d(
+        p2.state[qidx], p2.cov[qidx], q_obs_screen[qidx], new_c2w, pose_cov3, cam)
+    st2, cov2_, _ = idt.fuse_screen_observation_2d(
+        p2.state[qidx], p2.cov[qidx], q_obs_uv[qidx], new_c2w, pose_cov3, cam, det_cfg)
+    okd = q_obs_depth_ok[qidx]
+    fused_state = torch.where(okd[:, None], st3, st2)
+    fused_cov = torch.where(okd[:, None, None], cov3_, cov2_)
+    desc_c = det_desc[det_rows(q_match_idx[qidx])]
+    new_points2d = p2._replace(
+        state=_scatter_set(p2.state, qidx, torch.where(qkeep[:, None], fused_state,
+                                                       p2.state[qidx])),
+        cov=_scatter_set(p2.cov, qidx, torch.where(qkeep[:, None, None], fused_cov,
+                                                   p2.cov[qidx])),
+        desc=_scatter_set(p2.desc, qidx, torch.where(qkeep[:, None], desc_c,
+                                                     p2.desc[qidx])),
+    )
+    pl = state.planes
+
+    # --- lifecycle ------------------------------------------------------------
+    promote_pts = int(cfg.mapping.point_min_confidence_for_map
+                      * cfg.mapping.point_staged_age_confidence) + 1
+    p_loc, p_mc, p_miss, p_keep = maps.lifecycle_update(
+        new_points.is_local, new_points.match_count, new_points.miss_count,
+        p_final, promote_pts, cfg.mapping.point_unmatched_count_to_loose)
+    # death-export record, snapshot before insertion reuses slots
+    p_evicted = pts_alive & new_points.is_local & ~p_keep & ~new_points.is_moving
+    p_evict_pos = new_points.pos
+    new_points = maps.remove_features(
+        new_points._replace(is_local=p_loc, match_count=p_mc, miss_count=p_miss),
+        p_keep | ~pts_alive)
+
+    q_loc, q_mc, q_miss, q_keep = maps.lifecycle_update(
+        new_points2d.is_local, new_points2d.match_count, new_points2d.miss_count,
+        q_final, promote_pts, cfg.mapping.point_unmatched_count_to_loose)
+    q_evicted = p2_alive & new_points2d.is_local & ~q_keep
+    q_evict_pos = idp.to_world(new_points2d.state)
+    new_points2d = maps.remove_features(
+        new_points2d._replace(is_local=q_loc, match_count=q_mc, miss_count=q_miss),
+        q_keep | ~p2_alive)
+
+    k_loc, k_mc, k_miss, k_keep = maps.lifecycle_update(
+        pl.is_local, pl.match_count, pl.miss_count, k_final,
+        cfg.mapping.plane_staged_promote_hits, cfg.mapping.plane_unmatched_count_to_loose)
+    k_staged_drop = ~pl.is_local & (k_miss >= cfg.mapping.plane_staged_drop_misses)
+    k_evicted = maps.alive(pl) & pl.is_local & ~k_keep
+    new_planes = maps.remove_features(
+        pl._replace(is_local=k_loc, match_count=k_mc, miss_count=k_miss),
+        (k_keep & ~k_staged_drop) | ~maps.alive(pl))
+
+    # --- 2D -> 3D upgrade -----------------------------------------------------
+    lin_score = idt.linearity_score(new_points2d.state, new_points2d.cov, new_c2w)
+    upgrade = maps.alive(new_points2d) & (lin_score < 0.1) & q_final
+    uidx, ukeep = _compact_mask(upgrade, 32)
+    up_state_c = new_points2d.state[uidx]
+    up_world = idp.to_world(up_state_c)
+    up_cov = idt.cartesian_covariance(up_state_c, new_points2d.cov[uidx])
+
+    # --- insertion of new features -------------------------------------------
+    # tracking fine: unmatched detections go to the staged maps; lost: all
+    # detections re-seed the map
+    newly_lost = state.failed_count + i32(~success) > cfg.engine.max_failed_tracking
+    insert_all = ((~success) & (newly_lost | state.is_lost)) | first_frame
+    allow_insert = success | insert_all
+    det_free = det_valid & (~det_taken | insert_all) & allow_insert
+
+    want3 = det_free & det_depth_ok
+    det_screen = torch.stack([det_xy[:, 0], det_xy[:, 1], det_z], dim=-1)
+    new_world = pinhole.screen_to_world(det_screen, new_c2w, cam)
+    new_world_cov = cov_mod.screen_point_to_world_covariance(det_screen, new_c2w, cam,
+                                                             pose_cov3)
+    cand_pos = torch.cat([new_world, up_world], dim=0)
+    cand_cov = torch.cat([new_world_cov, up_cov], dim=0)
+    cand_desc = torch.cat([det_desc, new_points2d.desc[uidx]], dim=0)
+    cand_want = torch.cat([want3, ukeep], dim=0)
+    cand_local = torch.cat([torch.zeros_like(want3), ukeep], dim=0)
+    slots3 = maps.allocate_slots(~maps.alive(new_points), cand_want)
+    ok3 = slots3 >= 0
+    tgt3 = torch.where(ok3, slots3, m3)
+    ids3 = state.next_id + i32(torch.cumsum(i32(ok3), dim=0)) - 1
+    new_points = new_points._replace(
+        pos=_scatter_set(new_points.pos, tgt3, cand_pos),
+        cov=_scatter_set(new_points.cov, tgt3, cand_cov),
+        desc=_scatter_set(new_points.desc, tgt3, cand_desc),
+        fid=_scatter_set(new_points.fid, tgt3, ids3),
+        is_local=_scatter_set(new_points.is_local, tgt3, cand_local),
+        match_count=_scatter_set(new_points.match_count, tgt3, 1),
+        miss_count=_scatter_set(new_points.miss_count, tgt3, 0),
+        is_moving=_scatter_set(new_points.is_moving, tgt3, False),
+    )
+    next_id = state.next_id + i32(ok3.sum())
+
+    # upgraded 2D points leave the 2D map (only those that got a 3D slot)
+    upgraded_ok = _scatter_set(full((m2,), False, torch.bool), uidx, ok3[n_det:] & ukeep)
+    new_points2d = maps.remove_features(new_points2d, ~upgraded_ok)
+
+    want2 = det_free & ~det_depth_ok
+    slots2 = maps.allocate_slots(~maps.alive(new_points2d), want2)
+    ok2 = slots2 >= 0
+    tgt2 = torch.where(ok2, slots2, m2)
+    new_2d_state = idp.from_screen_observation(
+        det_xy, new_c2w, cam, baseline_rho=det_cfg.inverse_depth_baseline / 2.0)
+    new_2d_cov = idt.initial_covariance(pose_cov3.expand(n_det, 3, 3), det_cfg)
+    ids2 = next_id + i32(torch.cumsum(i32(ok2), dim=0)) - 1
+    new_points2d = new_points2d._replace(
+        state=_scatter_set(new_points2d.state, tgt2, new_2d_state),
+        cov=_scatter_set(new_points2d.cov, tgt2, new_2d_cov),
+        desc=_scatter_set(new_points2d.desc, tgt2, det_desc),
+        fid=_scatter_set(new_points2d.fid, tgt2, ids2),
+        is_local=_scatter_set(new_points2d.is_local, tgt2, False),
+        match_count=_scatter_set(new_points2d.match_count, tgt2, 1),
+        miss_count=_scatter_set(new_points2d.miss_count, tgt2, 0),
+    )
+    next_id = next_id + i32(ok2.sum())
+
+    # --- next-frame tracking set ---------------------------------------------
+    proj_next, proj_next_ok = pinhole.world_to_screen(new_points.pos, new_w2c, cam)
+    in_screen = pinhole.is_in_screen_boundaries(proj_next, cam)
+    track_cand = maps.alive(new_points) & proj_next_ok & in_screen & (drop != 0)
+    t_cap = cfg.mapping.max_tracked_points
+    cand_rank = torch.cumsum(track_cand.to(torch.int64), dim=0) - 1
+    sel = track_cand & (cand_rank < t_cap)
+    dest = torch.where(sel, cand_rank, t_cap)
+    tracked_uv_next = _scatter_set(full((t_cap, 2), 0.0, dt), dest, proj_next[:, :2])
+    tracked_idx_next = _scatter_set(full((t_cap,), -1, torch.int32), dest,
+                                    torch.arange(m3, dtype=torch.int32, device=dev))
+    tracked_ok_next = torch.arange(t_cap, device=dev) < sel.sum()
+
+    # --- tracking state -------------------------------------------------------
+    zero = torch.zeros_like(state.failed_count)
+    failed_count = torch.where(success, zero,
+                               torch.where(first_frame, zero, state.failed_count + 1))
+    is_lost = failed_count > cfg.engine.max_failed_tracking
+    motion_state, _, _ = motion_model.predict_next_pose(state.motion, new_quat, new_pos)
+    motion_state = motion_model.MotionModelState(*[
+        torch.where(success, a, b)
+        for a, b in zip(motion_state, motion_model.reset(dt, dev))])
+
+    new_state = SlamState(
+        quat=new_quat, position=new_pos, pose_cov=new_pose_cov, motion=motion_state,
+        points=new_points, points2d=new_points2d, planes=new_planes, lines=state.lines,
+        prev_pyramid=tuple(pyr_cur), tracked_uv=tracked_uv_next,
+        tracked_ok=tracked_ok_next, tracked_map_idx=tracked_idx_next,
+        frame_idx=state.frame_idx + 1, failed_count=failed_count, is_lost=is_lost,
+        next_id=next_id, generator=state.generator,
+    )
+    no_lines = full((ml,), False, torch.bool)
+    output = StepOutput(
+        quat=new_quat, position=new_pos, pose_cov=new_pose_cov,
+        success=success | first_frame, is_lost=is_lost,
+        n_point_matches=i32((p_matched & pts_alive).sum()),
+        n_point_inliers=i32(p_final.sum()),
+        n_points_alive=i32(maps.alive(new_points).sum()),
+        n_planes_alive=i32(maps.alive(new_planes).sum()),
+        n_detected=i32(det_valid.sum()),
+        n_lines=full((), 0, torch.int32),
+        n_line_matches=full((), 0, torch.int32),
+        n_lines_alive=i32(maps.alive(state.lines).sum()),
+        n_cylinders=full((), 0, torch.int32),
+        n_plane_merge_dropped=full((), 0, torch.int32),
+        cylinder_cells=full((n_grid_cells,), False, torch.bool),
+        point_obs_uv=p_obs_uv,
+        point_obs_z=torch.where(p_obs_depth_ok, p_obs_z, torch.zeros_like(p_obs_z)),
+        point_matched=p_final & pts_alive,
+        point_fid=pts.fid,
+        n_evicted=i32(p_evicted.sum() + q_evicted.sum() + k_evicted.sum()),
+        point_evicted=p_evicted, point_evict_pos=p_evict_pos,
+        point2d_evicted=q_evicted, point2d_evict_pos=q_evict_pos,
+        plane_evicted=k_evicted, plane_evict_params=pl.params,
+        plane_evict_verts=pl.poly_verts, plane_evict_count=pl.poly_count,
+        plane_evict_center=pl.basis_center, plane_evict_u=pl.basis_u,
+        plane_evict_v=pl.basis_v,
+        line_evicted=no_lines, line_evict_eps=state.lines.endpoints,
+    )
+    return new_state, output

@@ -1,0 +1,96 @@
+"""Covariance models and propagation for points (port of the point parts of
+``rgbd_slam_tpu/geometry/covariances.py``; the plane conversions wait for the
+planes slice).  Batched over a leading feature axis, f32 with explicit
+symmetrization.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import CameraIntrinsics, DepthNoiseModel
+
+
+def get_depth_quantization(depth_mm, model: DepthNoiseModel = DepthNoiseModel()):
+    """Minimum depth disparity at depth z: ``max(a + b z + c z^2, 0.5mm)``."""
+    z = depth_mm
+    return torch.clamp_min(model.constant + model.linear * z + model.quadratic * z * z,
+                           model.floor_mm)
+
+
+def propagate_covariance(cov, jacobian, eps=0.0):
+    """First-order propagation ``J Sigma J^T (+ eps I)``, symmetrized."""
+    out = jacobian @ cov @ jacobian.transpose(-1, -2)
+    out = 0.5 * (out + out.transpose(-1, -2))
+    if eps:
+        out = out + eps * torch.eye(out.shape[-1], dtype=out.dtype, device=out.device)
+    return out
+
+
+def is_covariance_valid_fast(cov, atol=1e-5):
+    """Covariance validity: finite, symmetric and positive-definite.  3x3 uses
+    Sylvester's criterion in closed form; other sizes a Cholesky whose failure
+    (``info != 0``, where ``jnp.linalg.cholesky`` returns NaN) means not PD."""
+    sym_t = cov.transpose(-1, -2)
+    finite = torch.isfinite(cov).all(dim=-1).all(dim=-1)
+    scale = torch.clamp_min(torch.abs(cov).amax(dim=(-2, -1)), 1.0)
+    sym = torch.abs(cov - sym_t).amax(dim=(-2, -1)) < atol * scale
+    n = cov.shape[-1]
+    s = 0.5 * (cov + sym_t) + atol * torch.eye(n, dtype=cov.dtype, device=cov.device)
+    if n == 3:
+        a, b, c = s[..., 0, 0], s[..., 0, 1], s[..., 0, 2]
+        d, e, f = s[..., 1, 1], s[..., 1, 2], s[..., 2, 2]
+        m1 = a
+        m2 = a * d - b * b
+        m3 = a * (d * f - e * e) - b * (b * f - c * e) + c * (b * e - c * d)
+        pd = (m1 > 0) & (m2 > 0) & (m3 > 0)
+    else:
+        chol, info = torch.linalg.cholesky_ex(s)
+        pd = (info == 0) & torch.isfinite(chol).all(dim=-1).all(dim=-1)
+    return finite & sym & pd
+
+
+def screen_point_covariance(screen, model: DepthNoiseModel = DepthNoiseModel(),
+                            xy_sigma_px: float = 0.1):
+    """Measurement covariance of a screen observation [u, v, z]: fixed 0.1px xy
+    variance and depth-quantization z variance (invalid depth -> 1000)."""
+    from .pinhole import is_depth_valid
+
+    z = screen[..., 2]
+    zq = torch.where(is_depth_valid(z), get_depth_quantization(z, model),
+                     torch.full_like(z, 1000.0))
+    xy_var = torch.full_like(z, xy_sigma_px * xy_sigma_px)
+    diag = torch.stack([xy_var, xy_var, zq], dim=-1)
+    return diag[..., :, None] * torch.eye(3, dtype=screen.dtype, device=screen.device)
+
+
+def screen_to_camera_covariance(screen, screen_cov, cam: CameraIntrinsics):
+    """Screen covariance -> camera space with the absolute-value jacobian."""
+    z = screen[..., 2]
+    jx = torch.abs(screen[..., 0] - cam.cx) / cam.fx
+    jy = torch.abs(screen[..., 1] - cam.cy) / cam.fy
+    zero = torch.zeros_like(z)
+    one = torch.ones_like(z)
+    j = torch.stack([
+        torch.stack([z / cam.fx, zero, jx], dim=-1),
+        torch.stack([zero, z / cam.fy, jy], dim=-1),
+        torch.stack([zero, zero, one], dim=-1),
+    ], dim=-2)
+    return propagate_covariance(screen_cov, j)
+
+
+def rotate_covariance(cov, rotation_33, pose_cov=None):
+    """Rotate a 3x3 covariance between frames and add the pose covariance."""
+    out = propagate_covariance(cov, rotation_33)
+    if pose_cov is not None:
+        out = out + pose_cov
+    return out
+
+
+def screen_point_to_world_covariance(screen, c2w, cam: CameraIntrinsics,
+                                     pose_cov=None,
+                                     model: DepthNoiseModel = DepthNoiseModel()):
+    """Full chain screen measurement -> world covariance."""
+    s_cov = screen_point_covariance(screen, model)
+    c_cov = screen_to_camera_covariance(screen, s_cov, cam)
+    return rotate_covariance(c_cov, c2w[..., :3, :3], pose_cov)
