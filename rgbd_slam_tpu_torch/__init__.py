@@ -2,9 +2,10 @@
 
 The JAX package stays the reference; this package keeps its module paths, function
 names and fixed-capacity masked state, written as plain functions on tensors.  The
-one Pallas kernel on the points-only step (the fused forward-backward pyramidal LK)
-is a hand-written CUDA kernel for Hopper (``csrc/lk_fwd_bwd.cu``); every other op is
-plain PyTorch.  This package never imports jax.
+JAX package's Pallas kernels (the pyramidal LK: fused forward-backward,
+forward-only and single-level) are hand-written CUDA kernels for Hopper
+(``csrc/lk.cu``); every other op is plain PyTorch.  This package never imports
+jax.
 """
 
 import torch as _torch

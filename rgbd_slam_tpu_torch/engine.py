@@ -1,18 +1,20 @@
 """RGB-D SLAM engine: the per-frame tracking step (port of
-``rgbd_slam_tpu/engine.py``), points only.
+``rgbd_slam_tpu/engine.py``), points and planes.
 
 ``step(state, gray, depth) -> (state, output)`` over the JAX package's
 fixed-capacity masked state: pyramid, forward-backward LK of the tracked map
-points (CUDA kernel on the card), FAST + BRIEF and windowed matching on refresh
-frames, RANSAC pose optimization with a Monte-Carlo covariance, Kalman map
-updates, lifecycle, insertion and the next tracked set.  Planes
-(``with_planes=True``) and lines (``with_lines=True``) raise until their slices
-are ported.
+points (CUDA kernels on the card), FAST + BRIEF and windowed matching on refresh
+frames, CAPE plane and cylinder extraction and plane matching, RANSAC pose
+optimization with a Monte-Carlo covariance, Kalman map updates (points and
+planes, with the polygon merge), lifecycle, insertion and the next tracked set.
+Lines (``with_lines=True``) raise until their slice is ported.
 
 Differences from the JAX step that do not change its results:
 
 * ``lax.cond`` on the detection flag is a Python branch: one ``.item()`` host
-  sync per frame decides both the detection and the matching branch.
+  sync per frame decides both the detection and the matching branch.  The
+  plane extraction's components fixpoint adds one host read per
+  ``primitives.CC_CHUNK`` iterations.
 * ``.at[i].set(..., mode="drop")`` is :func:`_scatter_set`: out-of-range rows go
   to a sink row, and among duplicate indices the last write wins, which is what
   XLA's serial scatter does (the compacted blocks scatter their unfilled rows to
@@ -23,20 +25,26 @@ Differences from the JAX step that do not change its results:
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from .config import CameraIntrinsics, SlamConfig
+from .features import primitives
+from .features.primitives import MAX_PLANES
 from .geometry import covariances as cov_mod
 from .geometry import inverse_depth as idp
 from .geometry import pinhole, se3
+from .geometry import planes as planes_geo
 from .mapping import maps
 from .ops import brief, fast, image, matching, optical_flow
+from .ops.fast import top_k
 from .pose.features import MatchedFeatures
 from .pose.optimizer import PoseDraws, compact_rows, compute_optimized_pose
 from .tracking import inverse_depth_tracking as idt
 from .tracking import kalman, motion_model
+from .utils import polygon as poly
 
 
 class SlamState(NamedTuple):
@@ -171,8 +179,141 @@ def _scatter_set(dst, idx, src):
     return out[:n]
 
 
+def _match_planes(plane_map: maps.PlaneMap, det: primitives.DetectedPlanes, c2w,
+                  cfg: SlamConfig):
+    """Match map planes to detections at the predicted pose: normal-angle and
+    distance gates, then the exact polygon intersection over the detection's
+    area, computed for the 32 best-aligned gated pairs.  Each detection matches
+    at most one map plane (the larger intersection wins).  Returns (match index
+    [Mp] into detections or -1, detections in world coordinates)."""
+    dev = c2w.device
+    det_world = planes_geo.transform_plane(det.params, se3.plane_camera_to_world_matrix(c2w))
+    cos_gate = math.cos(math.radians(cfg.matching.max_plane_match_angle_d))
+    cosang = plane_map.params[:, :3] @ det_world[:, :3].T
+    d_diff = torch.abs(plane_map.params[:, 3:4] - det_world[None, :, 3])
+    gate = ((cosang > cos_gate) & (d_diff < cfg.matching.max_plane_match_distance_mm)
+            & maps.alive(plane_map)[:, None] & det.valid[None, :])
+
+    r = c2w[:3, :3]
+    det_center_w = det.basis_center @ r.T + c2w[:3, 3]
+    det_u_w = det.basis_u @ r.T
+    det_v_w = det.basis_v @ r.T
+    mp = plane_map.params.shape[0]
+    nd = det.params.shape[0]
+    det_area = poly.polygon_area(det.poly_verts, det.poly_count)
+
+    # candidate pairs, best-aligned first (ties to the lower index, as lax.top_k)
+    pair_cap = min(32, mp * nd)
+    flat_gate = gate.reshape(-1)
+    pri = torch.where(flat_gate, cosang.reshape(-1),
+                      torch.full_like(cosang.reshape(-1), -float("inf")))
+    _, pair_idx = top_k(pri, pair_cap)
+    pm_i = pair_idx // nd
+    pd_i = pair_idx % nd
+    pair_ok = flat_gate[pair_idx]
+
+    dv = det.poly_verts[pd_i]
+    verts3 = (det_center_w[pd_i][:, None, :] + dv[..., 0:1] * det_u_w[pd_i][:, None, :]
+              + dv[..., 1:2] * det_v_w[pd_i][:, None, :])
+    verts2 = poly.project_to_plane(verts3, plane_map.basis_center[pm_i],
+                                   plane_map.basis_u[pm_i], plane_map.basis_v[pm_i])
+    inter_pairs = poly.convex_intersection_area(
+        plane_map.poly_verts[pm_i], plane_map.poly_count[pm_i], verts2,
+        det.poly_count[pd_i])
+    inter = torch.zeros((mp, nd), dtype=inter_pairs.dtype, device=dev)
+    inter[pm_i, pd_i] = torch.where(pair_ok, inter_pairs, torch.zeros_like(inter_pairs))
+    ratio = inter / torch.clamp_min(det_area[None, :], 1e-9)
+    ok_pair = gate & (ratio >= cfg.matching.min_plane_overlap_for_match)
+    pair_score = torch.where(ok_pair, inter, torch.full_like(inter, -1.0))
+    best = torch.argmax(pair_score, dim=1)
+    best_inter = torch.gather(pair_score, 1, best[:, None])[:, 0]
+    ok = best_inter > 0.0
+    score = torch.where(ok, best_inter, torch.full_like(best_inter, -1.0))
+    claims = best[None, :] == torch.arange(nd, device=dev)[:, None]     # [nd, mp]
+    winner = torch.argmax(torch.where(claims, score[None, :],
+                                      torch.full_like(claims, -1.0, dtype=score.dtype)),
+                          dim=1)
+    ok = ok & (winner[best] == torch.arange(mp, device=dev))
+    return torch.where(ok, best, -1).to(torch.int32), det_world
+
+
+def _update_planes(pl: maps.PlaneMap, det: primitives.DetectedPlanes, safe_k, k_final,
+                   c2w, pose_cov3, cfg: SlamConfig):
+    """Kalman update of the matched map planes with their detections in world
+    coordinates at the optimized pose ``c2w``, and the merge of each matched
+    plane's polygon with its detection's, compacted to ``plane_merge_cap``
+    planes (the rest keep a stale polygon this frame and are counted).
+
+    Returns (updated map, every detection's world plane [16, 4] and covariance
+    [16, 4, 4], the count of merges past the cap)."""
+    mp = pl.params.shape[0]
+    det_world = planes_geo.normalize_plane(planes_geo.transform_plane(
+        det.params, se3.plane_camera_to_world_matrix(c2w)))
+    det_world_cov = cov_mod.world_plane_covariance(
+        det.params, det_world, c2w,
+        cov_mod.plane_covariance_from_point_cloud(det.params, det.cloud_cov), pose_cov3)
+    upd_params, upd_pcov = kalman.track_planes(pl.params, pl.cov, det_world[safe_k],
+                                               det_world_cov[safe_k])
+    upd_params = planes_geo.normalize_plane(upd_params)
+    plane_kf_ok = (cov_mod.is_covariance_valid_fast(upd_pcov)
+                   & torch.isfinite(upd_params).all(dim=-1))
+    do_k = k_final & maps.alive(pl) & plane_kf_ok
+
+    # polygon merge in the map plane's basis, on the compacted matched planes
+    r = c2w[:3, :3]
+    merge_cap = min(cfg.mapping.plane_merge_cap, mp)
+    kidx, kkeep = _compact_mask(do_k, merge_cap)
+    n_merge_dropped = torch.clamp_min(do_k.to(torch.int32).sum() - merge_cap, 0) \
+        .to(torch.int32)
+    dk = safe_k[kidx]
+    dv = det.poly_verts[dk]
+    verts3 = (det.basis_center[dk] @ r.T + c2w[:3, 3])[:, None, :] \
+        + dv[..., 0:1] * (det.basis_u[dk] @ r.T)[:, None, :] \
+        + dv[..., 1:2] * (det.basis_v[dk] @ r.T)[:, None, :]
+    verts2 = poly.project_to_plane(verts3, pl.basis_center[kidx], pl.basis_u[kidx],
+                                   pl.basis_v[kidx])
+    mverts_c, mcounts_c = poly.merge_polygons(pl.poly_verts[kidx], pl.poly_count[kidx],
+                                              verts2, det.poly_count[dk])
+    # unfilled compact rows go to the sink, not to slot 0
+    kidx_w = torch.where(kkeep, kidx, mp)
+    pl = pl._replace(
+        params=torch.where(do_k[:, None], upd_params, pl.params),
+        cov=torch.where(do_k[:, None, None], upd_pcov, pl.cov),
+        poly_verts=_scatter_set(pl.poly_verts, kidx_w, mverts_c),
+        poly_count=_scatter_set(pl.poly_count, kidx_w, mcounts_c))
+    return pl, det_world, det_world_cov, n_merge_dropped
+
+
+def _insert_planes(pl: maps.PlaneMap, det: primitives.DetectedPlanes, det_world,
+                   det_world_cov, safe_k, k_final, c2w, next_id):
+    """Valid detections that no map plane matched become staged map planes in
+    free slots, with ids from ``next_id``.  Returns (map, next id)."""
+    mp = pl.params.shape[0]
+    taken = _scatter_set(torch.zeros((MAX_PLANES,), dtype=torch.bool, device=c2w.device),
+                         torch.where(k_final, safe_k, MAX_PLANES), True)
+    slots = maps.allocate_slots(~maps.alive(pl), det.valid & ~taken)
+    ok = slots >= 0
+    tgt = torch.where(ok, slots, mp)
+    r = c2w[:3, :3]
+    ids = next_id + torch.cumsum(ok.to(torch.int32), dim=0).to(torch.int32) - 1
+    pl = pl._replace(
+        params=_scatter_set(pl.params, tgt, det_world),
+        cov=_scatter_set(pl.cov, tgt, det_world_cov),
+        poly_verts=_scatter_set(pl.poly_verts, tgt, det.poly_verts),
+        poly_count=_scatter_set(pl.poly_count, tgt, det.poly_count),
+        basis_center=_scatter_set(pl.basis_center, tgt, det.basis_center @ r.T + c2w[:3, 3]),
+        basis_u=_scatter_set(pl.basis_u, tgt, det.basis_u @ r.T),
+        basis_v=_scatter_set(pl.basis_v, tgt, det.basis_v @ r.T),
+        fid=_scatter_set(pl.fid, tgt, ids),
+        is_local=_scatter_set(pl.is_local, tgt, False),
+        match_count=_scatter_set(pl.match_count, tgt, 1),
+        miss_count=_scatter_set(pl.miss_count, tgt, 0),
+    )
+    return pl, next_id + ok.to(torch.int32).sum().to(torch.int32)
+
+
 def _sync_detect_flag(do_detect) -> bool:
-    """The step's one host sync: the Python branch on the detection flag."""
+    """The Python branch on the detection flag: one host read."""
     return bool(do_detect.item())
 
 
@@ -181,10 +322,6 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
          draws: StepDraws | None = None):
     """Process one RGB-D frame.  ``gray`` and ``depth`` are [H, W] float32 on the
     state's device.  Returns (new_state, StepOutput)."""
-    if with_planes:
-        raise NotImplementedError(
-            "with_planes=True: the CAPE plane/cylinder path (ROADMAP queue 1 #5 and "
-            "the plane parts of #7-#8) is not ported yet; pass with_planes=False")
     if with_lines:
         raise NotImplementedError(
             "with_lines=True: line features (ROADMAP queue 1 #10) are not ported yet")
@@ -215,6 +352,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     else:
         pred_quat, pred_pos = state.quat, state.position
     w2c = se3.world_to_camera(pred_quat, pred_pos)
+    c2w = se3.camera_to_world(pred_quat, pred_pos)
 
     # --- feature extraction -----------------------------------------------
     levels = det_cfg.optical_flow_pyramid_depth
@@ -324,8 +462,21 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     q_obs_depth_ok = pinhole.is_depth_valid(q_obs_z, cfg.engine.min_depth_mm,
                                             cfg.engine.max_depth_mm)
 
+    # planes + cylinders (cylinders surface only in the step output)
     n_grid_cells = (cam.height // det_cfg.depth_patch_size_px) \
         * (cam.width // det_cfg.depth_patch_size_px)
+    if with_planes:
+        det_planes, det_cyls = primitives.find_primitives(depth, cam, det_cfg)
+        k_match_idx, _ = _match_planes(state.planes, det_planes, c2w, cfg)
+        n_cylinders = i32(det_cyls.valid.sum())
+        cylinder_cells = (det_cyls.cell_mask & det_cyls.valid[:, None]).any(dim=0)
+    else:
+        det_planes = None
+        k_match_idx = full((mp,), -1, torch.int32)
+        n_cylinders = full((), 0, torch.int32)
+        cylinder_cells = full((n_grid_cells,), False, torch.bool)
+    k_matched = k_match_idx >= 0
+    safe_k = k_match_idx.clamp(0, MAX_PLANES - 1).to(torch.int64)
 
     # --- pose optimization --------------------------------------------------
     def std_of(cov):
@@ -336,9 +487,9 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         point_mask=p_matched & pts_alive,
         point2d_obs_uv=q_obs_uv, point2d_state=p2.state,
         point2d_state_std=std_of(p2.cov), point2d_mask=q_matched & p2_alive,
-        plane_cam=full((mp, 4), 0.0, dt), plane_world=state.planes.params,
-        plane_world_std=std_of(state.planes.cov),
-        plane_mask=full((mp,), False, torch.bool),
+        plane_cam=det_planes.params[safe_k] if with_planes else full((mp, 4), 0.0, dt),
+        plane_world=state.planes.params, plane_world_std=std_of(state.planes.cov),
+        plane_mask=k_matched & maps.alive(state.planes),
         line_obs_p0=full((ml, 2), 0.0, dt), line_obs_p1=full((ml, 2), 0.0, dt),
         line_world=state.lines.endpoints,
         line_world_std=std_of(state.lines.cov).reshape(ml, 6),
@@ -364,7 +515,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     # final per-slot "matched" = matched AND RANSAC inlier, on successful frames
     p_final = success & p_matched & opt.point_inliers
     q_final = success & q_matched & opt.point2d_inliers
-    k_final = full((mp,), False, torch.bool)
+    k_final = success & k_matched & opt.plane_inliers
 
     # 3D point Kalman updates on a compacted 256-slot block; depth-less matches
     # fuse an inverse-depth observation's cartesian projection (nested 64 block)
@@ -420,7 +571,13 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         desc=_scatter_set(p2.desc, qidx, torch.where(qkeep[:, None], desc_c,
                                                      p2.desc[qidx])),
     )
-    pl = state.planes
+    # plane updates: world-frame 4x4 KF and the polygon merge
+    if with_planes:
+        pl, det_world_norm, det_world_cov, n_merge_dropped = _update_planes(
+            state.planes, det_planes, safe_k, k_final, new_c2w, pose_cov3, cfg)
+    else:
+        pl = state.planes
+        n_merge_dropped = full((), 0, torch.int32)
 
     # --- lifecycle ------------------------------------------------------------
     promote_pts = int(cfg.mapping.point_min_confidence_for_map
@@ -444,14 +601,17 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         new_points2d._replace(is_local=q_loc, match_count=q_mc, miss_count=q_miss),
         q_keep | ~p2_alive)
 
+    # staged planes drop after plane_staged_drop_misses misses; the death-export
+    # record is the updated plane before insertion reuses its slot
     k_loc, k_mc, k_miss, k_keep = maps.lifecycle_update(
         pl.is_local, pl.match_count, pl.miss_count, k_final,
         cfg.mapping.plane_staged_promote_hits, cfg.mapping.plane_unmatched_count_to_loose)
     k_staged_drop = ~pl.is_local & (k_miss >= cfg.mapping.plane_staged_drop_misses)
-    k_evicted = maps.alive(pl) & pl.is_local & ~k_keep
+    k_evicted = maps.alive(state.planes) & pl.is_local & ~k_keep
+    k_evict = pl
     new_planes = maps.remove_features(
         pl._replace(is_local=k_loc, match_count=k_mc, miss_count=k_miss),
-        (k_keep & ~k_staged_drop) | ~maps.alive(pl))
+        (k_keep & ~k_staged_drop) | ~maps.alive(state.planes))
 
     # --- 2D -> 3D upgrade -----------------------------------------------------
     lin_score = idt.linearity_score(new_points2d.state, new_points2d.cov, new_c2w)
@@ -518,6 +678,12 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     )
     next_id = next_id + i32(ok2.sum())
 
+    # new staged planes from unmatched detections
+    if with_planes:
+        new_planes, next_id = _insert_planes(new_planes, det_planes, det_world_norm,
+                                             det_world_cov, safe_k, k_final, new_c2w,
+                                             next_id)
+
     # --- next-frame tracking set ---------------------------------------------
     proj_next, proj_next_ok = pinhole.world_to_screen(new_points.pos, new_w2c, cam)
     in_screen = pinhole.is_in_screen_boundaries(proj_next, cam)
@@ -561,9 +727,9 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         n_lines=full((), 0, torch.int32),
         n_line_matches=full((), 0, torch.int32),
         n_lines_alive=i32(maps.alive(state.lines).sum()),
-        n_cylinders=full((), 0, torch.int32),
-        n_plane_merge_dropped=full((), 0, torch.int32),
-        cylinder_cells=full((n_grid_cells,), False, torch.bool),
+        n_cylinders=n_cylinders,
+        n_plane_merge_dropped=n_merge_dropped,
+        cylinder_cells=cylinder_cells,
         point_obs_uv=p_obs_uv,
         point_obs_z=torch.where(p_obs_depth_ok, p_obs_z, torch.zeros_like(p_obs_z)),
         point_matched=p_final & pts_alive,
@@ -571,10 +737,10 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         n_evicted=i32(p_evicted.sum() + q_evicted.sum() + k_evicted.sum()),
         point_evicted=p_evicted, point_evict_pos=p_evict_pos,
         point2d_evicted=q_evicted, point2d_evict_pos=q_evict_pos,
-        plane_evicted=k_evicted, plane_evict_params=pl.params,
-        plane_evict_verts=pl.poly_verts, plane_evict_count=pl.poly_count,
-        plane_evict_center=pl.basis_center, plane_evict_u=pl.basis_u,
-        plane_evict_v=pl.basis_v,
+        plane_evicted=k_evicted, plane_evict_params=k_evict.params,
+        plane_evict_verts=k_evict.poly_verts, plane_evict_count=k_evict.poly_count,
+        plane_evict_center=k_evict.basis_center, plane_evict_u=k_evict.basis_u,
+        plane_evict_v=k_evict.basis_v,
         line_evicted=no_lines, line_evict_eps=state.lines.endpoints,
     )
     return new_state, output

@@ -1,7 +1,6 @@
-"""Covariance models and propagation for points (port of the point parts of
-``rgbd_slam_tpu/geometry/covariances.py``; the plane conversions wait for the
-planes slice).  Batched over a leading feature axis, f32 with explicit
-symmetrization.
+"""Covariance models and propagation (port of
+``rgbd_slam_tpu/geometry/covariances.py``).  Batched over a leading feature axis,
+f32 with explicit symmetrization.
 """
 
 from __future__ import annotations
@@ -94,3 +93,47 @@ def screen_point_to_world_covariance(screen, c2w, cam: CameraIntrinsics,
     s_cov = screen_point_covariance(screen, model)
     c_cov = screen_to_camera_covariance(screen, s_cov, cam)
     return rotate_covariance(c_cov, c2w[..., :3, :3], pose_cov)
+
+
+# ---------------------------------------------------------------------------
+# plane covariance conversions (hessian 4-param <-> reduced 3-param d*n)
+# ---------------------------------------------------------------------------
+
+def plane_covariance_from_point_cloud(plane_4, point_cloud_cov, eps=0.01):
+    """3-param (n*d vector) point-cloud covariance -> 4-param hessian covariance;
+    ``plane_4`` = [nx, ny, nz, d] with unit normal."""
+    p = plane_4[..., :3] * plane_4[..., 3:4]
+    a, b, c = p[..., 0], p[..., 1], p[..., 2]
+    a2, b2, c2 = a * a, b * b, c * c
+    s = a2 + b2 + c2
+    divider = s ** 1.5
+    common = 1.0 / torch.sqrt(s)
+    j = torch.stack([
+        torch.stack([common - a2 / divider, -(a * b) / divider, -(a * c) / divider], dim=-1),
+        torch.stack([-(a * b) / divider, common - b2 / divider, -(b * c) / divider], dim=-1),
+        torch.stack([-(a * c) / divider, -(b * c) / divider, common - c2 / divider], dim=-1),
+        torch.stack([-a / divider, -b / divider, -c / divider], dim=-1),
+    ], dim=-2)
+    return propagate_covariance(point_cloud_cov, j, eps=eps)
+
+
+def reduced_point_cloud_covariance_from_plane(plane_4, plane_cov44, eps=0.01):
+    """4-param hessian covariance -> 3-param (n*d) covariance."""
+    n = plane_4[..., :3]
+    d = plane_4[..., 3]
+    zero = torch.zeros_like(d)
+    j = torch.stack([
+        torch.stack([d, zero, zero, n[..., 0]], dim=-1),
+        torch.stack([zero, d, zero, n[..., 1]], dim=-1),
+        torch.stack([zero, zero, d, n[..., 2]], dim=-1),
+    ], dim=-2)
+    return propagate_covariance(plane_cov44, j, eps=eps)
+
+
+def world_plane_covariance(plane_cam_4, plane_world_4, c2w, plane_cov44, world_pose_cov33,
+                           eps=0.01):
+    """Camera plane covariance -> world plane covariance via the reduced point
+    form."""
+    pc_cov = reduced_point_cloud_covariance_from_plane(plane_cam_4, plane_cov44, eps)
+    pc_world = rotate_covariance(pc_cov, c2w[..., :3, :3], world_pose_cov33)
+    return plane_covariance_from_point_cloud(plane_world_4, pc_world, eps)

@@ -1,7 +1,7 @@
 """Hessian-form plane helpers (port of ``rgbd_slam_tpu/geometry/planes.py``).
 
-A plane is ``[nx, ny, nz, d]`` with unit normal.  Only what the pose residuals call
-is ported; the plane map itself waits for the planes slice.
+A plane is ``[nx, ny, nz, d]`` with unit normal; a point p lies on it iff
+``n . p + d == 0``.  Batched over leading axes.
 """
 
 from __future__ import annotations
@@ -16,6 +16,21 @@ def normalize_plane(plane_4):
     n = plane_4[..., :3]
     norm = torch.clamp_min(torch.linalg.vector_norm(n, dim=-1, keepdim=True), 1e-12)
     return torch.cat([n / norm, plane_4[..., 3:4]], dim=-1)
+
+
+def plane_center(plane_4):
+    """Closest point of the plane to the origin."""
+    return plane_4[..., :3] * (-plane_4[..., 3:4])
+
+
+def point_distance(plane_4, point):
+    """Signed point-plane distance ``n.p + d``."""
+    return (plane_4[..., :3] * point).sum(dim=-1) + plane_4[..., 3]
+
+
+def cos_angle(plane_a, plane_b):
+    """Cosine of the angle between two plane normals."""
+    return (plane_a[..., :3] * plane_b[..., :3]).sum(dim=-1)
 
 
 def transform_plane(plane_4, plane_m44):

@@ -1,13 +1,20 @@
-"""Fused forward-backward pyramidal LK: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Pyramidal Lucas-Kanade: the CUDA kernels' wrappers and their plain PyTorch
+versions.
 
-``lk_fwd_bwd`` is the entry point.  For CUDA tensors it launches the hand-written
-Hopper kernel in ``csrc/lk_fwd_bwd.cu`` (which replaces
-``rgbd_slam_tpu.ops.pallas_lk.lk_fwd_bwd_pallas``) or raises; for CPU tensors it
-runs :func:`lk_fwd_bwd_reference`, the same semantics as batched tensor code with
-lockstep masked iterations.
+Three entry points, one per kernel of ``csrc/lk.cu``:
 
-The kernel is compiled with ``nvcc`` on first use from the source in this
+* ``lk_fwd_bwd``: fused forward + backward pyramidal LK with the round-trip gate
+  (replaces ``rgbd_slam_tpu.ops.pallas_lk.lk_fwd_bwd_pallas``);
+* ``lk_pyramid``: forward-only pyramidal LK, flow and status (replaces
+  ``lk_pyramid_pallas``);
+* ``lk_level``: one LK level from per-point guesses (replaces
+  ``lk_level_pallas``).
+
+For CUDA tensors each launches its hand-written Hopper kernel or raises; for CPU
+tensors it runs its plain version (``*_reference``), the same semantics as
+batched tensor code with lockstep masked iterations.
+
+The kernels are compiled with ``nvcc`` on first use from the source in this
 package, into ``rgbd_slam_tpu_torch/_build/``, and bound with ctypes.
 """
 
@@ -23,16 +30,21 @@ import time
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCE = os.path.join(_HERE, "..", "csrc", "lk_fwd_bwd.cu")
+_SOURCE = os.path.join(_HERE, "..", "csrc", "lk.cu")
 _BUILD_DIR = os.path.join(_HERE, "..", "_build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]
 _MAX_LEVELS = 8  # LK_MAX_LEVELS in the kernel source
 
-#: launches of the CUDA kernel since import (or since the caller reset it)
-LAUNCHES = 0
+#: launches of each CUDA kernel since import (or since :func:`reset_launches`)
+LAUNCHES = {"lk_fwd_bwd": 0, "lk_pyramid": 0, "lk_level": 0}
 
 _lib = None
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -58,7 +70,7 @@ def build() -> float:
     with open(_SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(_BUILD_DIR, f"liblk_fwd_bwd_{digest}.so")
+    so_path = os.path.join(_BUILD_DIR, f"liblk_{digest}.so")
     if not os.path.exists(so_path):
         tmp = f"{so_path}.{os.getpid()}.tmp"
         proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SOURCE],
@@ -67,13 +79,16 @@ def build() -> float:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, so_path)
     lib = ctypes.CDLL(so_path)
-    fn = lib.lk_fwd_bwd_launch
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    lib.lk_fwd_bwd_launch.argtypes = [ptrs, ptrs, ctypes.POINTER(ctypes.c_int), i32, i32,
+                                      i32, f32, f32, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.lk_pyramid_launch.argtypes = [ptrs, ptrs, ctypes.POINTER(ctypes.c_int), i32, i32,
+                                      f32, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.lk_level_launch.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, f32, ptr, ptr, ptr,
+                                    ptr, ptr, i32, ptr]
+    for fn in (lib.lk_fwd_bwd_launch, lib.lk_pyramid_launch, lib.lk_level_launch):
+        fn.restype = ctypes.c_int
     _lib = lib
     return time.perf_counter() - t0
 
@@ -81,11 +96,26 @@ def build() -> float:
 def window_sizes(dims, win_h: int, win_w: int, coarse_win: int | None,
                  coarse_from_level: int):
     """Per-level (rows, cols) windows, as lk_fwd_bwd_pallas computes them: the
-    coarse window from ``coarse_from_level`` up, clamped to the level size - 8."""
+    coarse window from ``coarse_from_level`` up, clamped to the level size - 8.
+    At ``coarse_win`` None (or equal to the window) this is lk_pyramid_pallas's
+    ``min(win, level - 8)``."""
     return tuple(
         (min(win_h if lvl < coarse_from_level else (coarse_win or win_h), lh - 8),
          min(win_w if lvl < coarse_from_level else (coarse_win or win_w), lw - 8))
         for lvl, (lh, lw) in enumerate(dims))
+
+
+def _dims(pyramid, levels: int):
+    return tuple((int(p.shape[0]), int(p.shape[1])) for p in pyramid[:levels + 1])
+
+
+def _dispatch(points, cuda_fn, plain_fn, *args, **kw):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if points.device.type == "cuda":
+        return cuda_fn(*args, **kw)
+    if points.device.type == "cpu":
+        return plain_fn(*args, **kw)
+    raise ValueError(f"unsupported device {points.device}")
 
 
 def lk_fwd_bwd(prev_pyramid, next_pyramid, points, valid, levels: int = 4,
@@ -96,28 +126,95 @@ def lk_fwd_bwd(prev_pyramid, next_pyramid, points, valid, levels: int = 4,
     """Fused forward+backward pyramidal LK with the round-trip gate.
 
     ``points`` [N, 2] f32 (x, y) at level 0, ``valid`` [N] bool.  Returns
-    (points + forward flow [N, 2], ok [N] bool).  CUDA tensors go to the kernel,
-    CPU tensors to :func:`lk_fwd_bwd_reference`."""
-    kw = dict(levels=levels, win_h=win_h, win_w=win_w, iterations=iterations,
-              eps=eps, max_roundtrip=max_roundtrip, bwd_levels=bwd_levels,
-              coarse_win=coarse_win, coarse_from_level=coarse_from_level)
-    if points.device.type == "cuda":
-        return lk_fwd_bwd_cuda(prev_pyramid, next_pyramid, points, valid, **kw)
-    if points.device.type == "cpu":
-        return lk_fwd_bwd_reference(prev_pyramid, next_pyramid, points, valid, **kw)
-    raise ValueError(f"lk_fwd_bwd: unsupported device {points.device}")
+    (points + forward flow [N, 2], ok [N] bool)."""
+    return _dispatch(points, lk_fwd_bwd_cuda, lk_fwd_bwd_reference, prev_pyramid,
+                     next_pyramid, points, valid, levels=levels, win_h=win_h, win_w=win_w,
+                     iterations=iterations, eps=eps, max_roundtrip=max_roundtrip,
+                     bwd_levels=bwd_levels, coarse_win=coarse_win,
+                     coarse_from_level=coarse_from_level)
 
+
+def lk_pyramid(prev_pyramid, next_pyramid, points, valid, levels: int = 4,
+               win_h: int = 53, win_w: int = 53, iterations: int = 10,
+               eps: float = 0.03, coarse_win: int | None = None,
+               coarse_from_level: int = 1):
+    """Forward-only pyramidal LK, zero-seeded at the top level, for any N >= 0.
+
+    ``points`` [N, 2] f32 (x, y) at level 0, ``valid`` [N] bool.  Returns (flow
+    [N, 2] at level 0, ok [N] bool); only level 0 sets ok."""
+    return _dispatch(points, lk_pyramid_cuda, lk_pyramid_reference, prev_pyramid,
+                     next_pyramid, points, valid, levels=levels, win_h=win_h, win_w=win_w,
+                     iterations=iterations, eps=eps, coarse_win=coarse_win,
+                     coarse_from_level=coarse_from_level)
+
+
+def lk_level(prev_img, next_img, points, guesses, valid, win_h: int, win_w: int,
+             iterations: int = 10, eps: float = 0.03):
+    """One LK level.  ``points`` and ``guesses`` [N, 2] at this level's scale, an
+    explicit window (no size clamp).  Returns (new guesses [N, 2], ok [N] bool),
+    ok = det > 1e-6 & valid."""
+    return _dispatch(points, lk_level_cuda, lk_level_reference, prev_img, next_img,
+                     points, guesses, valid, win_h=win_h, win_w=win_w,
+                     iterations=iterations, eps=eps)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
 
 def _check(name, t, device, dtype, shape=None, ndim=None):
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"lk_fwd_bwd_cuda: {name} must be a contiguous {dtype} "
-                         f"tensor on {device}, got {t.dtype} on {t.device} "
-                         f"(contiguous={t.is_contiguous()})")
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor on {device}, got "
+                         f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
     if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"lk_fwd_bwd_cuda: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if ndim is not None and t.dim() != ndim:
-        raise ValueError(f"lk_fwd_bwd_cuda: {name} must be {ndim}-D")
+        raise ValueError(f"{name} must be {ndim}-D")
+
+
+def _check_points(points, valid, *extra):
+    device = points.device
+    if device.type != "cuda":
+        raise ValueError("the LK kernels take CUDA tensors")
+    n = points.shape[0]
+    _check("points", points, device, torch.float32, shape=(n, 2))
+    _check("valid", valid, device, torch.bool, shape=(n,))
+    for name, t in extra:
+        _check(name, t, device, torch.float32, shape=(n, 2))
+    return device, n
+
+
+def _check_pyramids(prev_pyramid, next_pyramid, levels, device, win_h, win_w,
+                    coarse_win, coarse_from_level):
+    """Validated level lists and the flat [rows, cols, win rows, win cols] dims."""
+    if not 0 <= levels < _MAX_LEVELS:
+        raise ValueError(f"levels must be in [0, {_MAX_LEVELS - 1}], got {levels}")
+    if len(prev_pyramid) < levels + 1 or len(next_pyramid) < levels + 1:
+        raise ValueError("pyramids need levels + 1 images")
+    prev = list(prev_pyramid[:levels + 1])
+    nxt = list(next_pyramid[:levels + 1])
+    for lvl, (a, b) in enumerate(zip(prev, nxt)):
+        _check(f"prev_pyramid[{lvl}]", a, device, torch.float32, ndim=2)
+        _check(f"next_pyramid[{lvl}]", b, device, torch.float32, shape=a.shape)
+    dims = _dims(prev, levels)
+    wins = window_sizes(dims, win_h, win_w, coarse_win, coarse_from_level)
+    for (lh, lw), (wh, ww) in zip(dims, wins):
+        if wh < 1 or ww < 1:
+            raise ValueError(f"level {lh}x{lw} is too small for an LK window")
+    flat = [v for (lh, lw), (wh, ww) in zip(dims, wins) for v in (lh, lw, wh, ww)]
+    n_lv = levels + 1
+    return ((ctypes.c_void_p * n_lv)(*[t.data_ptr() for t in prev]),
+            (ctypes.c_void_p * n_lv)(*[t.data_ptr() for t in nxt]),
+            (ctypes.c_int * len(flat))(*flat))
+
+
+def _launch(name, fn, *args):
+    """Call a launch function of the library; count the launch, raise on its
+    error."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
 
 
 def lk_fwd_bwd_cuda(prev_pyramid, next_pyramid, points, valid, levels: int = 4,
@@ -125,54 +222,70 @@ def lk_fwd_bwd_cuda(prev_pyramid, next_pyramid, points, valid, levels: int = 4,
                     eps: float = 0.03, max_roundtrip: float = 35.0,
                     bwd_levels: int | None = None, coarse_win: int | None = None,
                     coarse_from_level: int = 1):
-    """Launch the CUDA kernel (one CTA per point) on the current stream."""
-    global LAUNCHES
-    device = points.device
-    if device.type != "cuda":
-        raise ValueError("lk_fwd_bwd_cuda takes CUDA tensors")
-    if not 0 <= levels < _MAX_LEVELS:
-        raise ValueError(f"levels must be in [0, {_MAX_LEVELS - 1}], got {levels}")
-    if len(prev_pyramid) < levels + 1 or len(next_pyramid) < levels + 1:
-        raise ValueError("pyramids need levels + 1 images")
+    """Launch the fused kernel (one CTA per point) on the current stream."""
+    device, n = _check_points(points, valid)
     bwd_top = levels if bwd_levels is None else bwd_levels
     if not 0 <= bwd_top <= levels:
         raise ValueError(f"bwd_levels must be in [0, {levels}], got {bwd_levels}")
-    n = points.shape[0]
-    _check("points", points, device, torch.float32, shape=(n, 2))
-    _check("valid", valid, device, torch.bool, shape=(n,))
-    prev = list(prev_pyramid[:levels + 1])
-    nxt = list(next_pyramid[:levels + 1])
-    dims = []
-    for lvl, (a, b) in enumerate(zip(prev, nxt)):
-        _check(f"prev_pyramid[{lvl}]", a, device, torch.float32, ndim=2)
-        _check(f"next_pyramid[{lvl}]", b, device, torch.float32, shape=a.shape)
-        dims.append((int(a.shape[0]), int(a.shape[1])))
-    wins = window_sizes(dims, win_h, win_w, coarse_win, coarse_from_level)
-    for (lh, lw), (wh, ww) in zip(dims, wins):
-        if wh < 1 or ww < 1:
-            raise ValueError(f"level {lh}x{lw} is too small for an LK window")
-
+    prev, nxt, dims = _check_pyramids(prev_pyramid, next_pyramid, levels, device, win_h,
+                                      win_w, coarse_win, coarse_from_level)
     build()
     out_points = torch.empty((n, 2), dtype=torch.float32, device=device)
     out_ok = torch.empty((n,), dtype=torch.bool, device=device)
-    n_lv = levels + 1
-    flat_dims = [v for (lh, lw), (wh, ww) in zip(dims, wins) for v in (lh, lw, wh, ww)]
-    err = _lib.lk_fwd_bwd_launch(
-        (ctypes.c_void_p * n_lv)(*[t.data_ptr() for t in prev]),
-        (ctypes.c_void_p * n_lv)(*[t.data_ptr() for t in nxt]),
-        (ctypes.c_int * len(flat_dims))(*flat_dims),
-        levels, bwd_top, iterations, float(eps * eps),
-        float(max_roundtrip * max_roundtrip),
-        points.data_ptr(), valid.data_ptr(), out_points.data_ptr(),
-        out_ok.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lk_fwd_bwd kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    if n:
+        _launch("lk_fwd_bwd", _lib.lk_fwd_bwd_launch, prev, nxt, dims, levels, bwd_top,
+                iterations, float(eps * eps), float(max_roundtrip * max_roundtrip),
+                points.data_ptr(), valid.data_ptr(), out_points.data_ptr(),
+                out_ok.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
     return out_points, out_ok
 
 
+def lk_pyramid_cuda(prev_pyramid, next_pyramid, points, valid, levels: int = 4,
+                    win_h: int = 53, win_w: int = 53, iterations: int = 10,
+                    eps: float = 0.03, coarse_win: int | None = None,
+                    coarse_from_level: int = 1):
+    """Launch the forward-only kernel (one CTA per point) on the current stream."""
+    device, n = _check_points(points, valid)
+    prev, nxt, dims = _check_pyramids(prev_pyramid, next_pyramid, levels, device, win_h,
+                                      win_w, coarse_win, coarse_from_level)
+    build()
+    out_flow = torch.empty((n, 2), dtype=torch.float32, device=device)
+    out_ok = torch.empty((n,), dtype=torch.bool, device=device)
+    if n:
+        _launch("lk_pyramid", _lib.lk_pyramid_launch, prev, nxt, dims, levels, iterations,
+                float(eps * eps), points.data_ptr(), valid.data_ptr(), out_flow.data_ptr(),
+                out_ok.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
+    return out_flow, out_ok
+
+
+def _check_level_window(shape, win_h: int, win_w: int):
+    lh, lw = shape
+    if win_h < 1 or win_w < 1 or win_h + 3 > lh or win_w + 3 > lw:
+        raise ValueError(f"a {win_h}x{win_w} LK window needs a level of at least "
+                         f"{win_h + 3}x{win_w + 3}, got {lh}x{lw}")
+
+
+def lk_level_cuda(prev_img, next_img, points, guesses, valid, win_h: int, win_w: int,
+                  iterations: int = 10, eps: float = 0.03):
+    """Launch the single-level kernel (one CTA per point) on the current stream."""
+    device, n = _check_points(points, valid, ("guesses", guesses))
+    _check("prev_img", prev_img, device, torch.float32, ndim=2)
+    _check("next_img", next_img, device, torch.float32, shape=prev_img.shape)
+    _check_level_window(prev_img.shape, win_h, win_w)
+    build()
+    out_guesses = torch.empty((n, 2), dtype=torch.float32, device=device)
+    out_ok = torch.empty((n,), dtype=torch.bool, device=device)
+    lh, lw = prev_img.shape
+    if n:
+        _launch("lk_level", _lib.lk_level_launch, prev_img.data_ptr(), next_img.data_ptr(),
+                lh, lw, win_h, win_w, iterations, float(eps * eps), points.data_ptr(),
+                guesses.data_ptr(), valid.data_ptr(), out_guesses.data_ptr(),
+                out_ok.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
+    return out_guesses, out_ok
+
+
 # ---------------------------------------------------------------------------
-# plain PyTorch version
+# plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 def _sample_windows(img, x, y, h: int, w: int):
@@ -192,46 +305,57 @@ def _sample_windows(img, x, y, h: int, w: int):
             + fy * ((1 - fx) * p[:, 1:, :w] + fx * p[:, 1:, 1:]))
 
 
+def _level_reference(src, dst, tlx, tly, gx, gy, valid, wh: int, ww: int,
+                     iterations: int, eps_sq: float):
+    """One LK level of all points in lockstep from the guesses (gx, gy); a
+    converged point's step is frozen (the Pallas semantics).  Returns (gx, gy,
+    lvl_ok)."""
+    tp = _sample_windows(src, tlx - 1.0, tly - 1.0, wh + 2, ww + 2)
+    t = tp[:, 1:-1, 1:-1]
+    ix = 0.5 * (tp[:, 1:-1, 2:] - tp[:, 1:-1, :-2])
+    iy = 0.5 * (tp[:, 2:, 1:-1] - tp[:, :-2, 1:-1])
+    gxx = (ix * ix).sum(dim=(1, 2))
+    gxy = (ix * iy).sum(dim=(1, 2))
+    gyy = (iy * iy).sum(dim=(1, 2))
+    det = gxx * gyy - gxy * gxy
+    lvl_ok = (det > 1e-6) & valid
+    inv_det = torch.where(lvl_ok, 1.0 / torch.where(lvl_ok, det, torch.ones_like(det)),
+                          torch.zeros_like(det))
+    done = ~lvl_ok
+    for _ in range(iterations):
+        if bool(done.all()):
+            break
+        j = _sample_windows(dst, tlx + gx, tly + gy, wh, ww)
+        diff = t - j
+        bx = (ix * diff).sum(dim=(1, 2))
+        by = (iy * diff).sum(dim=(1, 2))
+        dx = torch.where(done, torch.zeros_like(bx), (gyy * bx - gxy * by) * inv_det)
+        dy = torch.where(done, torch.zeros_like(by), (gxx * by - gxy * bx) * inv_det)
+        gx = gx + dx
+        gy = gy + dy
+        done = done | (dx * dx + dy * dy < eps_sq)
+    return gx, gy, lvl_ok
+
+
+def _top_left(p, win: int, size: int):
+    return torch.clamp(p - (win - 1) / 2.0, 2.0, size - win - 3.0)
+
+
 def _track_direction_reference(src, dst, px, py, valid, top: int, dims, wins,
                                iterations: int, eps_sq: float):
-    """Coarse-to-fine LK of all points in lockstep; a converged point's step is
-    frozen (the Pallas group-of-4 semantics)."""
+    """Coarse-to-fine LK of all points from level ``top`` down, zero-seeded."""
     gx = torch.zeros_like(px)
     gy = torch.zeros_like(py)
     ok = valid.clone()
     for lvl in range(top, -1, -1):
-        lh, lw = dims[lvl]
-        wh, ww = wins[lvl]
+        (lh, lw), (wh, ww) = dims[lvl], wins[lvl]
         scale = 0.5 ** lvl
-        tlx = torch.clamp(px * scale - (ww - 1) / 2.0, 2.0, lw - ww - 3.0)
-        tly = torch.clamp(py * scale - (wh - 1) / 2.0, 2.0, lh - wh - 3.0)
-        tp = _sample_windows(src[lvl], tlx - 1.0, tly - 1.0, wh + 2, ww + 2)
-        t = tp[:, 1:-1, 1:-1]
-        ix = 0.5 * (tp[:, 1:-1, 2:] - tp[:, 1:-1, :-2])
-        iy = 0.5 * (tp[:, 2:, 1:-1] - tp[:, :-2, 1:-1])
-        gxx = (ix * ix).sum(dim=(1, 2))
-        gxy = (ix * iy).sum(dim=(1, 2))
-        gyy = (iy * iy).sum(dim=(1, 2))
-        det = gxx * gyy - gxy * gxy
-        lvl_ok = (det > 1e-6) & valid
+        gx, gy, lvl_ok = _level_reference(
+            src[lvl], dst[lvl], _top_left(px * scale, ww, lw), _top_left(py * scale, wh, lh),
+            gx, gy, valid, wh, ww, iterations, eps_sq)
         if lvl == 0:  # only the finest level sets status
             ok = ok & lvl_ok
-        inv_det = torch.where(lvl_ok, 1.0 / torch.where(lvl_ok, det, torch.ones_like(det)),
-                              torch.zeros_like(det))
-        done = ~ok
-        for _ in range(iterations):
-            if bool(done.all()):
-                break
-            j = _sample_windows(dst[lvl], tlx + gx, tly + gy, wh, ww)
-            diff = t - j
-            bx = (ix * diff).sum(dim=(1, 2))
-            by = (iy * diff).sum(dim=(1, 2))
-            dx = torch.where(done, torch.zeros_like(bx), (gyy * bx - gxy * by) * inv_det)
-            dy = torch.where(done, torch.zeros_like(by), (gxx * by - gxy * bx) * inv_det)
-            gx = gx + dx
-            gy = gy + dy
-            done = done | (dx * dx + dy * dy < eps_sq)
-        if lvl > 0:
+        else:
             gx = gx * 2.0
             gy = gy * 2.0
     return gx, gy, ok
@@ -242,8 +366,8 @@ def lk_fwd_bwd_reference(prev_pyramid, next_pyramid, points, valid, levels: int 
                          eps: float = 0.03, max_roundtrip: float = 35.0,
                          bwd_levels: int | None = None,
                          coarse_win: int | None = None, coarse_from_level: int = 1):
-    """Plain PyTorch version of the kernel: same semantics, batched over points."""
-    dims = tuple((int(p.shape[0]), int(p.shape[1])) for p in prev_pyramid[:levels + 1])
+    """Plain PyTorch version of the fused kernel: same semantics, batched."""
+    dims = _dims(prev_pyramid, levels)
     wins = window_sizes(dims, win_h, win_w, coarse_win, coarse_from_level)
     bwd_top = levels if bwd_levels is None else bwd_levels
     px = points[:, 0].to(torch.float32)
@@ -260,6 +384,33 @@ def lk_fwd_bwd_reference(prev_pyramid, next_pyramid, points, valid, levels: int 
     return torch.stack([fx, fy], dim=-1), ok
 
 
+def lk_pyramid_reference(prev_pyramid, next_pyramid, points, valid, levels: int = 4,
+                         win_h: int = 53, win_w: int = 53, iterations: int = 10,
+                         eps: float = 0.03, coarse_win: int | None = None,
+                         coarse_from_level: int = 1):
+    """Plain PyTorch version of the forward-only kernel."""
+    dims = _dims(prev_pyramid, levels)
+    wins = window_sizes(dims, win_h, win_w, coarse_win, coarse_from_level)
+    gx, gy, ok = _track_direction_reference(
+        prev_pyramid, next_pyramid, points[:, 0].to(torch.float32),
+        points[:, 1].to(torch.float32), valid, levels, dims, wins, iterations,
+        float(eps * eps))
+    return torch.stack([gx, gy], dim=-1), ok
+
+
+def lk_level_reference(prev_img, next_img, points, guesses, valid, win_h: int,
+                       win_w: int, iterations: int = 10, eps: float = 0.03):
+    """Plain PyTorch version of the single-level kernel."""
+    _check_level_window(prev_img.shape, win_h, win_w)
+    lh, lw = prev_img.shape
+    gx, gy, ok = _level_reference(
+        prev_img, next_img, _top_left(points[:, 0], win_w, lw),
+        _top_left(points[:, 1], win_h, lh), guesses[:, 0].to(torch.float32),
+        guesses[:, 1].to(torch.float32), valid, win_h, win_w, iterations,
+        float(eps * eps))
+    return torch.stack([gx, gy], dim=-1), ok
+
+
 def roundtrip_px_reference(prev_pyramid, next_pyramid, points, tracked, levels: int = 4,
                            win_h: int = 53, win_w: int = 53, iterations: int = 10,
                            eps: float = 0.03, bwd_levels: int | None = None,
@@ -268,7 +419,7 @@ def roundtrip_px_reference(prev_pyramid, next_pyramid, points, tracked, levels: 
     row, |forward flow + backward flow| with the backward pass run from
     ``tracked`` (the forward result).  Comparisons of two LK versions use it to
     excuse flag disagreements on rows that sit at the gate."""
-    dims = tuple((int(p.shape[0]), int(p.shape[1])) for p in prev_pyramid[:levels + 1])
+    dims = _dims(prev_pyramid, levels)
     wins = window_sizes(dims, win_h, win_w, coarse_win, coarse_from_level)
     bgx, bgy, _ = _track_direction_reference(
         next_pyramid, prev_pyramid, tracked[:, 0], tracked[:, 1],

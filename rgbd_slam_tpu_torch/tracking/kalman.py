@@ -13,6 +13,8 @@ from ..pose.linalg6 import solve_spd
 
 #: process noise for 3D map points
 POINT_PROCESS_NOISE = 1e-3
+#: process noise for plane states
+PLANE_PROCESS_NOISE = 1e-6
 
 
 def kalman_step(state, cov, measurement, meas_cov, process_noise=None):
@@ -45,3 +47,12 @@ def track_points(positions, covariances, observations, obs_covariances,
     obs_sigma = torch.sqrt(torch.abs(torch.diagonal(obs_covariances, dim1=-2, dim2=-1)))
     is_moving = torch.any(torch.abs(positions - observations) > obs_sigma, dim=-1)
     return new_pos, new_cov, score, is_moving
+
+
+def track_planes(plane_states, covariances, observations, obs_covariances,
+                 process_noise: float = PLANE_PROCESS_NOISE):
+    """Batched 4x4 static-identity KF update of hessian plane parameters; the
+    caller renormalizes the normal."""
+    pn = process_noise * torch.eye(4, dtype=plane_states.dtype, device=plane_states.device)
+    return kalman_step(plane_states, covariances, observations, obs_covariances,
+                       process_noise=pn)

@@ -111,15 +111,21 @@ def test_track_forward_backward_status_and_border():
            & (ref[:, 1] < h - 1))
     np.testing.assert_array_equal(status.numpy(), (ok & inb).numpy())
     np.testing.assert_array_equal(out.numpy()[~status.numpy()], pts[~status.numpy()])
-    with pytest.raises(NotImplementedError, match="queue 2 #2"):
-        optical_flow.track_forward_backward(tp, tn, torch.zeros(6, 2),
-                                            torch.ones(6, dtype=torch.bool), levels=2)
+    # N % 4 != 0 goes through the forward-only LK twice (held to the JAX
+    # composition in test_torch_lk_pyramid.py): the same scene's first 6 points
+    out6, status6 = optical_flow.track_forward_backward(
+        tp, tn, torch.from_numpy(pts[:6]), torch.from_numpy(valid[:6]),
+        max_roundtrip_px=GATE_PX, levels=2, win_h=25, win_w=25, bwd_levels=0,
+        coarse_win=25)
+    assert status6.shape == (6,) and status6.numpy()[[0, 1, 2, 3]].all()
+    assert not status6.numpy()[4]
+    np.testing.assert_allclose(out6.numpy()[0] - pts[0], [2.0, 1.0], atol=0.05)
 
 
 def test_cpu_tensors_never_reach_the_kernel():
     prev, nxt, pts, valid = _scene()
     pp, pn = _pyramids(prev, nxt, 1)
-    before = lk_cuda.LAUNCHES
+    before = dict(lk_cuda.LAUNCHES)
     lk_cuda.lk_fwd_bwd([torch.from_numpy(a) for a in pp],
                        [torch.from_numpy(a) for a in pn], torch.from_numpy(pts),
                        torch.from_numpy(valid), levels=1, win_h=25, win_w=25)
