@@ -8,14 +8,28 @@ Phases, one line of output each (any failure raises, so the last line, the
 1. device: a CUDA card must be present (no CPU run); prints
    ``nvidia-smi --query-gpu=name,power.limit``.
 2. build: compiles the LK kernels (``rgbd_slam_tpu_torch/csrc/lk.cu``) with nvcc
-   from the sources in this checkout.
-3. kernels, each against its plain PyTorch version on the card, then both timed
-   (median of 20 CUDA-event timings after a warm-up), on a 640x480 RoomScene
-   frame pair with the default windows and levels:
+   from the sources in this checkout; prints the seconds and what ptxas says of
+   each kernel's registers and spills.
+3. kernels, each against its plain PyTorch version on the card, on a 640x480
+   RoomScene frame pair with the default windows and levels:
    * fused forward-backward LK, 128 FAST points;
    * forward-only LK, 99 FAST points (N % 4 != 0);
    * single-level LK at level 0, seeded with the plain pyramid tracker's level-1
-     result doubled.
+     result doubled;
+   * the restage path: the single-level kernel with 30 iterations from guesses a
+     seeded 9-11 px off on each axis, more than the margin the kernel stages
+     around its window, so a window that finds its way back leaves the staged
+     tile; at least 32 rows must do so.
+   The first three are then timed: ``ms`` and ``plain_ms`` a call (median of 20
+   CUDA-event timings after a warm-up; a single call's time includes the host's
+   launch overhead), ``device_us`` a launch from 50 launches replayed from one
+   CUDA graph (the pyramids warm in L2, as the step finds them right after
+   ``build_pyramid``), and ``bound_ms``: what ``lk_cuda.lk_work`` counts these
+   inputs to need (iterations really taken), FLOPs over 67 TFLOP/s (f32 outside
+   the tensor cores) or bytes over 3.35 TB/s, whichever is larger; both counts
+   are upper ones (every sample charged its own taps, whole pyramids), so the
+   share of the bound a kernel reaches is an upper estimate.  No PyTorch call
+   computes pyramidal LK, so ``library_ms`` is null.
 4. plane path: ``runner.run_frames`` over 60 RoomScene orbit frames at 640x480,
    default ``SlamConfig``, planes on (the default step), seed 0; checks one
    fused-kernel launch per frame, no more failed or lost frames than the JAX
@@ -38,10 +52,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
-import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -55,6 +70,13 @@ SEED = 0
 #: Gauss-Newton iteration, and that iteration moves a point by < eps = 0.03 px
 TOL_PX = 0.05
 ATE_MARGIN = 1.5
+#: the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
+#: tensor cores, and device memory
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+#: pixels the LK kernels stage around the destination window (LK_MARGIN in
+#: csrc/lk.cu); the restage check starts its guesses further off than this
+STAGED_MARGIN_PX = 8
 #: tracked-set capacity of the forward-only path: the track_forward_backward
 #: branch that runs the forward-only kernel twice needs a count that is not a
 #: multiple of 4, and 99 is the nearest one under the reference's 100-point
@@ -108,6 +130,55 @@ def _median_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def graph_launch_us(fn, launches: int = 50, replays: int = 9) -> float:
+    """Device time of one ``fn()`` in microseconds that the host cannot bound:
+    ``launches`` calls are captured into one ``torch.cuda.CUDAGraph``, the graph
+    is replayed ``replays`` times between two CUDA events, and the median replay
+    is divided by ``launches``.  It includes the gap the card leaves between two
+    kernels of a graph.  ``fn`` launches on the current stream and reads nothing
+    back; its inputs stay in L2 between launches when they fit."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm up off the default stream before capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / launches)
+    return statistics.median(times)
+
+
+def ptxas_usage(log: str):
+    """{kernel: registers, spill bytes} from what ``nvcc -Xptxas -v`` printed."""
+    usage = {}
+    for name, body in re.findall(
+            r"Function properties for (\w+)\n(.*?)(?=ptxas info\s*: Compiling|\Z)", log,
+            flags=re.S):
+        kernel = re.search(r"lk_\w+_kernel", name)
+        regs = re.search(r"Used (\d+) registers", body)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        if kernel and regs and spills:
+            usage[kernel.group(0)] = {"registers": int(regs.group(1)),
+                                      "spill_store_bytes": int(spills.group(1)),
+                                      "spill_load_bytes": int(spills.group(2))}
+    return usage
+
+
 def _room_pair(cam, device):
     scene = synthetic.RoomScene(cam)
     (g0, _), (g1, _) = [scene.render(q, p)
@@ -139,9 +210,22 @@ def _compare(name, k_pts, k_ok, r_pts, r_ok, excused=None, min_both=64):
     return err, n_both
 
 
-def check_kernels(cam, cfg, device):
-    """Phase 3: each LK kernel against its plain version at the main path's
-    shapes.  Returns {name: (max_abs_err, ms, plain_ms)}."""
+@dataclasses.dataclass
+class KernelCase:
+    """One kernel at the main path's shapes: how to launch it, its plain
+    version, the work these inputs need, the rows excused from flag equality
+    (None: none) and, for the restage case, the guesses it starts from."""
+    name: str
+    points: int
+    kernel: Callable
+    plain: Callable
+    work: Callable
+    excused: Callable | None = None
+    guesses: torch.Tensor | None = None
+
+
+def kernel_cases(cam, cfg, device):
+    """The three LK kernels at the main path's shapes, and the restage case."""
     g0, g1 = _room_pair(cam, device)
     kw = _lk_kwargs(cam, cfg.detection)
     p0 = image.build_pyramid(g0, kw["levels"])
@@ -150,54 +234,104 @@ def check_kernels(cam, cfg, device):
     bwd = dict(max_roundtrip=det.optical_flow_roundtrip_px,
                bwd_levels=(None if det.optical_flow_backward_depth >= kw["levels"]
                            else det.optical_flow_backward_depth))
-    results = {}
-
     # fused forward-backward, 128 points (the default tracked set)
     pts, valid = _fast_points(g0, cfg.mapping.max_tracked_points)
-    k_pts, k_ok = lk_cuda.lk_fwd_bwd(p0, p1, pts, valid, **kw, **bwd)
-    torch.cuda.synchronize()
-    r_pts, r_ok = lk_cuda.lk_fwd_bwd_reference(p0, p1, pts, valid, **kw, **bwd)
-    rt = lk_cuda.roundtrip_px_reference(p0, p1, pts, r_pts, bwd_levels=bwd["bwd_levels"],
-                                        **kw)
-    near_gate = (rt - bwd["max_roundtrip"]).abs() <= TOL_PX
-    err, n_both = _compare("lk_fwd_bwd", k_pts, k_ok, r_pts, r_ok, excused=near_gate)
-    results["lk_fwd_bwd"] = (
-        err, _median_ms(lambda: lk_cuda.lk_fwd_bwd(p0, p1, pts, valid, **kw, **bwd)),
-        _median_ms(lambda: lk_cuda.lk_fwd_bwd_reference(p0, p1, pts, valid, **kw, **bwd)))
-    _say("kernel", name="lk_fwd_bwd", points=pts.shape[0], both_ok=n_both,
-         near_gate_flag_diffs=int((k_ok != r_ok).sum()), max_abs_err_px=err,
-         tol_px=TOL_PX, ms=results["lk_fwd_bwd"][1], plain_ms=results["lk_fwd_bwd"][2])
 
+    def near_gate(r_pts):
+        rt = lk_cuda.roundtrip_px_reference(p0, p1, pts, r_pts,
+                                            bwd_levels=bwd["bwd_levels"], **kw)
+        return (rt - bwd["max_roundtrip"]).abs() <= TOL_PX
+
+    cases = [KernelCase(
+        "lk_fwd_bwd", pts.shape[0],
+        lambda: lk_cuda.lk_fwd_bwd(p0, p1, pts, valid, **kw, **bwd),
+        lambda: lk_cuda.lk_fwd_bwd_reference(p0, p1, pts, valid, **kw, **bwd),
+        lambda: lk_cuda.lk_work(p0, p1, pts, valid, backward=True,
+                                bwd_levels=bwd["bwd_levels"], **kw),
+        excused=near_gate)]
     # forward-only, at the forward-only path's tracked count
-    pts, valid = _fast_points(g0, FORWARD_ONLY_TRACKED)
-    k_flow, k_ok = lk_cuda.lk_pyramid(p0, p1, pts, valid, **kw)
-    torch.cuda.synchronize()
-    r_flow, r_ok = lk_cuda.lk_pyramid_reference(p0, p1, pts, valid, **kw)
-    err, n_both = _compare("lk_pyramid", k_flow, k_ok, r_flow, r_ok)
-    results["lk_pyramid"] = (
-        err, _median_ms(lambda: lk_cuda.lk_pyramid(p0, p1, pts, valid, **kw)),
-        _median_ms(lambda: lk_cuda.lk_pyramid_reference(p0, p1, pts, valid, **kw)))
-    _say("kernel", name="lk_pyramid", points=pts.shape[0], both_ok=n_both,
-         max_abs_err_px=err, tol_px=TOL_PX, ms=results["lk_pyramid"][1],
-         plain_ms=results["lk_pyramid"][2])
-
+    pts99, valid99 = _fast_points(g0, FORWARD_ONLY_TRACKED)
+    cases.append(KernelCase(
+        "lk_pyramid", pts99.shape[0],
+        lambda: lk_cuda.lk_pyramid(p0, p1, pts99, valid99, **kw),
+        lambda: lk_cuda.lk_pyramid_reference(p0, p1, pts99, valid99, **kw),
+        lambda: lk_cuda.lk_work(p0, p1, pts99, valid99, backward=False, **kw)))
     # single level 0 from the plain tracker's level-1 result doubled
-    g_flow, _ = lk_cuda.lk_pyramid_reference(p0[1:], p1[1:], (pts * 0.5).contiguous(), valid,
-                                             **{**kw, "levels": kw["levels"] - 1})
+    g_flow, _ = lk_cuda.lk_pyramid_reference(p0[1:], p1[1:], (pts99 * 0.5).contiguous(),
+                                             valid99, **{**kw, "levels": kw["levels"] - 1})
     guesses = (g_flow * 2.0).contiguous()
     lvl = dict(win_h=kw["win_h"], win_w=kw["win_w"], iterations=kw["iterations"],
                eps=kw["eps"])
-    k_g, k_ok = lk_cuda.lk_level(p0[0], p1[0], pts, guesses, valid, **lvl)
+    cases.append(KernelCase(
+        "lk_level", pts99.shape[0],
+        lambda: lk_cuda.lk_level(p0[0], p1[0], pts99, guesses, valid99, **lvl),
+        lambda: lk_cuda.lk_level_reference(p0[0], p1[0], pts99, guesses, valid99, **lvl),
+        lambda: lk_cuda.lk_level_work(p0[0], p1[0], pts99, guesses, valid99, **lvl)))
+    # the same level from guesses 9-11 px off on each axis, signs seeded, with
+    # the iterations it takes most rows to come back
+    rng = np.random.default_rng(SEED)
+    off = (rng.uniform(STAGED_MARGIN_PX + 1, STAGED_MARGIN_PX + 3, guesses.shape)
+           * rng.choice([-1.0, 1.0], guesses.shape)).astype(np.float32)
+    far = (guesses + torch.as_tensor(off, device=device)).contiguous()
+    long = {**lvl, "iterations": 30}
+    cases.append(KernelCase(
+        "lk_level_restage", pts99.shape[0],
+        lambda: lk_cuda.lk_level(p0[0], p1[0], pts99, far, valid99, **long),
+        lambda: lk_cuda.lk_level_reference(p0[0], p1[0], pts99, far, valid99, **long),
+        lambda: lk_cuda.lk_level_work(p0[0], p1[0], pts99, far, valid99, **long),
+        guesses=far))
+    return cases
+
+
+def check_case(case, min_both=64):
+    """The kernel against its plain version.  Returns (max_abs_err, rows both
+    mark ok, flags that differ (all on excused rows), the plain values)."""
+    k_val, k_ok = case.kernel()
     torch.cuda.synchronize()
-    r_g, r_ok = lk_cuda.lk_level_reference(p0[0], p1[0], pts, guesses, valid, **lvl)
-    err, n_both = _compare("lk_level", k_g, k_ok, r_g, r_ok)
-    results["lk_level"] = (
-        err, _median_ms(lambda: lk_cuda.lk_level(p0[0], p1[0], pts, guesses, valid, **lvl)),
-        _median_ms(lambda: lk_cuda.lk_level_reference(p0[0], p1[0], pts, guesses, valid,
-                                                      **lvl)))
-    _say("kernel", name="lk_level", points=pts.shape[0], both_ok=n_both,
-         max_abs_err_px=err, tol_px=TOL_PX, ms=results["lk_level"][1],
-         plain_ms=results["lk_level"][2])
+    r_val, r_ok = case.plain()
+    excused = case.excused(r_val) if case.excused else None
+    err, n_both = _compare(case.name, k_val, k_ok, r_val, r_ok, excused=excused,
+                           min_both=min_both)
+    return err, n_both, int((k_ok != r_ok).sum()), r_val
+
+
+def bound_of(work):
+    """(bound_ms, bound_by) of a work count: the larger of its FLOPs over the f32
+    peak and its bytes over the memory rate."""
+    by_ops = work["flops"] / PEAK_F32_FLOPS * 1e3
+    by_bytes = work["bytes"] / PEAK_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def check_kernels(cam, cfg, device):
+    """Phase 3: each LK kernel against its plain version at the main path's
+    shapes, the restage check, then the times and bounds.  Returns {name: dict
+    of the kernel line's measured fields}."""
+    results = {}
+    for case in kernel_cases(cam, cfg, device):
+        err, n_both, flag_diffs, r_val = check_case(case)
+        if case.guesses is not None:
+            # a row whose result lies further down or up from its guess than the
+            # margin has left the tile staged around that guess (sideways the
+            # tile may be up to 3 px wider: it is copied in 16-byte columns)
+            moved = int(((r_val - case.guesses)[:, 1].abs() > STAGED_MARGIN_PX + 1).sum())
+            _say("kernel", name=case.name, points=case.points, both_ok=n_both,
+                 moved_past_margin=moved, max_abs_err_px=err, tol_px=TOL_PX)
+            if moved < 32:
+                raise RuntimeError(f"restage check: only {moved} rows left their tile")
+            continue
+        work = case.work()
+        bound_ms, bound_by = bound_of(work)
+        results[case.name] = dict(
+            max_abs_err=err, ms=_median_ms(case.kernel), plain_ms=_median_ms(case.plain),
+            device_us=graph_launch_us(case.kernel), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+        _say("kernel", name=case.name, points=case.points, both_ok=n_both,
+             near_gate_flag_diffs=flag_diffs, max_abs_err_px=err, tol_px=TOL_PX,
+             iterations=work["iterations"], longest_chain=work["longest_chain"],
+             mflop=work["flops"] / 1e6, mbytes=work["bytes"] / 1e6,
+             **{k: results[case.name][k] for k in ("ms", "plain_ms", "device_us",
+                                                   "bound_ms", "bound_by")})
     return results
 
 
@@ -249,9 +383,9 @@ def main() -> int:
     card = _card_line()
     _say("device", card=card, torch=torch.__version__, cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
-    lk_cuda.build()
-    _say("build", source="csrc/lk.cu", nvcc_s=time.perf_counter() - t0)
+    _say("build", source="csrc/lk.cu", nvcc_s=lk_cuda.build())
+    for kernel, usage in ptxas_usage(lk_cuda.BUILD_LOG).items():
+        _say("ptxas", kernel=kernel, **usage)
 
     cam = config.TUM_FR1
     cfg = config.SlamConfig()
@@ -275,9 +409,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": "rgbd_slam_tpu_torch/csrc/lk.cu",
-         "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": err,
-         "ms": ms, "plain_ms": plain_ms}
-        for name, (err, ms, plain_ms) in kernels.items()]}))
+         "replaces": REPLACES[name], "launches": launches[name], **measured}
+        for name, measured in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

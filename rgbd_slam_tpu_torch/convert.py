@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .engine import SlamState
 from .mapping import maps
 from .tracking.motion_model import MotionModelState
@@ -28,8 +29,10 @@ def _to_torch(x, device):
     return torch.tensor(a, device=device)   # a copy: JAX's host arrays are read-only
 
 
-def state_from_numpy(tree, device="cpu", seed: int = 0) -> SlamState:
-    """JAX ``SlamState`` with numpy leaves -> port ``SlamState`` on ``device``."""
+def state_from_numpy(tree, device=None, seed: int = 0) -> SlamState:
+    """JAX ``SlamState`` with numpy leaves -> port ``SlamState`` on ``device``
+    (``None``: the card, see ``resolve_device``)."""
+    device = resolve_device(device)
     fields = {}
     for name in SlamState._fields:
         if name == "generator":

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from .config import CameraIntrinsics, SlamConfig
+from .device import resolve_device
 from .features import primitives
 from .features.primitives import MAX_PLANES
 from .geometry import covariances as cov_mod
@@ -112,7 +113,9 @@ class StepDraws(NamedTuple):
 
 
 def init_state(cam: CameraIntrinsics, cfg: SlamConfig, quat=None, position=None,
-               seed: int = 0, device="cpu") -> SlamState:
+               seed: int = 0, device=None) -> SlamState:
+    """A fresh state on ``device`` (``None``: the card, see ``resolve_device``)."""
+    device = resolve_device(device)
     dt = torch.float32
     t_cap = cfg.mapping.max_tracked_points
     generator = torch.Generator(device=device)

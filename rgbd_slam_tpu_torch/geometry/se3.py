@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 # Rotation taking camera-frame vectors to world-frame vectors:
 # cam z (forward) -> world x, cam x (right) -> world -y, cam y (down) -> world -z.
 AXIS_CORRECTION = np.array(
@@ -31,6 +33,7 @@ def axis_correction_44(dtype, device):
 
 
 def quat_identity(dtype=torch.float32, device=None):
+    device = resolve_device(device)
     q = torch.zeros(4, dtype=dtype, device=device)
     q[0].fill_(1.0)
     return q

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 #: polygon vertex capacity of a plane (``rgbd_slam_tpu/utils/polygon.py``)
 MAX_VERTS = 16
 
@@ -69,6 +71,7 @@ def _counters(capacity, device):
 
 
 def empty_point_map(capacity: int, dtype=torch.float32, device=None) -> PointMap:
+    device = resolve_device(device)
     return PointMap(
         pos=torch.zeros((capacity, 3), dtype=dtype, device=device),
         cov=torch.zeros((capacity, 3, 3), dtype=dtype, device=device),
@@ -78,6 +81,7 @@ def empty_point_map(capacity: int, dtype=torch.float32, device=None) -> PointMap
 
 
 def empty_point2d_map(capacity: int, dtype=torch.float32, device=None) -> Point2DMap:
+    device = resolve_device(device)
     return Point2DMap(
         state=torch.zeros((capacity, 6), dtype=dtype, device=device),
         cov=torch.zeros((capacity, 6, 6), dtype=dtype, device=device),
@@ -86,6 +90,7 @@ def empty_point2d_map(capacity: int, dtype=torch.float32, device=None) -> Point2
 
 
 def empty_line_map(capacity: int, dtype=torch.float32, device=None) -> LineMap:
+    device = resolve_device(device)
     return LineMap(
         endpoints=torch.zeros((capacity, 6), dtype=dtype, device=device),
         cov=torch.zeros((capacity, 2, 3, 3), dtype=dtype, device=device),
@@ -94,6 +99,8 @@ def empty_line_map(capacity: int, dtype=torch.float32, device=None) -> LineMap:
 
 def empty_plane_map(capacity: int, max_verts: int = MAX_VERTS, dtype=torch.float32,
                     device=None) -> PlaneMap:
+    device = resolve_device(device)
+
     def z(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 

@@ -16,6 +16,10 @@ batched tensor code with lockstep masked iterations.
 
 The kernels are compiled with ``nvcc`` on first use from the source in this
 package, into ``rgbd_slam_tpu_torch/_build/``, and bound with ctypes.
+
+``lk_work`` and ``lk_level_work`` count what a call needs on given inputs
+(iterations really taken, bilinear samples, FLOPs, bytes), for the kernels'
+roofline bounds.
 """
 
 from __future__ import annotations
@@ -33,13 +37,18 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCE = os.path.join(_HERE, "..", "csrc", "lk.cu")
 _BUILD_DIR = os.path.join(_HERE, "..", "_build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC"]
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _MAX_LEVELS = 8  # LK_MAX_LEVELS in the kernel source
 
 #: launches of each CUDA kernel since import (or since :func:`reset_launches`)
 LAUNCHES = {"lk_fwd_bwd": 0, "lk_pyramid": 0, "lk_level": 0}
 
+#: what nvcc printed when the loaded library was built (ptxas -v: registers,
+#: shared memory and spills of each kernel); kept in a file beside the library
+BUILD_LOG = ""
+
 _lib = None
+_lib_profiled = False
 
 
 def reset_launches():
@@ -59,25 +68,35 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> float:
-    """Compile and load the kernel library if it is not loaded yet.  The output
-    name carries the source hash, so an edited source is rebuilt.  Returns the
-    seconds spent (0.0 when already loaded)."""
-    global _lib
-    if _lib is not None:
+def build(profile: bool = False) -> float:
+    """Compile and load the kernel library if none is loaded yet.  The output
+    name carries the hash of the source and flags, so an edited source is
+    rebuilt.  ``profile`` asks for the ``-DLK_PHASE_PROFILE`` build (see
+    :func:`profile_attach`), which takes the normal one's place and then stays:
+    it launches the same kernels.  Returns the seconds spent (0.0 when already
+    loaded)."""
+    global _lib, _lib_profiled, BUILD_LOG
+    if _lib is not None and (_lib_profiled or not profile):
         return 0.0
     t0 = time.perf_counter()
+    flags = [*_NVCC_FLAGS, *(["-DLK_PHASE_PROFILE"] if profile else [])]
+    digest = hashlib.sha256(" ".join(flags).encode())
     with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        digest.update(f.read())
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(_BUILD_DIR, f"liblk_{digest}.so")
+    so_path = os.path.join(_BUILD_DIR, f"liblk_{digest.hexdigest()[:16]}.so")
+    log_path = so_path + ".log"
     if not os.path.exists(so_path):
         tmp = f"{so_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SOURCE],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, _SOURCE],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        with open(log_path, "w") as f:
+            f.write(proc.stderr)
         os.replace(tmp, so_path)
+    with open(log_path) as f:
+        BUILD_LOG = f.read()
     lib = ctypes.CDLL(so_path)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ptrs = ctypes.POINTER(ctypes.c_void_p)
@@ -89,8 +108,25 @@ def build() -> float:
                                     ptr, ptr, i32, ptr]
     for fn in (lib.lk_fwd_bwd_launch, lib.lk_pyramid_launch, lib.lk_level_launch):
         fn.restype = ctypes.c_int
-    _lib = lib
+    if profile:
+        lib.lk_profile_attach.argtypes = [ptr, i32, i32]
+        lib.lk_profile_attach.restype = ctypes.c_int
+    _lib, _lib_profiled = lib, profile
     return time.perf_counter() - t0
+
+
+def profile_attach(buffer, ctas: int, capacity: int):
+    """Point the phase marks of a ``LK_PHASE_PROFILE`` build at ``buffer``, a
+    zeroed int64 CUDA tensor [ctas, capacity, 3] of (tag, clock64, global timer
+    ns) records, one row per CTA; the tags are listed in the kernel source."""
+    if not _lib_profiled:
+        raise RuntimeError("load the profiled library first: build(profile=True)")
+    _check("buffer", buffer, buffer.device, torch.int64, shape=(ctas, capacity, 3))
+    if buffer.device.type != "cuda":
+        raise ValueError("the profile buffer must be a CUDA tensor")
+    err = _lib.lk_profile_attach(buffer.data_ptr(), ctas, capacity)
+    if err != 0:
+        raise RuntimeError(f"lk_profile_attach failed: cudaError {err}")
 
 
 def window_sizes(dims, win_h: int, win_w: int, coarse_win: int | None,
@@ -306,10 +342,11 @@ def _sample_windows(img, x, y, h: int, w: int):
 
 
 def _level_reference(src, dst, tlx, tly, gx, gy, valid, wh: int, ww: int,
-                     iterations: int, eps_sq: float):
+                     iterations: int, eps_sq: float, taken=None):
     """One LK level of all points in lockstep from the guesses (gx, gy); a
     converged point's step is frozen (the Pallas semantics).  Returns (gx, gy,
-    lvl_ok)."""
+    lvl_ok).  ``taken``, a list, receives the [N] count of iterations each point
+    really ran (a point stops after the step that falls under eps)."""
     tp = _sample_windows(src, tlx - 1.0, tly - 1.0, wh + 2, ww + 2)
     t = tp[:, 1:-1, 1:-1]
     ix = 0.5 * (tp[:, 1:-1, 2:] - tp[:, 1:-1, :-2])
@@ -322,9 +359,11 @@ def _level_reference(src, dst, tlx, tly, gx, gy, valid, wh: int, ww: int,
     inv_det = torch.where(lvl_ok, 1.0 / torch.where(lvl_ok, det, torch.ones_like(det)),
                           torch.zeros_like(det))
     done = ~lvl_ok
+    n_taken = torch.zeros_like(done, dtype=torch.int64)
     for _ in range(iterations):
         if bool(done.all()):
             break
+        n_taken += ~done
         j = _sample_windows(dst, tlx + gx, tly + gy, wh, ww)
         diff = t - j
         bx = (ix * diff).sum(dim=(1, 2))
@@ -334,6 +373,8 @@ def _level_reference(src, dst, tlx, tly, gx, gy, valid, wh: int, ww: int,
         gx = gx + dx
         gy = gy + dy
         done = done | (dx * dx + dy * dy < eps_sq)
+    if taken is not None:
+        taken.append(n_taken)
     return gx, gy, lvl_ok
 
 
@@ -342,8 +383,9 @@ def _top_left(p, win: int, size: int):
 
 
 def _track_direction_reference(src, dst, px, py, valid, top: int, dims, wins,
-                               iterations: int, eps_sq: float):
-    """Coarse-to-fine LK of all points from level ``top`` down, zero-seeded."""
+                               iterations: int, eps_sq: float, taken=None):
+    """Coarse-to-fine LK of all points from level ``top`` down, zero-seeded.
+    ``taken``, a list, receives one [N] iteration count per level, top first."""
     gx = torch.zeros_like(px)
     gy = torch.zeros_like(py)
     ok = valid.clone()
@@ -352,7 +394,7 @@ def _track_direction_reference(src, dst, px, py, valid, top: int, dims, wins,
         scale = 0.5 ** lvl
         gx, gy, lvl_ok = _level_reference(
             src[lvl], dst[lvl], _top_left(px * scale, ww, lw), _top_left(py * scale, wh, lh),
-            gx, gy, valid, wh, ww, iterations, eps_sq)
+            gx, gy, valid, wh, ww, iterations, eps_sq, taken=taken)
         if lvl == 0:  # only the finest level sets status
             ok = ok & lvl_ok
         else:
@@ -428,3 +470,107 @@ def roundtrip_px_reference(prev_pyramid, next_pyramid, points, tracked, levels: 
         float(eps * eps))
     flow = tracked - points
     return torch.hypot(flow[:, 0] + bgx, flow[:, 1] + bgy)
+
+
+# ---------------------------------------------------------------------------
+# what a call needs: iterations, samples, FLOPs, bytes
+# ---------------------------------------------------------------------------
+
+#: FLOPs of one bilinear sample: 6 multiplies and 3 additions (the weights 1 - f
+#: are the same for the whole window and are not counted)
+FLOPS_PER_SAMPLE = 9
+#: a window pixel of the structure tensor: 2 central differences (a subtraction
+#: and a halving each), 3 products, 3 additions into the sums
+FLOPS_PER_TENSOR_PIXEL = 10
+#: a window pixel of one Gauss-Newton iteration: its bilinear sample (9), the
+#: difference from the template, 2 products with the gradients, 2 additions
+FLOPS_PER_ITERATION_PIXEL = 14
+
+
+def _pass_work(direction: str, top: int, wins, valid, taken):
+    """Per-level records of one coarse-to-fine pass: the template patch and the
+    structure tensor once per valid point, the iterations as counted."""
+    n_valid = int(valid.sum())
+    records = []
+    for lvl, n_taken in zip(range(top, -1, -1), taken):
+        wh, ww = wins[lvl]
+        total = int(n_taken.sum())
+        samples = n_valid * (wh + 2) * (ww + 2) + total * wh * ww
+        flops = (n_valid * ((wh + 2) * (ww + 2) * FLOPS_PER_SAMPLE
+                            + wh * ww * FLOPS_PER_TENSOR_PIXEL)
+                 + total * wh * ww * FLOPS_PER_ITERATION_PIXEL)
+        records.append({"direction": direction, "level": lvl, "window": (wh, ww),
+                        "points": n_valid, "iterations": total,
+                        "iterations_max": int(n_taken.max()) if n_taken.numel() else 0,
+                        "samples": samples, "flops": flops})
+    return records
+
+
+def _work_summary(records, n_bytes: int, chain):
+    return {"levels": records, "samples": sum(r["samples"] for r in records),
+            "flops": sum(r["flops"] for r in records), "bytes": n_bytes,
+            "iterations": sum(r["iterations"] for r in records),
+            "longest_chain": int(chain.max()) if chain.numel() else 0}
+
+
+def lk_work(prev_pyramid, next_pyramid, points, valid, levels: int = 4, win_h: int = 53,
+            win_w: int = 53, iterations: int = 10, eps: float = 0.03,
+            backward: bool = True, bwd_levels: int | None = None,
+            coarse_win: int | None = None, coarse_from_level: int = 1):
+    """What ``lk_fwd_bwd`` (``backward=True``) or ``lk_pyramid`` (``False``)
+    needs on these inputs, counted by running the plain sweep (any device).
+
+    A point runs, at each level of a pass, one (win+2)^2 bilinear template patch
+    and one structure tensor if it is valid, and the Gauss-Newton iterations it
+    really takes: none at a singular level, and none after the step that falls
+    under ``eps``.  The backward pass runs only points the forward pass kept.
+    The counts use one convention: ``FLOPS_PER_SAMPLE`` = 9 a bilinear sample,
+    ``FLOPS_PER_TENSOR_PIXEL`` = 10 a window pixel of the structure tensor,
+    ``FLOPS_PER_ITERATION_PIXEL`` = 14 a window pixel of one iteration (its
+    sample included).  Bytes count every input once and every output once: both
+    pyramids' levels 0..``levels``, the points and flags, the results.  Both are
+    upper counts of what a kernel must do: 9 FLOPs charge every sample its own
+    four taps (neighbours that share row blends need about 6), and the windows
+    of a few hundred points cover only a part of the finer levels.
+
+    Returns a dict: ``samples``, ``flops``, ``bytes``, ``iterations`` (sum over
+    points, levels and passes), ``longest_chain`` (the most iterations one point
+    runs in sequence) and ``levels``, one record per pass and level."""
+    dims = _dims(prev_pyramid, levels)
+    wins = window_sizes(dims, win_h, win_w, coarse_win, coarse_from_level)
+    px = points[:, 0].to(torch.float32)
+    py = points[:, 1].to(torch.float32)
+    kw = dict(dims=dims, wins=wins, iterations=iterations, eps_sq=float(eps * eps))
+    fwd_taken = []
+    fgx, fgy, fok = _track_direction_reference(prev_pyramid, next_pyramid, px, py, valid,
+                                               levels, taken=fwd_taken, **kw)
+    records = _pass_work("forward", levels, wins, valid, fwd_taken)
+    chain = sum(fwd_taken)
+    if backward:
+        bwd_top = levels if bwd_levels is None else bwd_levels
+        bwd_taken = []
+        _track_direction_reference(next_pyramid, prev_pyramid, px + fgx, py + fgy, fok,
+                                   bwd_top, taken=bwd_taken, **kw)
+        records += _pass_work("backward", bwd_top, wins, fok, bwd_taken)
+        chain = chain + sum(bwd_taken)
+    n = points.shape[0]
+    n_bytes = (2 * 4 * sum(lh * lw for lh, lw in dims)   # both pyramids, f32
+               + n * (8 + 1) + n * (8 + 1))              # points + valid in, result + ok out
+    return _work_summary(records, n_bytes, chain)
+
+
+def lk_level_work(prev_img, next_img, points, guesses, valid, win_h: int, win_w: int,
+                  iterations: int = 10, eps: float = 0.03):
+    """What ``lk_level`` needs on these inputs; the counts and the returned dict
+    are :func:`lk_work`'s, for one level and one pass."""
+    _check_level_window(prev_img.shape, win_h, win_w)
+    lh, lw = prev_img.shape
+    taken = []
+    _level_reference(prev_img, next_img, _top_left(points[:, 0], win_w, lw),
+                     _top_left(points[:, 1], win_h, lh), guesses[:, 0].to(torch.float32),
+                     guesses[:, 1].to(torch.float32), valid, win_h, win_w, iterations,
+                     float(eps * eps), taken=taken)
+    n = points.shape[0]
+    n_bytes = 2 * 4 * lh * lw + n * (8 + 8 + 1) + n * (8 + 1)
+    return _work_summary(_pass_work("forward", 0, ((win_h, win_w),), valid, taken),
+                         n_bytes, taken[0])

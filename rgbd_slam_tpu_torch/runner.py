@@ -13,6 +13,7 @@ import torch
 
 from . import engine
 from .config import CameraIntrinsics, SlamConfig
+from .device import resolve_device
 from .io.trajectory import Trajectory, ate_rmse
 
 
@@ -53,10 +54,12 @@ def _pack_summary(out: engine.StepOutput):
 def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                with_planes: bool = True, with_lines: bool = False, seed: int = 0,
                state: engine.SlamState | None = None, on_frame=None,
-               ba_every: int | None = None, device="cpu"):
+               ba_every: int | None = None, device=None):
     """Run the engine over an iterable of (gray, depth[, timestamp]) frames (numpy
-    or tensors), on ``device``.  ``on_frame(i, state, out, dt)`` is called after
-    each frame.  Returns (final_state, Trajectory, RunStats)."""
+    or tensors), on ``device`` (``None``: the card, see ``resolve_device``).
+    ``on_frame(i, state, out, dt)`` is called after each frame.  Returns
+    (final_state, Trajectory, RunStats)."""
+    device = resolve_device(device)
     if ba_every:
         raise NotImplementedError(
             "ba_every: the keyframe/BA backend (ROADMAP queue 1 #11) is not ported yet")

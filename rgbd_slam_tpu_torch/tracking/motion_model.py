@@ -7,6 +7,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
 from ..geometry import se3
 
 
@@ -19,6 +20,7 @@ class MotionModelState(NamedTuple):
 
 
 def reset(dtype=torch.float32, device=None) -> MotionModelState:
+    device = resolve_device(device)
     return MotionModelState(
         last_q=se3.quat_identity(dtype, device),
         last_position=torch.zeros(3, dtype=dtype, device=device),

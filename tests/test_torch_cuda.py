@@ -207,7 +207,7 @@ def test_engine_step_on_the_card_matches_the_cpu(cuda, with_planes):
     cfg = config.SlamConfig(detection=config.DetectionConfig(optical_flow_pyramid_depth=2))
     scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
     gen = torch.Generator().manual_seed(0)
-    state = engine.init_state(cam, cfg)
+    state = engine.init_state(cam, cfg, device="cpu")
     discrete = ("success", "is_lost", "n_point_matches", "n_point_inliers",
                 "n_points_alive", "n_detected", "point_matched", "point_fid",
                 "n_planes_alive", "n_cylinders", "cylinder_cells", "plane_evicted")
@@ -227,3 +227,95 @@ def test_engine_step_on_the_card_matches_the_cpu(cuda, with_planes):
                                    atol=5e-2)
         np.testing.assert_allclose(k_out.quat.cpu().numpy(), out.quat.numpy(), atol=1e-5)
         assert bool(out.success)
+
+
+def _level0_case(device, n=99):
+    """Level-0 inputs of the single-level kernel: the 640x480 pair, FAST points
+    and the plain pyramid tracker's level-1 result doubled as guesses."""
+    cam = config.TUM_FR1
+    kw = _engine_lk_kwargs(cam, config.DetectionConfig())
+    g0, g1 = _room_pair(cam, device)
+    p0, p1 = image.build_pyramid(g0, kw["levels"]), image.build_pyramid(g1, kw["levels"])
+    xy, _, valid = fast.detect_fast_grid(g0, max_points=n)
+    flow, _ = lk_cuda.lk_pyramid_reference(
+        p0[1:], p1[1:], (xy * 0.5).contiguous(), valid, **{**kw, "levels": kw["levels"] - 1})
+    return kw, p0, p1, xy, valid, (flow * 2.0).contiguous()
+
+
+@pytest.mark.cuda
+def test_lk_level_kernel_restages_its_tile(cuda):
+    """Guesses 9-11 px off on each axis, more than the 8 px the kernel stages
+    around its window: a window that comes back leaves the staged tile, and the
+    kernel must still follow the plain version."""
+    kw, p0, p1, xy, valid, guesses = _level0_case(cuda)
+    rng = np.random.default_rng(0)
+    off = rng.uniform(9, 11, guesses.shape) * rng.choice([-1.0, 1.0], guesses.shape)
+    far = (guesses + torch.as_tensor(off.astype(np.float32), device=cuda)).contiguous()
+    lvl = dict(win_h=kw["win_h"], win_w=kw["win_w"], iterations=30)
+    k_g, k_ok = lk_cuda.lk_level(p0[0], p1[0], xy, far, valid, **lvl)
+    torch.cuda.synchronize()
+    r_g, r_ok = lk_cuda.lk_level_reference(p0[0], p1[0], xy, far, valid, **lvl)
+    np.testing.assert_array_equal(k_ok.cpu().numpy(), r_ok.cpu().numpy())
+    # rows that moved more than the margin (and one pixel) up or down left the tile
+    assert int(((r_g - far)[:, 1].abs() > 9).sum()) >= 32
+    ok = r_ok.cpu().numpy()
+    np.testing.assert_allclose(k_g.cpu().numpy()[ok], r_g.cpu().numpy()[ok], atol=TOL_PX)
+
+
+@pytest.mark.cuda
+def test_lk_level_kernel_with_a_window_larger_than_its_registers_hold(cuda):
+    """A 61x61 window is 3721 pixels, over the 3072 the threads keep in
+    registers: the rest runs from shared memory."""
+    kw, p0, p1, xy, valid, guesses = _level0_case(cuda, n=40)
+    k_g, k_ok = lk_cuda.lk_level(p0[0], p1[0], xy, guesses, valid, win_h=61, win_w=61)
+    torch.cuda.synchronize()
+    r_g, r_ok = lk_cuda.lk_level_reference(p0[0], p1[0], xy, guesses, valid, win_h=61,
+                                           win_w=61)
+    np.testing.assert_array_equal(k_ok.cpu().numpy(), r_ok.cpu().numpy())
+    ok = r_ok.cpu().numpy()
+    assert ok.sum() >= 32
+    np.testing.assert_allclose(k_g.cpu().numpy()[ok], r_g.cpu().numpy()[ok], atol=TOL_PX)
+
+
+@pytest.mark.cuda
+def test_lk_kernels_repeat_bit_equal(cuda):
+    """Two launches on the same inputs give the same bits: the block sums use no
+    atomics and one fixed order."""
+    kw, p0, p1, xy, valid, guesses = _level0_case(cuda, n=128)
+    calls = {
+        "lk_fwd_bwd": lambda: lk_cuda.lk_fwd_bwd(p0, p1, xy, valid, max_roundtrip=3.0,
+                                                 bwd_levels=0, **kw),
+        "lk_pyramid": lambda: lk_cuda.lk_pyramid(p0, p1, xy, valid, **kw),
+        "lk_level": lambda: lk_cuda.lk_level(p0[0], p1[0], xy, guesses, valid,
+                                             win_h=kw["win_h"], win_w=kw["win_w"]),
+    }
+    for name, call in calls.items():
+        a_val, a_ok = call()
+        b_val, b_ok = call()
+        torch.cuda.synchronize()
+        assert torch.equal(a_val, b_val) and torch.equal(a_ok, b_ok), name
+
+
+@pytest.mark.cuda
+def test_lk_pyramid_kernel_on_levels_off_the_16_byte_grid(cuda):
+    """Levels whose first pixel is not 16-byte aligned are staged 4 bytes at a
+    time; the results equal those on aligned copies of the same levels, bit for
+    bit."""
+    cam = config.TUM_FR1
+    kw = _engine_lk_kwargs(cam, config.DetectionConfig())
+    g0, g1 = _room_pair(cam, cuda)
+    p0, p1 = image.build_pyramid(g0, kw["levels"]), image.build_pyramid(g1, kw["levels"])
+    xy, _, valid = fast.detect_fast_grid(g0, max_points=99)
+
+    def shifted(level):
+        flat = torch.empty(level.numel() + 1, device=cuda)
+        view = flat[1:].view(level.shape)
+        view.copy_(level)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        return view
+
+    a_flow, a_ok = lk_cuda.lk_pyramid(p0, p1, xy, valid, **kw)
+    b_flow, b_ok = lk_cuda.lk_pyramid([shifted(a) for a in p0], [shifted(a) for a in p1],
+                                      xy, valid, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a_flow, b_flow) and torch.equal(a_ok, b_ok)

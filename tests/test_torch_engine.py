@@ -115,7 +115,7 @@ def stepped(frames):
     results = []
     j_state = j_engine.init_state(CAM, CFG, seed=0)
     for gray, depth in frames:
-        t_state = convert.state_from_numpy(jax.tree.map(np.asarray, j_state))
+        t_state = convert.state_from_numpy(jax.tree.map(np.asarray, j_state), device="cpu")
         draws = jax_step_draws(j_state.key, CFG)
         j_new, j_out = _jax_step(j_state, jnp.asarray(gray), jnp.asarray(depth), CAM, CFG,
                                  with_planes=False)
@@ -315,7 +315,7 @@ def test_sequence_tracks_and_exercises_every_branch(stepped):
 
 def test_init_state_matches_jax():
     j = jax.tree.map(np.asarray, j_engine.init_state(CAM, CFG, seed=0))
-    t = convert.state_to_numpy(engine.init_state(T_CAM, T_CFG, seed=0))
+    t = convert.state_to_numpy(engine.init_state(T_CAM, T_CFG, seed=0, device="cpu"))
     j_leaves = jax.tree_util.tree_leaves(j._replace(key=None))
     t_leaves = jax.tree_util.tree_leaves(t._replace(generator=None))
     assert len(j_leaves) == len(t_leaves)
@@ -323,7 +323,7 @@ def test_init_state_matches_jax():
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
     # round trip through convert
-    back = convert.state_to_numpy(convert.state_from_numpy(j))
+    back = convert.state_to_numpy(convert.state_from_numpy(j, device="cpu"))
     for a, b in zip(jax.tree_util.tree_leaves(back._replace(generator=None)), j_leaves):
         np.testing.assert_array_equal(a, b)
 
@@ -333,14 +333,16 @@ def test_runner_and_unported_paths(frames):
     on one frame); lines and the BA backend still raise."""
     seen = []
     state, traj, stats = runner.run_frames(
-        frames[:3], T_CAM, T_CFG, with_planes=False,
+        frames[:3], T_CAM, T_CFG, with_planes=False, device="cpu",
         on_frame=lambda i, s, o, dt: seen.append(i))
     assert seen == [0, 1, 2] and stats.frame_count == 3 and len(traj.positions) == 3
     assert stats.success_count == 3 and stats.lost_count == 0
     assert int(state.frame_idx) == 3
-    _, traj, stats = runner.run_frames(frames[:1], T_CAM, T_CFG)
+    _, traj, stats = runner.run_frames(frames[:1], T_CAM, T_CFG, device="cpu")
     assert stats.frame_count == 1 and stats.success_count == 1 and len(traj.positions) == 1
     with pytest.raises(NotImplementedError, match="with_lines"):
-        runner.run_frames(frames[:1], T_CAM, T_CFG, with_planes=False, with_lines=True)
+        runner.run_frames(frames[:1], T_CAM, T_CFG, with_planes=False, with_lines=True,
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="ba_every"):
-        runner.run_frames(frames[:1], T_CAM, T_CFG, with_planes=False, ba_every=8)
+        runner.run_frames(frames[:1], T_CAM, T_CFG, with_planes=False, ba_every=8,
+                          device="cpu")

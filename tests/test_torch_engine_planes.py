@@ -56,7 +56,7 @@ def stepped(request, frames):
     results = []
     j_state = j_engine.init_state(CAM, cfg, seed=0)
     for gray, depth in frames:
-        t_state = convert.state_from_numpy(jax.tree.map(np.asarray, j_state))
+        t_state = convert.state_from_numpy(jax.tree.map(np.asarray, j_state), device="cpu")
         draws = jax_step_draws(j_state.key, cfg)
         j_new, j_out = _jax_step(j_state, jnp.asarray(gray), jnp.asarray(depth), CAM, cfg,
                                  with_planes=True)
@@ -181,7 +181,8 @@ def test_sequence_exercises_the_plane_path(stepped):
 
 def test_runner_runs_the_plane_step(frames):
     """run_frames at its default (planes on) over the frames tracks every one."""
-    state, traj, stats = runner.run_frames(frames[:4], T_CAM, _port_config(CFG))
+    state, traj, stats = runner.run_frames(frames[:4], T_CAM, _port_config(CFG),
+                                           device="cpu")
     assert stats.frame_count == 4 and stats.success_count == 4 and stats.lost_count == 0
     assert int((state.planes.fid >= 0).sum()) > 0
     assert np.isfinite(traj.positions_array()).all()

@@ -135,7 +135,7 @@ def test_inverse_depth_fusion(with_depth):
 
 def test_motion_model():
     j_state = j_motion.reset()
-    t_state = motion_model.reset()
+    t_state = motion_model.reset(device="cpu")
     rng = np.random.default_rng(2)
     for i in range(3):
         q = rng.normal(size=4).astype(np.float32)
@@ -170,7 +170,7 @@ def test_slot_allocation_and_lifecycle():
     for a, b in zip(t, j):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         assert a.dtype in (torch.bool, torch.int32)
-    m = maps.remove_features(maps.empty_point_map(64)._replace(
+    m = maps.remove_features(maps.empty_point_map(64, device="cpu")._replace(
         fid=torch.arange(64, dtype=torch.int32)), t[3])
     jm = j_maps.remove_features(j_maps.empty_point_map(64)._replace(
         fid=jnp.arange(64, dtype=jnp.int32)), j[3])
@@ -178,10 +178,10 @@ def test_slot_allocation_and_lifecycle():
 
 
 def test_empty_maps_have_the_jax_shapes_and_dtypes():
-    pairs = [(maps.empty_point_map(16), j_maps.empty_point_map(16)),
-             (maps.empty_point2d_map(16), j_maps.empty_point2d_map(16)),
-             (maps.empty_plane_map(8), j_maps.empty_plane_map(8)),
-             (maps.empty_line_map(4), j_maps.empty_line_map(4))]
+    pairs = [(maps.empty_point_map(16, device="cpu"), j_maps.empty_point_map(16)),
+             (maps.empty_point2d_map(16, device="cpu"), j_maps.empty_point2d_map(16)),
+             (maps.empty_plane_map(8, device="cpu"), j_maps.empty_plane_map(8)),
+             (maps.empty_line_map(4, device="cpu"), j_maps.empty_line_map(4))]
     for port, ref in pairs:
         assert port._fields == ref._fields
         for a, b in zip(port, ref):
