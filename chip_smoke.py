@@ -39,13 +39,33 @@ Phases, one line of output each (any failure raises, so the last line, the
    frame, failed/lost and the ATE bound of that configuration.
 6. points-only path: planes off, the first 30 frames; one fused launch a frame,
    failed/lost and its ATE bound.
-7. the kernels' JSON line, the card line again, and the result line.
+7. lines path: planes on, lines on, the first 30 frames; one fused launch a
+   frame, failed/lost, the ATE bound, lines alive in the map at the end and
+   line matches (inliers of the pose) on at least one frame.
+8. low-texture lines path: a StripeWallScene whose block texture is crushed
+   below FAST's thresholds, 30 frames of a lateral run, planes off, lines on;
+   the same checks.  The lines-off ATE of the same frames is printed before
+   it and gates nothing.
+9. backend path: the 60 frames, planes on, ``ba_every=8``, pose graph on; one
+   fused launch a frame, failed/lost, the ATE bound, at least as many
+   keyframes, refines and accepted refines as the least JAX seed, every pose
+   finite, one copy to the device and one read back per refine and per graph
+   solve; prints ms per refine and per graph solve past the first; then the
+   same run again, which must give the same ATE to the last bit.
+10. the kernels' JSON line (launches summed over all paths), the card line
+    again, and the result line.
+
+``run_frames`` reads the frames' summaries in batches of 8, so the per-frame
+times a path prints are means over a batch; ``fps_from_frame_10`` leaves out
+frame 0 and the first batch, which hold the warm-up.
 
 The JAX references come from ``rgbd_slam_tpu.runner.run_frames`` on the same
-frames with seeds 0, 1 and 2, run on a CPU (its XLA LK path) with
-``XLA_FLAGS=--xla_cpu_max_isa=AVX2``: the worst ATE-RMSE and the most failed and
-lost frames of the three runs.  The port draws other random numbers than JAX,
-so its ATE is held to 1.5 x the worst JAX seed.
+frames with seeds 0, 1 and 2 (0-4 for the low-texture path, whose seeds spread
+by more than 2x), run on a CPU (its XLA LK path) with
+``XLA_FLAGS=--xla_cpu_max_isa=AVX2`` by ``tools/jax_reference.py``: the worst
+ATE-RMSE, the most failed and lost frames and the least keyframe and refine
+counts of the runs.  The port draws other random numbers than JAX, so its ATE
+is held to 1.5 x the worst JAX seed.
 """
 
 from __future__ import annotations
@@ -88,7 +108,14 @@ JAX_REFERENCE = {
     "forward_only": {"frames": 30, "worst_ate_mm": 12.58165533125516, "failed": 0,
                      "lost": 0},
     "points": {"frames": 30, "worst_ate_mm": 2.0459552996148145, "failed": 0, "lost": 0},
+    "lines": {"frames": 30, "worst_ate_mm": 13.17768539625983, "failed": 0, "lost": 0},
+    "lines_lowtex": {"frames": 30, "worst_ate_mm": 42.403517378883954, "failed": 0,
+                     "lost": 0},
+    "ba": {"frames": 60, "worst_ate_mm": 21.410458774998148, "failed": 0, "lost": 0,
+           "keyframes": 16, "ba_runs": 6, "ba_accepted": 6},
 }
+#: one fused forward-backward launch a frame: every path but the forward-only one
+FUSED_ONLY = {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0}
 #: the Pallas kernel each CUDA kernel replaces
 REPLACES = {"lk_fwd_bwd": "rgbd_slam_tpu/ops/pallas_lk.py:408",
             "lk_pyramid": "rgbd_slam_tpu/ops/pallas_lk.py:472",
@@ -335,43 +362,88 @@ def check_kernels(cam, cfg, device):
     return results
 
 
-def run_path(name, cam, cfg, device, with_planes, frames, gt, expect_launches):
+def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=True,
+             with_lines=False, ba_every=None, reference=None):
     """Drive ``runner.run_frames`` over ``frames`` with the launch counts set to 0
     just before; check the launches per frame, failed/lost frames and the ATE
-    against the path's JAX reference.  Returns the launch counts."""
-    ref = JAX_REFERENCE[name]
-    ate_bound = ATE_MARGIN * ref["worst_ate_mm"]
-    step_s = []
+    against the path's JAX reference (``reference=None``: print only), lines
+    alive and matched when lines are on, and the backend's counts when it is.
+    Returns (launch counts, ATE)."""
+    ref = JAX_REFERENCE.get(reference)
+    step_s, line_matches = [], []
+
+    def on_frame(i, state, out, dt):
+        step_s.append(dt)
+        line_matches.append(out.n_line_matches)
+
     lk_cuda.reset_launches()
     state, traj, stats = runner.run_frames(
-        frames, cam, cfg, with_planes=with_planes, seed=SEED, device=device,
-        on_frame=lambda i, s, o, dt: step_s.append(dt))
+        frames, cam, cfg, with_planes=with_planes, with_lines=with_lines,
+        ba_every=ba_every, seed=SEED, device=device, on_frame=on_frame)
     launches = dict(lk_cuda.LAUNCHES)
 
     ate = runner.evaluate_against_ground_truth(traj, gt)["ate_rmse_mm"]
     failed = stats.frame_count - stats.success_count
     planes_alive = int((state.planes.fid >= 0).sum())
-    steady_ms = np.array(step_s[2:]) * 1e3   # past the warm-up
-    _say(name, frames=stats.frame_count, launches=launches, failed=failed,
-         lost=stats.lost_count, ate_rmse_mm=ate, ate_bound_mm=ate_bound,
-         fps_from_frame_3=1e3 * len(steady_ms) / steady_ms.sum(),
-         step_ms_median=float(np.median(steady_ms)),
-         step_ms_p80=float(np.percentile(steady_ms, 80)), first_frame_s=step_s[0],
-         points_alive=int((state.points.fid >= 0).sum()), planes_alive=planes_alive)
+    lines_alive = int((state.lines.fid >= 0).sum())
+    frames_with_line_matches = int((torch.stack(line_matches) > 0).sum())
+    steady_ms = np.array(step_s[1 + runner.SUMMARY_BATCH:]) * 1e3   # past the warm-up
+    fields = dict(
+        frames=stats.frame_count, launches=launches, failed=failed, lost=stats.lost_count,
+        ate_rmse_mm=ate, ate_bound_mm=ATE_MARGIN * ref["worst_ate_mm"] if ref else None,
+        fps_from_frame_10=1e3 * len(steady_ms) / steady_ms.sum(),
+        step_ms_median=float(np.median(steady_ms)),
+        step_ms_p80=float(np.percentile(steady_ms, 80)), first_frame_s=step_s[0],
+        points_alive=int((state.points.fid >= 0).sum()), planes_alive=planes_alive)
+    if with_lines:
+        fields.update(lines_alive=lines_alive,
+                      frames_with_line_matches=frames_with_line_matches)
+    if ba_every:
+        later_refines = max(stats.ba_runs - 1, 1)
+        later_solves = max(stats.graph_solves - 1, 1)
+        fields.update(
+            keyframes=stats.keyframe_count, ba_runs=stats.ba_runs,
+            ba_accepted=stats.ba_accepted, graph_solves=stats.graph_solves,
+            first_refine_ms=1e3 * stats.ba_compile_s,
+            refine_ms=1e3 * (stats.ba_total_s - stats.ba_compile_s) / later_refines,
+            first_graph_solve_ms=1e3 * stats.graph_first_s,
+            graph_solve_ms=1e3 * (stats.graph_total_s - stats.graph_first_s) / later_solves,
+            ba_dropped_landmarks=stats.ba_dropped_landmarks,
+            ba_dropped_obs=stats.ba_dropped_obs, backend_uploads=stats.backend_uploads,
+            backend_readbacks=stats.backend_readbacks)
+    _say(name, **fields)
     problems = []
     want = {k: v * stats.frame_count for k, v in expect_launches.items()}
     if launches != want:
         problems.append(f"launches {launches}, expected {want}")
-    if failed > ref["failed"] or stats.lost_count > ref["lost"]:
-        problems.append(f"failed/lost {failed}/{stats.lost_count} > JAX reference "
-                        f"{ref['failed']}/{ref['lost']}")
-    if not (np.isfinite(traj.positions_array()).all() and ate <= ate_bound):
-        problems.append(f"ATE {ate} mm over the {ate_bound} mm bound")
+    if not np.isfinite(traj.positions_array()).all() \
+            or not np.isfinite(np.array(traj.quaternions)).all():
+        problems.append("a pose is not finite")
+    if ref is not None:
+        if failed > ref["failed"] or stats.lost_count > ref["lost"]:
+            problems.append(f"failed/lost {failed}/{stats.lost_count} > JAX reference "
+                            f"{ref['failed']}/{ref['lost']}")
+        if not ate <= ATE_MARGIN * ref["worst_ate_mm"]:
+            problems.append(f"ATE {ate} mm over the {ATE_MARGIN * ref['worst_ate_mm']} mm "
+                            "bound")
     if with_planes and planes_alive == 0:
         problems.append("no plane alive in the map")
+    if with_lines and (lines_alive == 0 or frames_with_line_matches == 0):
+        problems.append(f"{lines_alive} lines alive, {frames_with_line_matches} frames "
+                        "with line matches")
+    if ba_every:
+        solves = stats.ba_runs + stats.graph_solves
+        if (stats.backend_uploads, stats.backend_readbacks) != (solves, solves):
+            problems.append(f"{stats.backend_uploads} copies to the device and "
+                            f"{stats.backend_readbacks} reads back for {solves} solves")
+    if ba_every and ref is not None:
+        for key, got in (("keyframes", stats.keyframe_count), ("ba_runs", stats.ba_runs),
+                         ("ba_accepted", stats.ba_accepted)):
+            if got < ref[key]:
+                problems.append(f"{key} {got} < the least JAX seed's {ref[key]}")
     if problems:
         raise RuntimeError(f"{name} path: " + "; ".join(problems))
-    return launches
+    return launches, ate
 
 
 def main() -> int:
@@ -399,13 +471,34 @@ def main() -> int:
         cfg.mapping, max_tracked_points=FORWARD_ONLY_TRACKED))
     n_fwd = JAX_REFERENCE["forward_only"]["frames"]
     n_pts = JAX_REFERENCE["points"]["frames"]
-    launches = run_path("planes", cam, cfg, device, True, frames, gt,
-                        {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0})
-    fwd_launches = run_path("forward_only", cam, cfg_fwd, device, True, frames[:n_fwd],
-                            gt[:n_fwd], {"lk_fwd_bwd": 0, "lk_pyramid": 2, "lk_level": 0})
-    run_path("points", cam, cfg, device, False, frames[:n_pts], gt[:n_pts],
-             {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0})
-    launches["lk_pyramid"] = fwd_launches["lk_pyramid"]
+    paths = [
+        run_path("planes", cam, cfg, device, frames, gt, FUSED_ONLY, reference="planes"),
+        run_path("forward_only", cam, cfg_fwd, device, frames[:n_fwd], gt[:n_fwd],
+                 {"lk_fwd_bwd": 0, "lk_pyramid": 2, "lk_level": 0}, reference="forward_only"),
+        run_path("points", cam, cfg, device, frames[:n_pts], gt[:n_pts], FUSED_ONLY,
+                 with_planes=False, reference="points"),
+    ]
+    n_lines = JAX_REFERENCE["lines"]["frames"]
+    paths.append(run_path("lines", cam, cfg, device, frames[:n_lines], gt[:n_lines],
+                          FUSED_ONLY, with_lines=True, reference="lines"))
+    wall = synthetic.StripeWallScene(cam, texture_scale=0.03, stripe_period_z=2400.0)
+    wall_poses = synthetic.lateral_trajectory(JAX_REFERENCE["lines_lowtex"]["frames"],
+                                              speed_mm=4.0)
+    wall_frames = [wall.render(q, p) for q, p in wall_poses]
+    wall_gt = np.stack([p for _, p in wall_poses]).astype(np.float64)
+    paths.append(run_path("lines_lowtex_off", cam, cfg, device, wall_frames, wall_gt,
+                          FUSED_ONLY, with_planes=False))
+    paths.append(run_path("lines_lowtex", cam, cfg, device, wall_frames, wall_gt, FUSED_ONLY,
+                          with_planes=False, with_lines=True, reference="lines_lowtex"))
+    ba_first = run_path("ba", cam, cfg, device, frames, gt, FUSED_ONLY, ba_every=8,
+                        reference="ba")
+    ba_again = run_path("ba_again", cam, cfg, device, frames, gt, FUSED_ONLY, ba_every=8,
+                        reference="ba")
+    if ba_first[1] != ba_again[1]:
+        raise RuntimeError(f"backend path: ATE {ba_first[1]!r} mm, then {ba_again[1]!r} mm "
+                           "on the same frames")
+    paths += [ba_first, ba_again]
+    launches = {name: sum(counts[name] for counts, _ in paths) for name in kernels}
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": "rgbd_slam_tpu_torch/csrc/lk.cu",

@@ -1,5 +1,5 @@
 """RGB-D SLAM engine: the per-frame tracking step (port of
-``rgbd_slam_tpu/engine.py``), points and planes.
+``rgbd_slam_tpu/engine.py``): points, planes and lines.
 
 ``step(state, gray, depth) -> (state, output)`` over the JAX package's
 fixed-capacity masked state: pyramid, forward-backward LK of the tracked map
@@ -7,7 +7,9 @@ points (CUDA kernels on the card), FAST + BRIEF and windowed matching on refresh
 frames, CAPE plane and cylinder extraction and plane matching, RANSAC pose
 optimization with a Monte-Carlo covariance, Kalman map updates (points and
 planes, with the polygon merge), lifecycle, insertion and the next tracked set.
-Lines (``with_lines=True``) raise until their slice is ported.
+With ``with_lines=True`` line segments are detected, matched to the line map at
+the predicted pose, enter the pose as a residual block, and the line map gets
+its per-endpoint Kalman update, lifecycle and insertion.
 
 Differences from the JAX step that do not change its results:
 
@@ -32,7 +34,9 @@ import torch
 
 from .config import CameraIntrinsics, SlamConfig
 from .device import resolve_device
+from .features import lines as lines_mod
 from .features import primitives
+from .features.lines import MAX_LINES as DET_LINES_CAP
 from .features.primitives import MAX_PLANES
 from .geometry import covariances as cov_mod
 from .geometry import inverse_depth as idp
@@ -315,6 +319,146 @@ def _insert_planes(pl: maps.PlaneMap, det: primitives.DetectedPlanes, det_world,
     return pl, next_id + ok.to(torch.int32).sum().to(torch.int32)
 
 
+def _match_lines(line_map: maps.LineMap, det: lines_mod.DetectedLines, w2c, cam,
+                 cfg: SlamConfig):
+    """Match map lines to detected 2D segments at the predicted pose.
+
+    Gates: 2D direction agreement, the detection midpoint's perpendicular
+    distance to the projected map line, and a positive extent overlap along it.
+    The best candidate is the one with the smallest perpendicular distance
+    (first index on ties, and index 0 for a row that matches nothing); each
+    detection matches at most one map line.  Returns (match index [Ml] into
+    detections or -1, projected endpoints l0 [Ml, 2], l1 [Ml, 2])."""
+    dev = w2c.device
+    ml = line_map.fid.shape[0]
+    nd = det.p0.shape[0]
+    s0, ok0 = pinhole.world_to_screen(line_map.endpoints[:, :3], w2c, cam)
+    s1, ok1 = pinhole.world_to_screen(line_map.endpoints[:, 3:], w2c, cam)
+    l0, l1 = s0[:, :2], s1[:, :2]
+    seg = l1 - l0
+    seg_len = torch.sqrt(torch.clamp_min((seg * seg).sum(dim=-1), 1e-9))
+    dir_m = seg / seg_len[:, None]
+    norm_m = torch.stack([-dir_m[:, 1], dir_m[:, 0]], dim=-1)
+
+    cosang = torch.abs(dir_m @ det.direction.T)
+    mid = 0.5 * (det.p0 + det.p1)
+    rel = mid[None, :, :] - l0[:, None, :]
+    perp = torch.abs((rel * norm_m[:, None, :]).sum(dim=-1))
+    t0 = ((det.p0[None] - l0[:, None]) * dir_m[:, None]).sum(dim=-1)
+    t1 = ((det.p1[None] - l0[:, None]) * dir_m[:, None]).sum(dim=-1)
+    lo = torch.minimum(t0, t1)
+    hi = torch.maximum(t0, t1)
+    overlap = torch.minimum(hi, seg_len[:, None]) - torch.clamp_min(lo, 0.0)
+
+    gate = ((cosang > math.cos(math.radians(cfg.matching.max_line_match_angle_d)))
+            & (perp < cfg.matching.max_line_match_distance_px)
+            & (overlap > 0.0)
+            & (ok0 & ok1)[:, None]
+            & maps.alive(line_map)[:, None] & det.valid[None, :])
+    neg_inf = torch.full_like(perp, -float("inf"))
+    score = torch.where(gate, -perp, neg_inf)
+    best = torch.argmax(score, dim=1)
+    best_ok = torch.gather(gate, 1, best[:, None])[:, 0]
+    best_perp = -torch.gather(score, 1, best[:, None])[:, 0]
+    # one detection -> one map line: ties go to the smaller perpendicular error
+    rank = torch.where(best_ok, -best_perp, neg_inf[:, 0])
+    claims = best[None, :] == torch.arange(nd, device=dev)[:, None]     # [nd, ml]
+    winner = torch.argmax(torch.where(claims, rank[None, :], neg_inf.T), dim=1)
+    ok = best_ok & (winner[best] == torch.arange(ml, device=dev))
+    return torch.where(ok, best, -1).to(torch.int32), l0, l1
+
+
+class _LineObservations(NamedTuple):
+    """A frame's detected segments with their endpoint depths: the endpoints
+    are sampled a few px toward the midpoint, off the depth discontinuity that
+    usually coincides with an intensity edge."""
+    det: lines_mod.DetectedLines
+    screen0: torch.Tensor    # [D, 3] inset start (u, v, depth mm)
+    screen1: torch.Tensor    # [D, 3] inset end
+    depth_ok: torch.Tensor   # [D] both endpoint depths are valid
+
+
+def _observe_lines(gray, depth, cfg: SlamConfig) -> _LineObservations:
+    det = lines_mod.detect_lines(gray)
+    inset0 = det.p0 + 3.0 * det.direction
+    inset1 = det.p1 - 3.0 * det.direction
+    lz0 = _sample_depth(depth, inset0)
+    lz1 = _sample_depth(depth, inset1)
+    depth_ok = (pinhole.is_depth_valid(lz0, cfg.engine.min_depth_mm, cfg.engine.max_depth_mm)
+                & pinhole.is_depth_valid(lz1, cfg.engine.min_depth_mm,
+                                         cfg.engine.max_depth_mm))
+    return _LineObservations(
+        det=det, screen0=torch.cat([inset0, lz0[:, None]], dim=-1),
+        screen1=torch.cat([inset1, lz1[:, None]], dim=-1), depth_ok=depth_ok)
+
+
+def _update_lines(li: maps.LineMap, obs: _LineObservations, l_match_idx, l_final, c2w,
+                  pose_cov3, cam, cfg: SlamConfig, insert_all, allow_insert, next_id):
+    """The line map's frame: a 3x3 Kalman update of each matched line's two
+    endpoints with the detection's 3D endpoints at the optimized pose ``c2w``,
+    the staged/local lifecycle of map points applied to lines, and insertion of
+    the unmatched detections whose endpoints both have depth.
+
+    Returns (map, next id, evicted [Ml] bool, the endpoints before eviction)."""
+    ml_cap = li.fid.shape[0]
+    safe_l = l_match_idx.clamp(0, DET_LINES_CAP - 1).to(torch.int64)
+    det_e0_w = pinhole.screen_to_world(obs.screen0, c2w, cam)
+    det_e1_w = pinhole.screen_to_world(obs.screen1, c2w, cam)
+    det_e0_cov = cov_mod.screen_point_to_world_covariance(obs.screen0, c2w, cam, pose_cov3)
+    det_e1_cov = cov_mod.screen_point_to_world_covariance(obs.screen1, c2w, cam, pose_cov3)
+
+    obs_e0, obs_e1 = det_e0_w[safe_l], det_e1_w[safe_l]
+    oc0, oc1 = det_e0_cov[safe_l], det_e1_cov[safe_l]
+    e0m, e1m = li.endpoints[:, :3], li.endpoints[:, 3:]
+
+    def dist(a, b):
+        return torch.linalg.vector_norm(a - b, dim=-1)
+
+    # a segment's endpoints are unordered: take the assignment that moves less
+    swap = ((dist(e0m, obs_e1) + dist(e1m, obs_e0))
+            < (dist(e0m, obs_e0) + dist(e1m, obs_e1)))[:, None]
+    o0 = torch.where(swap, obs_e1, obs_e0)
+    o1 = torch.where(swap, obs_e0, obs_e1)
+    c0 = torch.where(swap[..., None], oc1, oc0)
+    c1 = torch.where(swap[..., None], oc0, oc1)
+    upd_e0, upd_c0, _, _ = kalman.track_points(e0m, li.cov[:, 0], o0, c0)
+    upd_e1, upd_c1, _, _ = kalman.track_points(e1m, li.cov[:, 1], o1, c1)
+    l_upd = (l_final & maps.alive(li) & obs.depth_ok[safe_l])[:, None]
+    new_lines = li._replace(
+        endpoints=torch.where(l_upd, torch.cat([upd_e0, upd_e1], dim=-1), li.endpoints),
+        cov=torch.where(l_upd[..., None, None], torch.stack([upd_c0, upd_c1], dim=1),
+                        li.cov))
+    # lifecycle: the staged/local rules of map points
+    l_loc, l_mc, l_miss, l_keep = maps.lifecycle_update(
+        new_lines.is_local, new_lines.match_count, new_lines.miss_count, l_final,
+        cfg.mapping.point_staged_age_confidence, cfg.mapping.point_unmatched_count_to_loose)
+    evicted = maps.alive(li) & new_lines.is_local & ~l_keep
+    evict_eps = new_lines.endpoints
+    new_lines = maps.remove_features(
+        new_lines._replace(is_local=l_loc, match_count=l_mc, miss_count=l_miss),
+        l_keep | ~maps.alive(li))
+
+    # insertion: unmatched valid detections with both endpoint depths
+    det_taken = _scatter_set(
+        torch.zeros((DET_LINES_CAP,), dtype=torch.bool, device=c2w.device),
+        torch.where(l_match_idx >= 0, l_match_idx.to(torch.int64), DET_LINES_CAP), True)
+    want = obs.det.valid & obs.depth_ok & (~det_taken | insert_all) & allow_insert
+    slots = maps.allocate_slots(~maps.alive(new_lines), want)
+    ok = slots >= 0
+    tgt = torch.where(ok, slots, ml_cap)
+    ids = next_id + torch.cumsum(ok.to(torch.int32), dim=0).to(torch.int32) - 1
+    new_lines = new_lines._replace(
+        endpoints=_scatter_set(new_lines.endpoints, tgt,
+                               torch.cat([det_e0_w, det_e1_w], dim=-1)),
+        cov=_scatter_set(new_lines.cov, tgt, torch.stack([det_e0_cov, det_e1_cov], dim=1)),
+        fid=_scatter_set(new_lines.fid, tgt, ids),
+        is_local=_scatter_set(new_lines.is_local, tgt, False),
+        match_count=_scatter_set(new_lines.match_count, tgt, 1),
+        miss_count=_scatter_set(new_lines.miss_count, tgt, 0))
+    return (new_lines, next_id + ok.to(torch.int32).sum().to(torch.int32), evicted,
+            evict_eps)
+
+
 def _sync_detect_flag(do_detect) -> bool:
     """The Python branch on the detection flag: one host read."""
     return bool(do_detect.item())
@@ -325,9 +469,6 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
          draws: StepDraws | None = None):
     """Process one RGB-D frame.  ``gray`` and ``depth`` are [H, W] float32 on the
     state's device.  Returns (new_state, StepOutput)."""
-    if with_lines:
-        raise NotImplementedError(
-            "with_lines=True: line features (ROADMAP queue 1 #10) are not ported yet")
     dev = gray.device
     dt = gray.dtype
     det_cfg = cfg.detection
@@ -465,6 +606,16 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     q_obs_depth_ok = pinhole.is_depth_valid(q_obs_z, cfg.engine.min_depth_mm,
                                             cfg.engine.max_depth_mm)
 
+    # lines: detection, endpoint depths and matching at the predicted pose
+    if with_lines:
+        line_obs = _observe_lines(gray, depth, cfg)
+        n_lines = i32(line_obs.det.valid.sum())
+        l_match_idx, _, _ = _match_lines(state.lines, line_obs.det, w2c, cam, cfg)
+    else:
+        n_lines = full((), 0, torch.int32)
+        l_match_idx = full((ml,), -1, torch.int32)
+    l_matched = l_match_idx >= 0
+
     # planes + cylinders (cylinders surface only in the step output)
     n_grid_cells = (cam.height // det_cfg.depth_patch_size_px) \
         * (cam.width // det_cfg.depth_patch_size_px)
@@ -485,6 +636,12 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     def std_of(cov):
         return torch.sqrt(torch.abs(torch.diagonal(cov, dim1=-2, dim2=-1)))
 
+    if with_lines:
+        safe_l = l_match_idx.clamp(0, DET_LINES_CAP - 1).to(torch.int64)
+        line_obs_p0 = line_obs.det.p0[safe_l]
+        line_obs_p1 = line_obs.det.p1[safe_l]
+    else:
+        line_obs_p0 = line_obs_p1 = full((ml, 2), 0.0, dt)
     feats = MatchedFeatures(
         point_obs_uv=p_obs_uv, point_world=pts.pos, point_world_std=std_of(pts.cov),
         point_mask=p_matched & pts_alive,
@@ -493,10 +650,10 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         plane_cam=det_planes.params[safe_k] if with_planes else full((mp, 4), 0.0, dt),
         plane_world=state.planes.params, plane_world_std=std_of(state.planes.cov),
         plane_mask=k_matched & maps.alive(state.planes),
-        line_obs_p0=full((ml, 2), 0.0, dt), line_obs_p1=full((ml, 2), 0.0, dt),
+        line_obs_p0=line_obs_p0, line_obs_p1=line_obs_p1,
         line_world=state.lines.endpoints,
         line_world_std=std_of(state.lines.cov).reshape(ml, 6),
-        line_mask=full((ml,), False, torch.bool),
+        line_mask=l_matched & maps.alive(state.lines),
     )
     opt = compute_optimized_pose(pred_quat, pred_pos, feats, cam,
                                  ransac_cfg=cfg.ransac, engine_cfg=cfg.engine,
@@ -519,6 +676,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     p_final = success & p_matched & opt.point_inliers
     q_final = success & q_matched & opt.point2d_inliers
     k_final = success & k_matched & opt.plane_inliers
+    l_final = success & l_matched & opt.line_inliers
 
     # 3D point Kalman updates on a compacted 256-slot block; depth-less matches
     # fuse an inverse-depth observation's cartesian projection (nested 64 block)
@@ -687,6 +845,16 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
                                              det_world_cov, safe_k, k_final, new_c2w,
                                              next_id)
 
+    # line map: per-endpoint Kalman update, lifecycle and insertion
+    if with_lines:
+        new_lines, next_id, l_evicted, l_evict_eps = _update_lines(
+            state.lines, line_obs, l_match_idx, l_final, new_c2w, pose_cov3, cam, cfg,
+            insert_all, allow_insert, next_id)
+    else:
+        new_lines = state.lines
+        l_evicted = full((ml,), False, torch.bool)
+        l_evict_eps = state.lines.endpoints
+
     # --- next-frame tracking set ---------------------------------------------
     proj_next, proj_next_ok = pinhole.world_to_screen(new_points.pos, new_w2c, cam)
     in_screen = pinhole.is_in_screen_boundaries(proj_next, cam)
@@ -712,13 +880,12 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
 
     new_state = SlamState(
         quat=new_quat, position=new_pos, pose_cov=new_pose_cov, motion=motion_state,
-        points=new_points, points2d=new_points2d, planes=new_planes, lines=state.lines,
+        points=new_points, points2d=new_points2d, planes=new_planes, lines=new_lines,
         prev_pyramid=tuple(pyr_cur), tracked_uv=tracked_uv_next,
         tracked_ok=tracked_ok_next, tracked_map_idx=tracked_idx_next,
         frame_idx=state.frame_idx + 1, failed_count=failed_count, is_lost=is_lost,
         next_id=next_id, generator=state.generator,
     )
-    no_lines = full((ml,), False, torch.bool)
     output = StepOutput(
         quat=new_quat, position=new_pos, pose_cov=new_pose_cov,
         success=success | first_frame, is_lost=is_lost,
@@ -727,9 +894,9 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         n_points_alive=i32(maps.alive(new_points).sum()),
         n_planes_alive=i32(maps.alive(new_planes).sum()),
         n_detected=i32(det_valid.sum()),
-        n_lines=full((), 0, torch.int32),
-        n_line_matches=full((), 0, torch.int32),
-        n_lines_alive=i32(maps.alive(state.lines).sum()),
+        n_lines=n_lines,
+        n_line_matches=i32(l_final.sum()),
+        n_lines_alive=i32(maps.alive(new_lines).sum()),
         n_cylinders=n_cylinders,
         n_plane_merge_dropped=n_merge_dropped,
         cylinder_cells=cylinder_cells,
@@ -737,13 +904,14 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         point_obs_z=torch.where(p_obs_depth_ok, p_obs_z, torch.zeros_like(p_obs_z)),
         point_matched=p_final & pts_alive,
         point_fid=pts.fid,
-        n_evicted=i32(p_evicted.sum() + q_evicted.sum() + k_evicted.sum()),
+        n_evicted=i32(p_evicted.sum() + q_evicted.sum() + k_evicted.sum()
+                      + l_evicted.sum()),
         point_evicted=p_evicted, point_evict_pos=p_evict_pos,
         point2d_evicted=q_evicted, point2d_evict_pos=q_evict_pos,
         plane_evicted=k_evicted, plane_evict_params=k_evict.params,
         plane_evict_verts=k_evict.poly_verts, plane_evict_count=k_evict.poly_count,
         plane_evict_center=k_evict.basis_center, plane_evict_u=k_evict.basis_u,
         plane_evict_v=k_evict.basis_v,
-        line_evicted=no_lines, line_evict_eps=state.lines.endpoints,
+        line_evicted=l_evicted, line_evict_eps=l_evict_eps,
     )
     return new_state, output

@@ -59,6 +59,13 @@ def quat_conjugate(q):
     return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
+def quat_rotate(q, v):
+    """Rotate vector(s) v by quaternion(s) q (without building the matrix)."""
+    qv = q[..., 1:]
+    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
+    return v + q[..., :1] * t + torch.linalg.cross(qv, t, dim=-1)
+
+
 def quat_to_matrix(q):
     """Unit quaternion [w,x,y,z] -> 3x3 rotation matrix (batched)."""
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]

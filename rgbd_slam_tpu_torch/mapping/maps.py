@@ -3,8 +3,8 @@
 Every feature type lives in one preallocated mask-padded block; staged-vs-local
 is a bool column; insertion, eviction and promotion are masked scatters.
 Descriptors are held as int32 bit patterns of the JAX package's uint32 words.
-``PlaneMap`` and ``LineMap`` are carried at their JAX shapes; the points-only step
-leaves them empty.
+``PlaneMap`` and ``LineMap`` have the JAX package's shapes; the step fills them when
+planes and lines are on.
 """
 
 from __future__ import annotations

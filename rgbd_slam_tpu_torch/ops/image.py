@@ -1,5 +1,6 @@
 """Core image operations (port of ``rgbd_slam_tpu/ops/image.py``): pyramids, box
-filter, max pool and the border test, on [H, W] float32 images.
+filter, gradients, bilinear sampling, max pool and the border test, on [H, W]
+float32 images.
 
 Stencil sums are written as the same sequence of shifted adds as the JAX
 package, so they round the same way; the horizontal pyr_down pass stays a banded
@@ -80,6 +81,35 @@ def build_pyramid(img, levels: int):
     for _ in range(levels):
         pyr.append(pyr_down(pyr[-1]))
     return pyr
+
+
+def gradients(img):
+    """Central-difference gradients (Ix, Iy); the border columns of Ix and the
+    border rows of Iy are zero."""
+    ix = torch.zeros_like(img)
+    iy = torch.zeros_like(img)
+    ix[:, 1:-1] = 0.5 * (img[:, 2:] - img[:, :-2])
+    iy[1:-1, :] = 0.5 * (img[2:, :] - img[:-2, :])
+    return ix, iy
+
+
+def bilinear_sample(img, xy):
+    """Bilinear interpolation of an [H, W] image at float (x, y) positions
+    [..., 2].  Coordinates are clipped to the valid range (border replication)."""
+    h, w = img.shape
+    x = xy[..., 0].clamp(0.0, w - 1.000001)
+    y = xy[..., 1].clamp(0.0, h - 1.000001)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp_max(x0 + 1, w - 1)
+    y1 = torch.clamp_max(y0 + 1, h - 1)
+    fx = x - x0.to(img.dtype)
+    fy = y - y0.to(img.dtype)
+    flat = img.reshape(-1)
+    v00, v01 = flat[y0 * w + x0], flat[y0 * w + x1]
+    v10, v11 = flat[y1 * w + x0], flat[y1 * w + x1]
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+            + fy * ((1 - fx) * v10 + fx * v11))
 
 
 def in_border(xy, h: int, w: int, margin: float = 1.0):

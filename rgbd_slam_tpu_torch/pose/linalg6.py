@@ -51,3 +51,27 @@ def solve_spd(a, b, eps: float = 1e-20):
 def solve6_spd(a, b, eps: float = 1e-20):
     """6x6 SPD solve (LM normal equations)."""
     return solve_spd(a, b, eps)
+
+
+def inv3(a, eps: float = 1e-30):
+    """Closed-form adjugate inverse of [..., 3, 3] matrices; a determinant
+    smaller than ``eps`` in magnitude is replaced by +-``eps``."""
+    m = a
+    c00 = m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1]
+    c01 = m[..., 1, 2] * m[..., 2, 0] - m[..., 1, 0] * m[..., 2, 2]
+    c02 = m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]
+    c10 = m[..., 0, 2] * m[..., 2, 1] - m[..., 0, 1] * m[..., 2, 2]
+    c11 = m[..., 0, 0] * m[..., 2, 2] - m[..., 0, 2] * m[..., 2, 0]
+    c12 = m[..., 0, 1] * m[..., 2, 0] - m[..., 0, 0] * m[..., 2, 1]
+    c20 = m[..., 0, 1] * m[..., 1, 2] - m[..., 0, 2] * m[..., 1, 1]
+    c21 = m[..., 0, 2] * m[..., 1, 0] - m[..., 0, 0] * m[..., 1, 2]
+    c22 = m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
+    det = m[..., 0, 0] * c00 + m[..., 0, 1] * c01 + m[..., 0, 2] * c02
+    floor = torch.where(det < 0, -eps, eps).to(det.dtype)
+    inv_det = 1.0 / torch.where(torch.abs(det) < eps, floor, det)
+    adj = torch.stack([
+        torch.stack([c00, c10, c20], dim=-1),
+        torch.stack([c01, c11, c21], dim=-1),
+        torch.stack([c02, c12, c22], dim=-1),
+    ], dim=-2)
+    return adj * inv_det[..., None, None]

@@ -319,3 +319,58 @@ def test_lk_pyramid_kernel_on_levels_off_the_16_byte_grid(cuda):
                                       xy, valid, **kw)
     torch.cuda.synchronize()
     assert torch.equal(a_flow, b_flow) and torch.equal(a_ok, b_ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_tiles", [2, 3], ids=["closure", "loop"])
+def test_detect_lines_on_the_card_matches_the_cpu(cuda, min_tiles):
+    """A 640x480 StripeWallScene frame through the line detector on the card and
+    on the CPU, by the closure rows and by the per-seed loop: the same tiles and
+    counts, endpoints to 1e-2 px (a vertical segment may come in either
+    orientation, see test_torch_lines.py)."""
+    from rgbd_slam_tpu_torch.features import lines
+
+    cam = config.TUM_FR1
+    scene = synthetic.StripeWallScene(cam, texture_scale=0.03, stripe_period_z=2400.0)
+    gray = scene.render(*synthetic.lateral_trajectory(4, speed_mm=4.0)[3])[0]
+    cpu = lines.detect_lines(torch.from_numpy(gray), min_tiles=min_tiles)
+    card = lines.detect_lines(torch.as_tensor(gray, device=cuda), min_tiles=min_tiles)
+    assert int(cpu.valid.sum()) >= 4
+    np.testing.assert_array_equal(card.valid.cpu().numpy(), cpu.valid.numpy())
+    np.testing.assert_array_equal(card.tile_count.cpu().numpy(), cpu.tile_count.numpy())
+    flip = ((card.direction.cpu() * cpu.direction).sum(-1) < 0)[:, None]
+    p0 = torch.where(flip, card.p1.cpu(), card.p0.cpu())
+    p1 = torch.where(flip, card.p0.cpu(), card.p1.cpu())
+    np.testing.assert_allclose(p0.numpy(), cpu.p0.numpy(), atol=1e-2)
+    np.testing.assert_allclose(p1.numpy(), cpu.p1.numpy(), atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_backend_on_the_card_runs_and_repeats_bit_equal(cuda):
+    """run_frames with lines, BA and the pose graph on the card at a small size,
+    twice: refines are accepted, one copy each way per solve, and the two
+    trajectories are equal to the last bit."""
+    from rgbd_slam_tpu_torch import runner
+
+    cam = config.CameraIntrinsics(width=160, height=120, fx=130.0, fy=130.0,
+                                  cx=80.0, cy=60.0)
+    cfg = config.SlamConfig(
+        detection=config.DetectionConfig(optical_flow_pyramid_depth=2,
+                                         optical_flow_coarse_window_px=13),
+        mapping=config.MappingConfig(max_points_3d=128, max_points_2d=64, max_planes=8,
+                                     max_lines=4, max_tracked_points=64),
+        engine=config.EngineConfig(pose_covariance_mc_iterations=16,
+                                   ransac_hypothesis_batch=16, p3p_hypothesis_batch=8))
+    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+    frames = [scene.render(q, p) for q, p in synthetic.orbit_trajectory(24, speed_mm=8.0)]
+    runs = []
+    for _ in range(2):
+        _, traj, stats = runner.run_frames(frames, cam, cfg, with_lines=True, ba_every=8,
+                                           device=cuda)
+        assert stats.success_count == 24 and stats.ba_runs >= 2 and stats.ba_accepted >= 1
+        assert stats.backend_uploads == stats.backend_readbacks \
+            == stats.ba_runs + stats.graph_solves
+        runs.append((traj.positions_array(), np.array(traj.quaternions)))
+    assert np.isfinite(runs[0][0]).all()
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])

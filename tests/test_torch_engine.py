@@ -330,7 +330,9 @@ def test_init_state_matches_jax():
 
 def test_runner_and_unported_paths(frames):
     """run_frames drives the step (points only here, and the default plane step
-    on one frame); lines and the BA backend still raise."""
+    on one frame); lines and the BA backend, which used to raise, run (their own
+    tests are test_torch_engine_lines.py and test_torch_ba.py); the sharded BA,
+    depth rectification and the map writer raise by name."""
     seen = []
     state, traj, stats = runner.run_frames(
         frames[:3], T_CAM, T_CFG, with_planes=False, device="cpu",
@@ -340,9 +342,11 @@ def test_runner_and_unported_paths(frames):
     assert int(state.frame_idx) == 3
     _, traj, stats = runner.run_frames(frames[:1], T_CAM, T_CFG, device="cpu")
     assert stats.frame_count == 1 and stats.success_count == 1 and len(traj.positions) == 1
-    with pytest.raises(NotImplementedError, match="with_lines"):
-        runner.run_frames(frames[:1], T_CAM, T_CFG, with_planes=False, with_lines=True,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ba_every"):
-        runner.run_frames(frames[:1], T_CAM, T_CFG, with_planes=False, ba_every=8,
-                          device="cpu")
+    _, traj, stats = runner.run_frames(frames[:2], T_CAM, T_CFG, with_planes=False,
+                                       with_lines=True, ba_every=2, device="cpu")
+    assert stats.frame_count == 2 and stats.success_count == 2 and stats.keyframe_count >= 1
+    assert stats.ba_runs == 0          # two keyframes at most: nothing to refine yet
+    for kw in ("ba_mesh", "camera_setup", "export_map"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            runner.run_frames(frames[:1], T_CAM, T_CFG, with_planes=False, device="cpu",
+                              **{kw: "asked for"})

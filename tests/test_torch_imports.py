@@ -17,7 +17,11 @@ def _run(args, cwd, env=None):
 
 
 @pytest.mark.parametrize("module", ["rgbd_slam_tpu_torch", "rgbd_slam_tpu_torch.engine",
-                                    "rgbd_slam_tpu_torch.runner", "chip_smoke"])
+                                    "rgbd_slam_tpu_torch.runner",
+                                    "rgbd_slam_tpu_torch.features.lines",
+                                    "rgbd_slam_tpu_torch.parallel.ba",
+                                    "rgbd_slam_tpu_torch.parallel.keyframes",
+                                    "rgbd_slam_tpu_torch.parallel.pose_graph", "chip_smoke"])
 def test_port_imports_no_jax(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

@@ -127,3 +127,24 @@ def test_matching_with_ties_and_conflicts():
     j_res = j_matching.resolve_match_conflicts(j_idx, j_dist, 40)
     t_res = matching.resolve_match_conflicts(t_idx, t_dist, 40)
     np.testing.assert_array_equal(t_res.numpy(), np.asarray(j_res))
+
+
+@pytest.mark.parametrize("shape", [(120, 160), (61, 81)])
+def test_gradients_and_bilinear_sample(shape):
+    """Central differences and bilinear taps are the same products and sums in
+    both packages: equal to 1e-6 relative (of the gray range for the
+    differences of neighbouring pixels)."""
+    rng = np.random.default_rng(4)
+    img = rng.uniform(0, 255, shape).astype(np.float32)
+    for port, ref in zip(image.gradients(_t(img)), j_image.gradients(jnp.asarray(img))):
+        np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-6, atol=255e-6)
+    h, w = shape
+    # inside, on the borders, and outside on every side (clipped to the border)
+    xy = np.concatenate([
+        rng.uniform(-3, w + 3, (200, 1)), rng.uniform(-3, h + 3, (200, 1))], -1)
+    xy = np.concatenate([xy, [[0, 0], [w - 1, h - 1], [w - 1, 0], [0.5, h - 1], [w, h]]])
+    xy = xy.astype(np.float32).reshape(5, 41, 2)
+    port = image.bilinear_sample(_t(img), _t(xy))
+    ref = j_image.bilinear_sample(jnp.asarray(img), jnp.asarray(xy))
+    assert port.shape == (5, 41)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-6, atol=255e-6)

@@ -1,14 +1,20 @@
 """Stage profile of the PyTorch port's SLAM step on one NVIDIA card.
 
     python tools/profile_torch_step.py [--tracked 128] [--no-planes] [--frames 25]
+                                       [--lines] [--stripe-wall] [--ba-every 8]
 
-Runs RoomScene orbit frames at 640x480 (default ``SlamConfig``, depth noise on)
-through ``rgbd_slam_tpu_torch.runner.run_frames`` on the card.  The frames
+Runs RoomScene orbit frames at 640x480 (default ``SlamConfig``, depth noise on;
+``--stripe-wall``: the low-texture StripeWallScene on a lateral run) through
+``rgbd_slam_tpu_torch.runner.run_frames`` on the card, with lines (``--lines``)
+and the keyframe / BA / pose-graph backend (``--ba-every``) on request.  The frames
 after a 5-frame warm-up are split in two: the first half is timed per stage
 (each stage's entry function gets a device sync on both sides and a host clock),
 the second half runs unstaged under ``torch.profiler`` for device time, kernel
-counts, device syncs and host reads per frame.  Two more frames run under
-``torch.cuda.set_sync_debug_mode`` to name the package line of every host sync.
+counts, device syncs and host reads per frame.  Eight more frames (one batch
+of the runner's summary reads) run under ``torch.cuda.set_sync_debug_mode`` to
+name the package line of every host sync.  Each run segment is a ``run_frames``
+call of its own, so with ``--ba-every 8`` a refine fires only in a segment of
+16 frames or more (three keyframes by its frame 15): ``--frames 53``.
 Prints one JSON line.
 """
 
@@ -34,9 +40,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from rgbd_slam_tpu_torch import config, engine, runner, synthetic  # noqa: E402
 from rgbd_slam_tpu_torch.features import primitives  # noqa: E402
 from rgbd_slam_tpu_torch.ops import brief, fast, image, matching, optical_flow  # noqa: E402
+from rgbd_slam_tpu_torch.parallel.keyframes import KeyframeWindow  # noqa: E402
+from rgbd_slam_tpu_torch.parallel.pose_graph import PoseGraph  # noqa: E402
 from rgbd_slam_tpu_torch.tracking import inverse_depth_tracking, kalman  # noqa: E402
 
-#: stage -> the (module, function name) pairs the step calls for it
+#: stage -> the (module or class, function name) pairs the step calls for it
 STAGES = {
     "pyramid": [(image, "build_pyramid")],
     "optical_flow": [(optical_flow, "track_forward_backward")],
@@ -52,6 +60,11 @@ STAGES = {
                      (inverse_depth_tracking, "fuse_screen_observation_2d")],
     "plane_update": [(engine, "_update_planes")],
     "plane_insert": [(engine, "_insert_planes")],
+    "line_detect": [(engine, "_observe_lines")],
+    "line_match": [(engine, "_match_lines")],
+    "line_update": [(engine, "_update_lines")],
+    "ba_refine": [(KeyframeWindow, "refine")],
+    "pose_graph": [(PoseGraph, "solve")],
 }
 
 
@@ -100,7 +113,7 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _sync_sites(frames, cam, cfg, with_planes, state, device):
+def _sync_sites(frames, cam, cfg, run_kw, state, device):
     """Host syncs per frame by the package line that caused them, from
     ``torch.cuda.set_sync_debug_mode``'s warnings over ``frames``."""
     sites = defaultdict(int)
@@ -119,8 +132,7 @@ def _sync_sites(frames, cam, cfg, with_planes, state, device):
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            runner.run_frames(frames, cam, cfg, with_planes=with_planes, state=state,
-                              device=device)
+            runner.run_frames(frames, cam, cfg, state=state, device=device, **run_kw)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return {k: v / len(frames) for k, v in sorted(sites.items())}
@@ -132,6 +144,11 @@ def main() -> int:
     ap.add_argument("--no-planes", action="store_true", help="the points-only step")
     ap.add_argument("--frames", type=int, default=25,
                     help="frames of the timed run, warm-up included")
+    ap.add_argument("--lines", action="store_true", help="line features on")
+    ap.add_argument("--stripe-wall", action="store_true",
+                    help="the low-texture StripeWallScene instead of the RoomScene")
+    ap.add_argument("--ba-every", type=int, default=None,
+                    help="the backend on, a refine every this many frames")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -142,21 +159,26 @@ def main() -> int:
     cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(
         cfg.mapping, max_tracked_points=args.tracked))
     with_planes = not args.no_planes
-    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
-    n_sync = 2   # frames run after the profile to find the sync sites
-    frames = [scene.render(q, p)
-              for q, p in synthetic.orbit_trajectory(args.frames + n_sync, speed_mm=4.0)]
+    run_kw = dict(with_planes=with_planes, with_lines=args.lines, ba_every=args.ba_every)
+    # the sync sites are found over one more batch of summary reads
+    n_sync = runner.SUMMARY_BATCH
+    if args.stripe_wall:
+        scene = synthetic.StripeWallScene(cam, texture_scale=0.03, stripe_period_z=2400.0)
+        poses = synthetic.lateral_trajectory(args.frames + n_sync, speed_mm=4.0)
+    else:
+        scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+        poses = synthetic.orbit_trajectory(args.frames + n_sync, speed_mm=4.0)
+    frames = [scene.render(q, p) for q, p in poses]
     warm = 5
     n_staged = (args.frames - warm) // 2
     n_prof = args.frames - warm - n_staged
 
-    state, _, _ = runner.run_frames(frames[:warm], cam, cfg, with_planes=with_planes,
-                                    device=device)
+    state, _, _ = runner.run_frames(frames[:warm], cam, cfg, device=device, **run_kw)
     timer = StageTimer()
     timer.install()
     t0 = time.perf_counter()
-    state, _, _ = runner.run_frames(frames[warm:warm + n_staged], cam, cfg,
-                                    with_planes=with_planes, state=state, device=device)
+    state, _, _ = runner.run_frames(frames[warm:warm + n_staged], cam, cfg, state=state,
+                                    device=device, **run_kw)
     torch.cuda.synchronize()
     staged_ms = 1e3 * (time.perf_counter() - t0) / n_staged
     timer.remove()
@@ -165,7 +187,7 @@ def main() -> int:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         state, _, _ = runner.run_frames(frames[warm + n_staged:args.frames], cam, cfg,
-                                        with_planes=with_planes, state=state, device=device)
+                                        state=state, device=device, **run_kw)
         torch.cuda.synchronize()
         unstaged_ms = 1e3 * (time.perf_counter() - t0) / n_prof
     kernels, busy_us = 0, 0.0
@@ -183,11 +205,13 @@ def main() -> int:
                        "cudaMemcpyAsync", "cudaLaunchKernel"):
             counts[avg.key] = avg.count
 
-    sync_sites = _sync_sites(frames[args.frames:], cam, cfg, with_planes, state, device)
+    sync_sites = _sync_sites(frames[args.frames:], cam, cfg, run_kw, state, device)
     stage_ms = {k: timer.ms[k] / n_staged for k in STAGES}
     stage_ms["rest"] = staged_ms - sum(stage_ms.values())
     print(json.dumps({
-        "card": _card_line(), "with_planes": with_planes, "tracked": args.tracked,
+        "card": _card_line(), "with_planes": with_planes, "with_lines": args.lines,
+        "scene": "stripe_wall" if args.stripe_wall else "room", "ba_every": args.ba_every,
+        "tracked": args.tracked,
         "staged_frames": n_staged, "profiled_frames": n_prof,
         "step_ms_staged": staged_ms, "step_ms_unstaged": unstaged_ms,
         "stage_ms": stage_ms,
