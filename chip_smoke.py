@@ -51,8 +51,28 @@ Phases, one line of output each (any failure raises, so the last line, the
    keyframes, refines and accepted refines as the least JAX seed, every pose
    finite, one copy to the device and one read back per refine and per graph
    solve; prints ms per refine and per graph solve past the first; then the
-   same run again, which must give the same ATE to the last bit.
-10. the kernels' JSON line (launches summed over all paths), the card line
+   first 30 frames twice, which must give the same ATE to the last bit.
+10. ``tum_cli``: the 60 frames written as a TUM directory (8-bit RGB and 16-bit
+    depth PNGs by this script's own writer, the three list files, a camera YAML
+    whose depth camera sits 25 mm off the RGB camera, the depth maps rendered
+    from there), then ``python -m rgbd_slam_tpu_torch.cli ... --ba 8
+    --stream-map --native-loader`` as a subprocess: exit 0, 60 trajectory lines
+    of 8 fields, the printed ATE within its bound and equal to the ATE of the
+    trajectory file, 0 failed and lost, one fused launch a frame, a map file
+    with as many features as the run says it streamed and wrote at the end, at
+    least one of them streamed when it died.
+11. ``checkpoint``: 30 frames straight; 15 frames, ``save_state``,
+    ``load_state`` into a fresh template, 15 more; both with
+    ``torch.use_deterministic_algorithms(True)``; trajectories and final states
+    equal to the last bit.
+12. ``sharded_ba``: ``dryrun.dryrun_multichip(4)``: four ``gloo`` processes that
+    share the card, ``dense`` and ``pcg`` against the single-device solve;
+    ``dryrun.nccl_single_rank()``; then the backend path over the 30 frames with
+    the refines sharded over 2 ranks: the same keyframes, refines and accepted
+    counts as one device, the ATE within the backend bound.  Processes that
+    share one card take turns on it, so the times printed beside the
+    single-device ones measure what the collectives cost, not a speed-up.
+13. the kernels' JSON line (launches summed over all paths), the card line
     again, and the result line.
 
 ``run_frames`` reads the frames' summaries in batches of 8, so the per-frame
@@ -62,7 +82,8 @@ frame 0 and the first batch, which hold the warm-up.
 The JAX references come from ``rgbd_slam_tpu.runner.run_frames`` on the same
 frames with seeds 0, 1 and 2 (0-4 for the low-texture path, whose seeds spread
 by more than 2x), run on a CPU (its XLA LK path) with
-``XLA_FLAGS=--xla_cpu_max_isa=AVX2`` by ``tools/jax_reference.py``: the worst
+``XLA_FLAGS=--xla_cpu_max_isa=AVX2`` by ``tools/jax_reference.py`` (the ``tum`` reference is fed the arrays the PNGs
+decode to and the same rig): the worst
 ATE-RMSE, the most failed and lost frames and the least keyframe and refine
 counts of the runs.  The port draws other random numbers than JAX, so its ATE
 is held to 1.5 x the worst JAX seed.
@@ -72,17 +93,28 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
+import time
+import zlib
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from rgbd_slam_tpu_torch import config, runner, synthetic
+from rgbd_slam_tpu_torch import config, dryrun, engine, runner, synthetic
+from rgbd_slam_tpu_torch.io import checkpoint
+from rgbd_slam_tpu_torch.io.trajectory import ate_rmse
 from rgbd_slam_tpu_torch.ops import fast, image, lk_cuda
+from rgbd_slam_tpu_torch.parallel.pose_graph import _np_quat_rotate
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SEED = 0
 #: |kernel - plain| bound on points both versions track: the two sum the window's
@@ -113,7 +145,14 @@ JAX_REFERENCE = {
                      "lost": 0},
     "ba": {"frames": 60, "worst_ate_mm": 21.410458774998148, "failed": 0, "lost": 0,
            "keyframes": 16, "ba_runs": 6, "ba_accepted": 6},
+    "tum": {"frames": 60, "worst_ate_mm": 11.917487719073332, "failed": 0, "lost": 0,
+            "keyframes": 13, "ba_runs": 6, "ba_accepted": 6},
 }
+#: frames of the backend path's repeat, of the checkpoint phase's straight run
+#: and of the sharded backend run
+SHORT_RUN_FRAMES = 30
+#: the ``tum_cli`` rig: the depth camera sits this far along the RGB camera's x
+RIG_BASELINE_MM = 25.0
 #: one fused forward-backward launch a frame: every path but the forward-only one
 FUSED_ONLY = {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0}
 #: the Pallas kernel each CUDA kernel replaces
@@ -368,7 +407,7 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
     just before; check the launches per frame, failed/lost frames and the ATE
     against the path's JAX reference (``reference=None``: print only), lines
     alive and matched when lines are on, and the backend's counts when it is.
-    Returns (launch counts, ATE)."""
+    Returns (launch counts, ATE, RunStats)."""
     ref = JAX_REFERENCE.get(reference)
     step_s, line_matches = [], []
 
@@ -443,7 +482,271 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
                 problems.append(f"{key} {got} < the least JAX seed's {ref[key]}")
     if problems:
         raise RuntimeError(f"{name} path: " + "; ".join(problems))
-    return launches, ate
+    return launches, ate, stats
+
+
+def write_png(path: str, pixels: np.ndarray):
+    """An 8-bit RGB ([H, W, 3] uint8) or 16-bit gray ([H, W] uint16) image as a
+    PNG file: one IDAT chunk, every scanline with filter 0."""
+    h, w = pixels.shape[:2]
+    if pixels.dtype == np.uint8 and pixels.ndim == 3 and pixels.shape[2] == 3:
+        bit_depth, color_type, rows = 8, 2, pixels.reshape(h, w * 3)
+    elif pixels.dtype == np.uint16 and pixels.ndim == 2:
+        bit_depth, color_type = 16, 0
+        rows = pixels.astype(">u2").view(np.uint8).reshape(h, w * 2)   # big-endian samples
+    else:
+        raise ValueError(f"no PNG form for {pixels.dtype} {pixels.shape}")
+    scanlines = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    header = struct.pack(">IIBBBBB", w, h, bit_depth, color_type, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(scanlines, 1)) + chunk(b"IEND", b""))
+
+
+def write_tum_directory(root: str, cam, grays, poses):
+    """Write a sequence in TUM's on-disk format under ``root`` and a camera YAML
+    beside it.  ``grays`` are the RGB camera's images at ``poses``; the depth
+    maps are rendered here from the depth camera, ``RIG_BASELINE_MM`` along the
+    RGB camera's x, by a RoomScene of their own (depth noise on), so the YAML's
+    depth-to-RGB extrinsic is not the identity.  8-bit RGB, 16-bit depth at 5
+    units a millimetre, ground truth in metres, quaternions as qx qy qz qw.
+    Returns (dataset directory, YAML path)."""
+    dataset = os.path.join(root, "rgbd_dataset_synth")
+    os.makedirs(os.path.join(dataset, "rgb"))
+    os.makedirs(os.path.join(dataset, "depth"))
+    depth_scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+    rgb_lines, depth_lines, gt_lines = ["# rgb"], ["# depth"], ["# gt"]
+    for i, (gray, (quat, pos)) in enumerate(zip(grays, poses)):
+        ts = 1300000000.0 + 0.05 * i
+        g8 = np.clip(gray, 0, 255).astype(np.uint8)
+        write_png(os.path.join(dataset, "rgb", f"{ts:.4f}.png"), np.stack([g8] * 3, -1))
+        depth_pos = np.asarray(pos) + _np_quat_rotate(quat, [RIG_BASELINE_MM, 0.0, 0.0])
+        depth_mm = depth_scene.render(quat, depth_pos)[1]
+        d16 = np.clip(depth_mm * 5.0, 0, 65535).astype(np.uint16)
+        write_png(os.path.join(dataset, "depth", f"{ts + 0.002:.4f}.png"), d16)
+        rgb_lines.append(f"{ts:.4f} rgb/{ts:.4f}.png")
+        depth_lines.append(f"{ts + 0.002:.4f} depth/{ts + 0.002:.4f}.png")
+        w, x, y, z = quat
+        gt_lines.append(f"{ts:.4f} {pos[0] / 1000} {pos[1] / 1000} {pos[2] / 1000} "
+                        f"{x} {y} {z} {w}")
+    for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
+                        ("groundtruth.txt", gt_lines)):
+        with open(os.path.join(dataset, name), "w") as f:
+            f.write("\n".join(lines))
+    yaml = os.path.join(root, "camera.yaml")
+    with open(yaml, "w") as f:
+        for n in (1, 2):
+            f.write(f"camera_{n}_size_x: {cam.width}\ncamera_{n}_size_y: {cam.height}\n"
+                    f"camera_{n}_focal_x: {cam.fx}\ncamera_{n}_focal_y: {cam.fy}\n"
+                    f"camera_{n}_center_x: {cam.cx}\ncamera_{n}_center_y: {cam.cy}\n")
+        f.write(f"camera_2_translation_offset_x: {RIG_BASELINE_MM}\n")
+    return dataset, yaml
+
+
+def run_tum_cli(cam, frames, poses, gt):
+    """Phase 10: the frames through PNGs on disk and the command-line entry
+    point in a process of its own.  Returns the launch counts of that process."""
+    ref = JAX_REFERENCE["tum"]
+    n = len(frames)
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        dataset, yaml = write_tum_directory(work, cam, [g for g, _ in frames], poses)
+        write_s = time.perf_counter() - t0
+        traj_out, map_out = os.path.join(work, "traj.txt"), os.path.join(work, "map.obj")
+        report_path = os.path.join(work, "report.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rgbd_slam_tpu_torch.cli", "-d", dataset, "--camera-yaml",
+             yaml, "--ba", "8", "--stream-map", "-m", map_out, "-o", traj_out,
+             "--native-loader"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "RGBD_SLAM_RUN_REPORT": report_path,
+                 "PYTHONPATH": os.pathsep.join(
+                     [ROOT, *filter(None, [os.environ.get("PYTHONPATH")])])})
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"tum_cli: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        printed = re.search(r"ATE-RMSE: ([0-9.]+) mm over (\d+) frames", proc.stdout)
+        traj = np.loadtxt(traj_out, ndmin=2)
+        with open(map_out) as f:
+            map_lines = f.read().splitlines()
+        with open(report_path) as f:
+            report = json.load(f)
+    stats, launches = report["stats"], report["lk_launches"]
+    ate_file = ate_rmse(traj[:, 1:4], gt)
+    vertices = sum(ln.startswith("v ") for ln in map_lines)
+    features = sum(ln.startswith(("p ", "l ", "f ")) for ln in map_lines)
+    failed = stats["frame_count"] - stats["success_count"]
+    _say("tum_cli", frames=stats["frame_count"], launches=launches, failed=failed,
+         lost=stats["lost_count"], ate_printed_mm=printed and printed.group(1),
+         ate_of_trajectory_file_mm=ate_file, ate_bound_mm=ATE_MARGIN * ref["worst_ate_mm"],
+         keyframes=stats["keyframe_count"], ba_runs=stats["ba_runs"],
+         ba_accepted=stats["ba_accepted"], map_vertices=vertices, map_features=features,
+         streamed_at_death=stats["map_streamed"], written_at_end=stats["map_alive_at_end"],
+         write_dataset_s=write_s, cli_process_s=cli_s,
+         step_ms_mean=1e3 * (stats["total_step_s"] - stats["compile_s"]) / (n - 1))
+    problems = []
+    for line in (f"{n} frames in {dataset}", "frame 0: success=True", "frame 40: ",
+                 "BA: runs=", f"trajectory -> {traj_out}", f"map -> {map_out}"):
+        if line not in proc.stdout:
+            problems.append(f"no line {line!r} printed")
+    if printed is None or int(printed.group(2)) != n \
+            or abs(float(printed.group(1)) - ate_file) > 0.051:
+        problems.append(f"printed ATE {printed and printed.group(0)!r}, the trajectory "
+                        f"file gives {ate_file} mm")
+    if traj.shape != (n, 8) or not np.isfinite(traj).all():
+        problems.append(f"trajectory file of shape {traj.shape}")
+    if not ate_file <= ATE_MARGIN * ref["worst_ate_mm"]:
+        problems.append(f"ATE {ate_file} mm over the bound")
+    if failed > ref["failed"] or stats["lost_count"] > ref["lost"]:
+        problems.append(f"failed/lost {failed}/{stats['lost_count']}")
+    if launches != {k: v * n for k, v in FUSED_ONLY.items()}:
+        problems.append(f"launches {launches}")
+    for key in ("ba_runs", "ba_accepted"):
+        if stats[key] < ref[key]:
+            problems.append(f"{key} {stats[key]} < the least JAX seed's {ref[key]}")
+    if vertices == 0 or stats["map_streamed"] < 1 \
+            or features != stats["map_streamed"] + stats["map_alive_at_end"]:
+        problems.append(f"map file: {vertices} vertices, {features} features, streamed "
+                        f"{stats['map_streamed']}, at the end {stats['map_alive_at_end']}")
+    if problems:
+        raise RuntimeError("tum_cli: " + "; ".join(problems))
+    return launches
+
+
+def run_checkpoint(cam, cfg, device, frames):
+    """Phase 11: a run resumed from a checkpoint repeats the straight run to the
+    last bit.  Returns the launch counts."""
+    n, half = len(frames), len(frames) // 2
+    timed = [(g, d, float(i)) for i, (g, d) in enumerate(frames)]
+    lk_cuda.reset_launches()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            straight, traj_a, _ = runner.run_frames(timed, cam, cfg, seed=SEED, device=device)
+            first, traj_b, _ = runner.run_frames(timed[:half], cam, cfg, seed=SEED,
+                                                 device=device)
+            path = os.path.join(work, "state.npz")
+            t0 = time.perf_counter()
+            checkpoint.save_state(first, path)
+            save_s = time.perf_counter() - t0
+            file_bytes = os.path.getsize(path)
+            template = engine.init_state(cam, cfg, seed=SEED + 1, device=device)
+            t0 = time.perf_counter()
+            loaded = checkpoint.load_state(path, template)
+            load_s = time.perf_counter() - t0
+            resumed, traj_c, _ = runner.run_frames(timed[half:], cam, cfg, state=loaded,
+                                                   device=device)
+            finals = []
+            for name, state in (("straight", straight), ("resumed", resumed)):
+                checkpoint.save_state(state, os.path.join(work, name + ".npz"))
+                with np.load(os.path.join(work, name + ".npz")) as data:
+                    finals.append({k: data[k] for k in data.files})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = dict(lk_cuda.LAUNCHES)
+    a = np.concatenate([traj_a.positions_array(), np.array(traj_a.quaternions)], axis=1)
+    b = np.concatenate([np.concatenate([traj_b.positions_array(), traj_c.positions_array()]),
+                        np.array(traj_b.quaternions + traj_c.quaternions)], axis=1)
+    leaves_differ = [k for k in finals[0] if not np.array_equal(finals[0][k], finals[1][k],
+                                                               equal_nan=True)]
+    _say("checkpoint", frames=n, resumed_after=half, leaves=len(finals[0]) - 1,
+         file_bytes=file_bytes, save_ms=1e3 * save_s, load_ms=1e3 * load_s,
+         trajectories_equal=bool(np.array_equal(a, b)), leaves_that_differ=leaves_differ,
+         launches=launches)
+    if not np.array_equal(a, b) or leaves_differ or finals[0].keys() != finals[1].keys():
+        raise RuntimeError("checkpoint: the resumed run differs from the straight run: max "
+                           f"|d pose| {np.abs(a - b).max()}, leaves {leaves_differ}")
+    if launches != {k: v * 2 * n for k, v in FUSED_ONLY.items()}:
+        raise RuntimeError(f"checkpoint: launches {launches}")
+    return launches
+
+
+def _sharded_backend_rank(rank, world_size, init_method, out_path, n_frames):
+    """One rank of the sharded backend run: rank 0 runs the frames on the card
+    and the others serve its refines, all through the same ``run_frames``."""
+    dryrun.join_group(rank, world_size, init_method)
+    try:
+        cam, cfg = config.TUM_FR1, config.SlamConfig()
+        frames, gt = [], None
+        if rank == 0:
+            frames, gt = room_frames(cam, n_frames)
+        lk_cuda.reset_launches()
+        _, traj, stats = runner.run_frames(frames, cam, cfg, seed=SEED, ba_every=8,
+                                           ba_mesh=dist.group.WORLD, device="cuda")
+        if rank == 0:
+            report = dataclasses.asdict(stats)
+            report.update(ate_rmse_mm=runner.evaluate_against_ground_truth(
+                traj, gt)["ate_rmse_mm"], launches=dict(lk_cuda.LAUNCHES))
+            with open(out_path, "w") as f:
+                json.dump(report, f)
+        else:
+            with open(f"{out_path}.rank{rank}", "w") as f:
+                json.dump({"served": stats.ba_runs}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded_ba(one_device_stats, one_device_ate, n_frames):
+    """Phase 12: the sharded bundle adjustment.  Returns the launch counts of
+    the sharded backend run."""
+    dry = dryrun.dryrun_multichip(4, device="cuda")
+    nccl = dryrun.nccl_single_rank()
+    _say("sharded_ba", what="dry run, a solve of 4 iterations, ms",
+         gloo_ranks_sharing_the_card=4, single_device=dry["single_device_ms"],
+         dense=dry["dense_ms"], pcg=dry["pcg_ms"], nccl_ranks=1,
+         nccl_single_device=nccl["single_device_ms"], nccl_dense=nccl["dense_ms"],
+         nccl_pcg=nccl["pcg_ms"],
+         note="ranks that share one card take turns: this is the collectives' overhead, "
+              "not a speed-up")
+    with tempfile.TemporaryDirectory() as work:
+        out_path = os.path.join(work, "rank0.json")
+        dryrun.run_ranks(_sharded_backend_rank, 2, args=(out_path, n_frames), timeout=600)
+        with open(out_path) as f:
+            got = json.load(f)
+        with open(out_path + ".rank1") as f:
+            served = json.load(f)["served"]
+    ref = JAX_REFERENCE["ba"]
+    one = one_device_stats
+    later = max(got["ba_runs"] - 1, 1)
+    _say("sharded_ba", what="backend path, refines sharded over 2 gloo ranks on the card",
+         frames=got["frame_count"], launches=got["launches"],
+         failed=got["frame_count"] - got["success_count"], lost=got["lost_count"],
+         ate_rmse_mm=got["ate_rmse_mm"], one_device_ate_rmse_mm=one_device_ate,
+         ate_bound_mm=ATE_MARGIN * ref["worst_ate_mm"], keyframes=got["keyframe_count"],
+         ba_runs=got["ba_runs"], ba_accepted=got["ba_accepted"], served_by_rank_1=served,
+         refine_ms=1e3 * (got["ba_total_s"] - got["ba_compile_s"]) / later,
+         one_device_refine_ms=1e3 * (one.ba_total_s - one.ba_compile_s)
+         / max(one.ba_runs - 1, 1))
+    problems = []
+    for key in ("keyframe_count", "ba_runs", "ba_accepted", "frame_count", "success_count",
+                "lost_count"):
+        if got[key] != getattr(one, key):
+            problems.append(f"{key} {got[key]}, one device {getattr(one, key)}")
+    if served != got["ba_runs"] or got["ba_runs"] < 1:
+        problems.append(f"rank 1 served {served} of {got['ba_runs']} refines")
+    if not got["ate_rmse_mm"] <= ATE_MARGIN * ref["worst_ate_mm"]:
+        problems.append(f"ATE {got['ate_rmse_mm']} mm over the bound")
+    if got["launches"] != {k: v * n_frames for k, v in FUSED_ONLY.items()}:
+        problems.append(f"launches {got['launches']}")
+    if problems:
+        raise RuntimeError("sharded_ba: " + "; ".join(problems))
+    return got["launches"]
+
+
+def room_frames(cam, n):
+    """The first ``n`` RoomScene orbit frames (depth noise on), their poses and
+    their ground-truth positions."""
+    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+    poses = synthetic.orbit_trajectory(JAX_REFERENCE["planes"]["frames"], speed_mm=4.0)[:n]
+    frames = [scene.render(q, p) for q, p in poses]
+    return frames, np.stack([p for _, p in poses]).astype(np.float64)
 
 
 def main() -> int:
@@ -463,10 +766,8 @@ def main() -> int:
     cfg = config.SlamConfig()
     kernels = check_kernels(cam, cfg, device)
 
-    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
     poses = synthetic.orbit_trajectory(JAX_REFERENCE["planes"]["frames"], speed_mm=4.0)
-    frames = [scene.render(q, p) for q, p in poses]
-    gt = np.stack([p for _, p in poses]).astype(np.float64)
+    frames, gt = room_frames(cam, len(poses))
     cfg_fwd = dataclasses.replace(cfg, mapping=dataclasses.replace(
         cfg.mapping, max_tracked_points=FORWARD_ONLY_TRACKED))
     n_fwd = JAX_REFERENCE["forward_only"]["frames"]
@@ -486,19 +787,25 @@ def main() -> int:
                                               speed_mm=4.0)
     wall_frames = [wall.render(q, p) for q, p in wall_poses]
     wall_gt = np.stack([p for _, p in wall_poses]).astype(np.float64)
-    paths.append(run_path("lines_lowtex_off", cam, cfg, device, wall_frames, wall_gt,
-                          FUSED_ONLY, with_planes=False))
+    # lines off on the same wall gates nothing: half the frames show the gap
+    paths.append(run_path("lines_lowtex_off", cam, cfg, device, wall_frames[:15],
+                          wall_gt[:15], FUSED_ONLY, with_planes=False))
     paths.append(run_path("lines_lowtex", cam, cfg, device, wall_frames, wall_gt, FUSED_ONLY,
                           with_planes=False, with_lines=True, reference="lines_lowtex"))
-    ba_first = run_path("ba", cam, cfg, device, frames, gt, FUSED_ONLY, ba_every=8,
-                        reference="ba")
-    ba_again = run_path("ba_again", cam, cfg, device, frames, gt, FUSED_ONLY, ba_every=8,
-                        reference="ba")
-    if ba_first[1] != ba_again[1]:
-        raise RuntimeError(f"backend path: ATE {ba_first[1]!r} mm, then {ba_again[1]!r} mm "
-                           "on the same frames")
-    paths += [ba_first, ba_again]
-    launches = {name: sum(counts[name] for counts, _ in paths) for name in kernels}
+    paths.append(run_path("ba", cam, cfg, device, frames, gt, FUSED_ONLY, ba_every=8,
+                          reference="ba"))
+    n_short = SHORT_RUN_FRAMES
+    ba_short = [run_path(name, cam, cfg, device, frames[:n_short], gt[:n_short], FUSED_ONLY,
+                         ba_every=8) for name in ("ba_short", "ba_again")]
+    if ba_short[0][1] != ba_short[1][1]:
+        raise RuntimeError(f"backend path: ATE {ba_short[0][1]!r} mm, then "
+                           f"{ba_short[1][1]!r} mm on the same frames")
+    paths += ba_short
+    counts = [p[0] for p in paths]
+    counts.append(run_tum_cli(cam, frames, poses, gt))
+    counts.append(run_checkpoint(cam, cfg, device, frames[:n_short]))
+    counts.append(run_sharded_ba(ba_short[0][2], ba_short[0][1], n_short))
+    launches = {name: sum(c[name] for c in counts) for name in kernels}
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": "rgbd_slam_tpu_torch/csrc/lk.cu",

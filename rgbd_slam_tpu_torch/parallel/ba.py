@@ -1,5 +1,6 @@
-"""Windowed bundle adjustment by Schur-complement landmark elimination (port of
-the single-device part of ``rgbd_slam_tpu/parallel/ba.py``).
+"""Windowed bundle adjustment by Schur-complement landmark elimination, on one
+device or sharded by landmarks over a ``torch.distributed`` process group (port
+of ``rgbd_slam_tpu/parallel/ba.py``).
 
 Data layout (landmark-major):
 
@@ -19,14 +20,26 @@ The sums over keyframes stay contractions with a one-hot (einsums and one
 matmul) as in the JAX package: their order is fixed, so a solve gives the same
 bits from run to run on the card, which ``index_add_`` (atomics) would not.
 
-The sharded solve (``make_sharded_ba``, the PCG reduced solve and
-``init_distributed`` of the JAX module) is not ported yet: asking for a mesh
-raises ``NotImplementedError``.
+The sharded solve (``make_sharded_ba``) takes the place of the JAX package's
+``shard_map`` over a device mesh: one process per shard, each holding ``L / W``
+landmarks and their observations and the replicated poses.  Landmark
+elimination and back-substitution are local; the pose blocks, the right-hand
+sides, the Schur correction and the cost are summed over the ranks in one
+``all_reduce`` per iteration.  With ``reduced_solver="pcg"`` the Schur
+correction is summed by ``reduce_scatter`` instead, so that each rank receives
+only its block of rows of the [6K, 6K] reduced system, and the system is solved
+by Jacobi-preconditioned conjugate gradients whose matrix-vector product ends
+in an ``all_gather``.  Sums over ranks run in another order than the
+single-device sums, so the two agree to rounding, not to the bit; two sharded
+runs over the same number of ranks agree to the bit.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.func import jvp, vmap
 
@@ -43,9 +56,6 @@ HUBER_PX = 3.0   # robust-kernel scale = the engine's point inlier gate
 LM_PRIOR_W = 1.0 / (30.0 ** 2)
 POSE_PRIOR_POS_W = 1.0 / (20.0 ** 2)
 POSE_PRIOR_ROT_W = 1.0 / (0.006 ** 2)
-
-_SHARDED = ("the sharded BA solve (a device mesh, the PCG reduced solve) is not ported "
-            "yet: ROADMAP queue 1 #11, the sharded slice")
 
 
 def _depth_sigma_mm(z):
@@ -105,22 +115,139 @@ def _ba_blocks(poses, landmarks, obs_kf, obs_uv, obs_mask, cam: CameraIntrinsics
     return r * m, jac[..., :6] * m[..., None], jac[..., 6:] * m[..., None]
 
 
+def init_distributed(init_method: str | None = None, world_size: int | None = None,
+                     rank: int | None = None, backend: str | None = None) -> bool:
+    """Join this process to the others of a multi-process run, after which
+    :func:`make_sharded_ba` over ``dist.group.WORLD`` spans them.  Arguments
+    left None come from the environment: ``MASTER_ADDR`` and ``MASTER_PORT``
+    (for ``init_method``), ``WORLD_SIZE`` and ``RANK``.  Returns False, having
+    done nothing, for a single process or without an address, and True once the
+    process group stands.
+
+    ``backend`` None picks ``nccl`` where every rank of this host has a card of
+    its own and ``gloo`` otherwise (no card, or ranks that share one: NCCL
+    refuses two ranks on one device)."""
+    if init_method is None and os.environ.get("MASTER_ADDR"):
+        init_method = (f"tcp://{os.environ['MASTER_ADDR']}:"
+                       f"{os.environ.get('MASTER_PORT', '29500')}")
+    if world_size is None:
+        world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    if rank is None:
+        rank = int(os.environ.get("RANK", "0"))
+    if not init_method or world_size <= 1:
+        return False
+    if backend is None:
+        own_card = torch.cuda.is_available() and torch.cuda.device_count() >= world_size
+        backend = "nccl" if own_card else "gloo"
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size,
+                            rank=rank)
+    return True
+
+
+# newer PyTorch renames the two single-tensor collectives and deprecates the old names
+_all_gather_tensor = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter_tensor = (getattr(dist, "reduce_scatter_single", None)
+                          or dist.reduce_scatter_tensor)
+
+
+def _emulated(group, tensor, collective: str) -> bool:
+    """Whether ``collective`` must be expressed by ``all_reduce`` on this
+    group: gloo has no ``reduce_scatter_tensor`` and, on CUDA tensors, only
+    ``broadcast`` and ``all_reduce``."""
+    if dist.get_backend(group) != "gloo":
+        return False
+    return collective == "reduce_scatter" or tensor.is_cuda
+
+
+def all_gather_rows(local, group):
+    """[R, ...] per rank -> [W * R, ...] on every rank, in rank order.  Where
+    the backend has no ``all_gather`` for this tensor it is an ``all_reduce`` of
+    a buffer that is zero outside this rank's rows."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    local = local.contiguous()
+    out = local.new_zeros((world * local.shape[0], *local.shape[1:]))
+    if _emulated(group, local, "all_gather"):
+        out[rank * local.shape[0]:(rank + 1) * local.shape[0]] = local
+        dist.all_reduce(out, group=group)
+    else:
+        _all_gather_tensor(out, local, group=group)
+    return out
+
+
+def reduce_scatter_rows(full, group):
+    """[W * R, ...] per rank -> the sum over ranks of this rank's [R, ...] block
+    of rows.  Where the backend has no ``reduce_scatter`` it is an
+    ``all_reduce`` and a slice: the rank then holds the whole sum for a moment,
+    which is a property of that backend, not of the solve."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    rows = full.shape[0] // world
+    full = full.contiguous()
+    if _emulated(group, full, "reduce_scatter"):
+        summed = full.clone()
+        dist.all_reduce(summed, group=group)
+        return summed[rank * rows:(rank + 1) * rows].clone()
+    out = full.new_empty((rows, *full.shape[1:]))
+    _reduce_scatter_tensor(out, full, group=group)
+    return out
+
+
+def _reduced_solve_pcg(s_rows, rhs, group, cg_iterations: int):
+    """Distributed solve of the reduced camera system ``S x = rhs`` by
+    Jacobi-preconditioned conjugate gradients.  The [6K, 6K] matrix lives as
+    blocks of rows, one per rank (``s_rows`` [6K / W, 6K]); the iterate is
+    replicated; each matrix-vector product is a local [R, N] x [N] product
+    followed by an ``all_gather``.  A fixed ``cg_iterations`` steps, no early
+    exit: every rank makes the same collectives.  Returns x [N], the same bits
+    on every rank."""
+    r_loc = s_rows.shape[0]
+    row0 = dist.get_rank(group) * r_loc
+    local = torch.arange(r_loc, device=s_rows.device)
+    diag = all_gather_rows(s_rows[local, row0 + local], group)
+    minv = 1.0 / torch.clamp_min(diag, 1e-12)
+
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = minv * r
+    p = z
+    rz = torch.dot(r, z)
+    for _ in range(cg_iterations):
+        q = all_gather_rows(s_rows @ p, group)
+        alpha = rz / torch.clamp_min(torch.dot(p, q), 1e-30)
+        x = x + alpha * p
+        r = r - alpha * q
+        z = minv * r
+        rz_new = torch.dot(r, z)
+        beta = rz_new / torch.clamp_min(rz, 1e-30)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
 def _gn_iteration(poses, landmarks, obs_kf, obs_uv, obs_mask, cam: CameraIntrinsics,
-                  n_keyframes: int, axis_name=None, pose_anchor=None, lm_anchor=None,
+                  n_keyframes: int, group=None, pose_anchor=None, lm_anchor=None,
                   reduced_solver: str = "dense", cg_iterations: int = 0,
                   anchor_weights: tuple | None = None, obs_z=None):
     """One Schur-complement Gauss-Newton step.  ``pose_anchor`` / ``lm_anchor``
     add prior residuals pulling toward the odometry poses and the filtered
     landmark positions.  Returns (poses, landmarks, cost before the step).
 
+    With ``group`` (a process group) the landmark arguments are this rank's
+    shard, and the sums over landmarks are completed over the ranks: the pose
+    blocks, both right-hand sides, the Schur correction and the cost in one
+    ``all_reduce``.  ``reduced_solver`` picks how the [6K, 6K] reduced system is
+    then solved: "dense" repeats a Cholesky on every rank (best for live
+    windows, K <= 16); "pcg" sums the Schur correction by ``reduce_scatter``
+    into blocks of rows and solves by distributed conjugate gradients
+    (:func:`_reduced_solve_pcg`; ``cg_iterations`` 0 means 6K steps), so the
+    system is partitioned by landmarks for the elimination and by keyframe rows
+    for the solve.  Without a group "pcg" is the dense solve.
+
     A reduced system that is not positive definite gives NaN poses instead of
     an error, and the cost of NaN poses is NaN, so that the caller's
     finite-cost test refuses the window.  (The residual of a NaN pose is masked
     to zero like any invalid projection, so the plain sum would be 0 there,
-    which is what the JAX package reports.)  ``axis_name`` (a mesh axis),
-    ``reduced_solver="pcg"`` and ``cg_iterations`` belong to the sharded solve."""
-    if axis_name is not None or reduced_solver != "dense" or cg_iterations:
-        raise NotImplementedError(_SHARDED)
+    which is what the JAX package reports.)  The poses are replicated, so every
+    rank sees the same NaN and takes the same branch."""
     k = n_keyframes
     dt = poses.dtype
     dev = poses.device
@@ -160,7 +287,23 @@ def _gn_iteration(poses, landmarks, obs_kf, obs_uv, obs_mask, cam: CameraIntrins
 
     s_corr = rows(u) @ rows(v).T                         # [6K, 6K]
     bp_corr = torch.einsum("lkia,la->ki", u, bl)         # [K, 6]
+    cost = torch.where(torch.isfinite(poses).all(), torch.sum(r * r),
+                       torch.full((), float("nan"), dtype=dt, device=dev))
 
+    use_pcg = group is not None and reduced_solver == "pcg"
+    if group is not None:
+        # one collective an iteration for everything that is summed whole
+        parts = [hpp, bp, bp_corr, cost] + ([] if use_pcg else [s_corr])
+        packed = torch.cat([x.reshape(-1) for x in parts])
+        dist.all_reduce(packed, group=group)
+        summed = torch.split(packed, [x.numel() for x in parts])
+        hpp, bp, bp_corr, cost = (y.reshape(x.shape) for x, y in zip(parts[:4], summed))
+        if use_pcg:
+            s_rows = reduce_scatter_rows(s_corr, group)
+        else:
+            s_corr = summed[4].reshape(n, n)
+
+    # the odometry prior is added once, after the sum over ranks
     if pose_anchor is not None:
         wdiag = torch.cat([torch.full((3,), pos_w, dtype=dt, device=dev),
                            torch.full((3,), rot_w, dtype=dt, device=dev)])
@@ -170,18 +313,26 @@ def _gn_iteration(poses, landmarks, obs_kf, obs_uv, obs_mask, cam: CameraIntrins
     eye_n = torch.eye(n, dtype=dt, device=dev)
     fix = torch.arange(n, device=dev) < 6                # gauge: freeze keyframe 0
     rhs = torch.where(fix, torch.zeros((), dtype=dt, device=dev), (bp - bp_corr).reshape(n))
-    s_mat = torch.block_diag(*hpp) - s_corr
-    s_mat = torch.where(fix[:, None] | fix[None, :], eye_n, s_mat) + DAMPING * eye_n
-    chol, info = torch.linalg.cholesky_ex(s_mat)
-    chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
-    delta_p = torch.cholesky_solve(-rhs[:, None], chol)[:, 0].reshape(k, 6)
+    if use_pcg:
+        r_loc = s_rows.shape[0]
+        rr = dist.get_rank(group) * r_loc + torch.arange(r_loc, device=dev)  # global rows
+        s_rows = torch.block_diag(*hpp)[rr] - s_rows
+        # gauge fix and damping on this rank's block of rows
+        s_rows = torch.where((rr < 6)[:, None] | fix[None, :], eye_n[rr], s_rows)
+        s_rows = s_rows + DAMPING * eye_n[rr]
+        delta_p = _reduced_solve_pcg(s_rows, -rhs, group,
+                                     cg_iterations if cg_iterations > 0 else n).reshape(k, 6)
+    else:
+        s_mat = torch.block_diag(*hpp) - s_corr
+        s_mat = torch.where(fix[:, None] | fix[None, :], eye_n, s_mat) + DAMPING * eye_n
+        chol, info = torch.linalg.cholesky_ex(s_mat)
+        chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
+        delta_p = torch.cholesky_solve(-rhs[:, None], chol)[:, 0].reshape(k, 6)
 
     # landmark back-substitution: dl = -Hll^-1 (bl + W^T dp)
     dp_per_obs = delta_p[obs_kf.to(torch.int64)]         # [L, C, 6]
     wt_dp = torch.einsum("lcij,lci->lj", w, dp_per_obs)
     delta_l = -torch.einsum("lij,lj->li", hll_inv, bl + wt_dp)
-    cost = torch.where(torch.isfinite(poses).all(), torch.sum(r * r),
-                       torch.full((), float("nan"), dtype=dt, device=dev))
     return poses + delta_p, landmarks + delta_l, cost
 
 
@@ -204,3 +355,44 @@ def ba_solve(poses, landmarks, obs_kf, obs_uv, obs_mask, cam: CameraIntrinsics,
                                     anchor_weights=anchor_weights, obs_z=obs_z)
         costs.append(cost)
     return p, lm, torch.stack(costs)
+
+
+def make_sharded_ba(group, cam: CameraIntrinsics, n_keyframes: int, iterations: int = 8,
+                    anchored: bool = False, reduced_solver: str = "dense",
+                    cg_iterations: int = 0, anchor_weights: tuple | None = None,
+                    with_depth: bool = False):
+    """Build the distributed BA solve over the process group ``group``:
+    landmarks and observations sharded by rank, the poses replicated, the
+    reduced camera system summed over the ranks.
+
+    ``reduced_solver="pcg"`` also shards the [6K, 6K] reduced system into
+    blocks of rows and solves it by distributed conjugate gradients; 6K must be
+    divisible by the group's size.  ``cg_iterations`` 0 means 6K steps (exact
+    in exact arithmetic).
+
+    Returns ``fn(poses, landmarks_shard, obs_kf_shard, obs_uv_shard,
+    obs_mask_shard[, obs_z_shard]) -> (poses, landmarks_shard, costs)``, which
+    every rank of the group calls; ``obs_z_shard`` belongs to ``with_depth``."""
+    if reduced_solver == "pcg":
+        world = dist.get_world_size(group)
+        assert (6 * n_keyframes) % world == 0, \
+            f"pcg reduced solve needs 6*K ({6 * n_keyframes}) divisible by " \
+            f"the group size ({world})"
+
+    def solve(poses, landmarks, obs_kf, obs_uv, obs_mask, obs_z=None):
+        if (obs_z is not None) != with_depth:
+            raise TypeError(f"with_depth={with_depth}: obs_z_shard "
+                            f"{'missing' if with_depth else 'not expected'}")
+        pose_anchor = poses if anchored else None
+        lm_anchor = landmarks if anchored else None
+        p, lm = poses, landmarks
+        costs = []
+        for _ in range(iterations):
+            p, lm, cost = _gn_iteration(
+                p, lm, obs_kf, obs_uv, obs_mask, cam, n_keyframes, group=group,
+                pose_anchor=pose_anchor, lm_anchor=lm_anchor, reduced_solver=reduced_solver,
+                cg_iterations=cg_iterations, anchor_weights=anchor_weights, obs_z=obs_z)
+            costs.append(cost)
+        return p, lm, torch.stack(costs)
+
+    return solve

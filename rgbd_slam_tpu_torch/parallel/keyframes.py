@@ -1,5 +1,5 @@
 """Keyframe window feeding the windowed bundle adjustment (port of
-``rgbd_slam_tpu/parallel/keyframes.py``, the single-device part).
+``rgbd_slam_tpu/parallel/keyframes.py``).
 
 Keyframes are collected from the engine's per-frame observation record
 (``StepOutput.point_*``), landmark observations are grouped by feature id across
@@ -12,6 +12,13 @@ problem to the device in one copy (one int32 buffer; the float arrays travel as
 their bit patterns) and reads the result back in one; the refined landmarks,
 their slots, validity and feature ids stay on the device for the map scatter.
 ``transfers`` counts both.
+
+With a process group (``refine(mesh=group)``) the solve is sharded by landmarks
+over the group's ranks.  Rank 0 owns the window: it broadcasts a header and the
+same packed buffer, every rank solves its shard of the landmarks
+(``ba.make_sharded_ba``), and the refined shards are gathered.  The other ranks
+run :func:`serve_refines`, which waits for those broadcasts and ends on the
+header that :func:`stop_serving` sends.
 """
 
 from __future__ import annotations
@@ -20,14 +27,16 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import CameraIntrinsics
 from ..device import resolve_device
 from ..geometry import se3
 from . import ba
 
-_MESH = ("a device mesh for the keyframe window (the sharded BA solve) is not ported "
-         "yet: ROADMAP queue 1 #11, the sharded slice")
+#: the header rank 0 broadcasts before a sharded refine: (_REFINE, iterations,
+#: K, L, C), or _STOP and zeros when no refine follows
+_STOP, _REFINE = 0, 1
 
 
 def _np_pose_to_coeffs(quat, position):
@@ -172,35 +181,23 @@ class KeyframeWindow:
         poses[: self.n_keyframes] = np.stack(self.poses).astype(np.float32)
         return (poses, landmarks, obs_kf, obs_uv, obs_z, obs_mask, fids, slots, lm_valid)
 
-    def _solve(self, buf, cam: CameraIntrinsics, iterations: int):
-        """The packed local solve on the device.  ``buf`` is the int32 buffer
-        that :meth:`refine` packs.  Returns (one float32 result buffer, and the
+    def _solve(self, buf, cam: CameraIntrinsics, iterations: int, mesh=None):
+        """The packed solve on the device, local or, with ``mesh``, this rank's
+        part of the sharded one.  ``buf`` is the int32 buffer that
+        :meth:`refine` packs.  Returns (one float32 result buffer, and the
         refined landmarks, slots, validity and feature ids for the map
         scatter)."""
-        k, l, c = self.max_keyframes, self.max_landmarks, self.max_obs_per_landmark
-        n_float = k * 6 + l * 3 + l * c * 2 + l * c
-        fbuf = buf[:n_float].view(torch.float32)
-        ibuf = buf[n_float:]
-        offset = [0]
-
-        def take(src, n, shape):
-            a = src[offset[0]:offset[0] + n].reshape(shape)
-            offset[0] += n
-            return a
-
-        poses = take(fbuf, k * 6, (k, 6))
-        landmarks = take(fbuf, l * 3, (l, 3))
-        obs_uv = take(fbuf, l * c * 2, (l, c, 2))
-        obs_z = take(fbuf, l * c, (l, c))
-        offset[0] = 0
-        obs_kf = take(ibuf, l * c, (l, c))
-        obs_mask = take(ibuf, l * c, (l, c)) > 0
-        slots = take(ibuf, l, (l,))
-        lm_valid = take(ibuf, l, (l,)) > 0
-        fids_dev = take(ibuf, l, (l,))
-        new_poses, new_lm, costs = ba.ba_solve(
-            poses, landmarks, obs_kf, obs_uv, obs_mask, cam, iterations=iterations,
-            anchored=True, anchor_weights=self.anchor_weights, obs_z=obs_z)
+        dims = (self.max_keyframes, self.max_landmarks, self.max_obs_per_landmark)
+        poses, landmarks, obs_uv, obs_z, obs_kf, obs_mask, slots, lm_valid, fids_dev = \
+            _unpack_problem(buf, *dims)
+        if mesh is None:
+            new_poses, new_lm, costs = ba.ba_solve(
+                poses, landmarks, obs_kf, obs_uv, obs_mask, cam, iterations=iterations,
+                anchored=True, anchor_weights=self.anchor_weights, obs_z=obs_z)
+        else:
+            new_poses, new_lm, costs = _solve_shard(
+                mesh, cam, iterations, self.anchor_weights, poses, landmarks, obs_kf, obs_uv,
+                obs_mask, obs_z)
         quats, positions = se3.coefficients_to_pose(new_poses)
         # the refined landmarks ride along in the one read, so that
         # apply_refinement does not read them again
@@ -215,9 +212,11 @@ class KeyframeWindow:
         position) host arrays of the live keyframes; ``device_lm = (fids [L]
         host, slots [L], new_lm [L, 3], lm_valid [L], fids [L])``, the last four
         on the device for the map scatter; ``costs`` the cost before each
-        iteration, host.  None when under-constrained."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+        iteration, host.  None when under-constrained.
+
+        ``mesh``: a process group over which the solve is sharded by
+        landmarks; this is rank 0's side, the other ranks are in
+        :func:`serve_refines`.  The group's size must divide ``max_landmarks``."""
         problem = self.build_problem()
         if problem is None:
             return None
@@ -229,7 +228,12 @@ class KeyframeWindow:
                               lm_valid.astype(np.int32), fids.astype(np.int32)])
         dev_buf = torch.from_numpy(buf).to(resolve_device(self.device))
         self.transfers["uploads"] += 1
-        out, new_lm, slots_dev, lm_valid_dev, fids_dev = self._solve(dev_buf, cam, iterations)
+        if mesh is not None:
+            _broadcast_header(mesh, dev_buf.device, _REFINE, iterations, self.max_keyframes,
+                              self.max_landmarks, self.max_obs_per_landmark)
+            dist.broadcast(dev_buf, src=dist.get_global_rank(mesh, 0), group=mesh)
+        out, new_lm, slots_dev, lm_valid_dev, fids_dev = self._solve(dev_buf, cam, iterations,
+                                                                     mesh=mesh)
         out = out.cpu().numpy()
         self.transfers["readbacks"] += 1
         k, l = self.max_keyframes, self.max_landmarks
@@ -257,3 +261,81 @@ class KeyframeWindow:
             for i in range(len(fids)):
                 if valid_host[i] and int(fids[i]) in self.landmark_pos:
                     self.landmark_pos[int(fids[i])] = lm_host[i]
+
+
+def _unpack_problem(buf, k: int, l: int, c: int):
+    """The views of the int32 buffer that :meth:`KeyframeWindow.refine` packs:
+    (poses [K, 6], landmarks [L, 3], obs_uv [L, C, 2], obs_z [L, C], obs_kf
+    [L, C], obs_mask [L, C], slots [L], lm_valid [L], fids [L])."""
+    n_float = k * 6 + l * 3 + l * c * 2 + l * c
+    fbuf = buf[:n_float].view(torch.float32)
+    ibuf = buf[n_float:]
+    offset = [0]
+
+    def take(src, n, shape):
+        a = src[offset[0]:offset[0] + n].reshape(shape)
+        offset[0] += n
+        return a
+
+    poses = take(fbuf, k * 6, (k, 6))
+    landmarks = take(fbuf, l * 3, (l, 3))
+    obs_uv = take(fbuf, l * c * 2, (l, c, 2))
+    obs_z = take(fbuf, l * c, (l, c))
+    offset[0] = 0
+    obs_kf = take(ibuf, l * c, (l, c))
+    obs_mask = take(ibuf, l * c, (l, c)) > 0
+    slots = take(ibuf, l, (l,))
+    lm_valid = take(ibuf, l, (l,)) > 0
+    fids = take(ibuf, l, (l,))
+    return poses, landmarks, obs_uv, obs_z, obs_kf, obs_mask, slots, lm_valid, fids
+
+
+def _solve_shard(group, cam, iterations, anchor_weights, poses, landmarks, obs_kf, obs_uv,
+                 obs_mask, obs_z):
+    """This rank's part of a sharded refine: solve its block of landmarks and
+    gather every rank's refined block.  Returns (poses, landmarks [L, 3],
+    costs), the same on every rank."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    n_l = landmarks.shape[0]
+    if n_l % world:
+        raise ValueError(f"{n_l} landmarks do not divide over {world} ranks")
+    mine = slice(rank * n_l // world, (rank + 1) * n_l // world)
+    solve = ba.make_sharded_ba(group, cam, n_keyframes=poses.shape[0], iterations=iterations,
+                               anchored=True, anchor_weights=anchor_weights, with_depth=True)
+    new_poses, lm_shard, costs = solve(poses, landmarks[mine], obs_kf[mine], obs_uv[mine],
+                                       obs_mask[mine], obs_z[mine])
+    return new_poses, ba.all_gather_rows(lm_shard, group), costs
+
+
+def _broadcast_header(group, device, *values):
+    header = torch.tensor(values, dtype=torch.int32, device=device)
+    dist.broadcast(header, src=dist.get_global_rank(group, 0), group=group)
+
+
+def stop_serving(group, device=None):
+    """Rank 0: end the other ranks' :func:`serve_refines`."""
+    _broadcast_header(group, resolve_device(device), _STOP, 0, 0, 0, 0)
+
+
+def serve_refines(group, cam: CameraIntrinsics, anchor_weights: tuple | None = None,
+                  device=None) -> int:
+    """The loop of every rank but 0 of a sharded backend: wait for rank 0's
+    header, take the broadcast window, solve this rank's shard of it, and go
+    on until the header says stop.  ``anchor_weights`` must be rank 0's.
+    Returns the number of refines served."""
+    device = resolve_device(device)
+    src = dist.get_global_rank(group, 0)
+    served = 0
+    while True:
+        header = torch.zeros(5, dtype=torch.int32, device=device)
+        dist.broadcast(header, src=src, group=group)
+        op, iterations, k, l, c = header.tolist()
+        if op == _STOP:
+            return served
+        buf = torch.zeros(k * 6 + l * 3 + 5 * l * c + 3 * l, dtype=torch.int32, device=device)
+        dist.broadcast(buf, src=src, group=group)
+        poses, landmarks, obs_uv, obs_z, obs_kf, obs_mask, _, _, _ = \
+            _unpack_problem(buf, k, l, c)
+        _solve_shard(group, cam, iterations, anchor_weights, poses, landmarks, obs_kf, obs_uv,
+                     obs_mask, obs_z)
+        served += 1

@@ -1,22 +1,28 @@
 """Sequence runner: drive the engine over frames and record the trajectory and
-timings (port of ``run_frames`` in ``rgbd_slam_tpu/runner.py``), with the
-keyframe / bundle-adjustment / pose-graph backend.  The map writer, depth
-rectification and the sharded BA are not ported yet and raise.
+timings (port of ``rgbd_slam_tpu/runner.py``): the frame loop, depth
+rectification for a calibrated rig, the keyframe / bundle-adjustment /
+pose-graph backend on one device or sharded over a process group, and the
+streaming map export.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import engine
 from .config import CameraIntrinsics, SlamConfig
 from .device import resolve_device
+from .io.map_writer import OBJWriter, append_alive_features, append_dying_features
 from .io.trajectory import Trajectory, ate_rmse
-from .parallel.keyframes import KeyframeWindow
+from .ops.depth_cloud import rectify_depth
+from .parallel.keyframes import KeyframeWindow, serve_refines, stop_serving
 from .parallel.pose_graph import PoseGraph, _np_quat_mul, _np_quat_rotate
 
 
@@ -47,6 +53,9 @@ class RunStats:
     # and per graph solve
     backend_uploads: int = 0
     backend_readbacks: int = 0
+    # features the streamed map export wrote when they died, and at the end
+    map_streamed: int = 0
+    map_alive_at_end: int = 0
 
     @property
     def ba_iters_per_s(self):
@@ -78,6 +87,34 @@ class RunStats:
 #: frames per batched summary read: frame 0 is read alone, then frames 1-8,
 #: 9-16, ...; keyframe and BA decisions run up to a batch late
 SUMMARY_BATCH = 8
+
+
+def stage_frames(frames, chunk: int = 32, device=None):
+    """Upload a (gray, depth[, ts]) sequence to ``device`` (``None``: the card)
+    in stacked transfers of ``chunk`` frames, and return per-frame views of the
+    stacks, each with the rest of its frame's tuple.
+
+    On a card the stacks are filled in page-locked host buffers and copied with
+    ``non_blocking=True``: the copy is queued behind the card's work and the
+    host goes on, where ``torch.as_tensor(numpy_array, device=...)`` from
+    pageable memory makes the host wait for the card's queue to drain, once for
+    the gray image and once for the depth map of every frame.  ``run_frames``
+    takes the views as they are."""
+    device = resolve_device(device)
+    pin = device.type == "cuda"
+    staged = []
+    for c0 in range(0, len(frames), chunk):
+        sub = frames[c0:c0 + chunk]
+        stacks = []
+        for k in (0, 1):
+            first = torch.as_tensor(sub[0][k])
+            host = torch.empty((len(sub), *first.shape), dtype=torch.float32, pin_memory=pin)
+            for i, f in enumerate(sub):
+                host[i] = torch.as_tensor(f[k])
+            stacks.append(host.to(device, non_blocking=True))
+        for i, f in enumerate(sub):
+            staged.append((stacks[0][i], stacks[1][i]) + tuple(f[2:]))
+    return staged
 
 
 def _pack_summary(out: engine.StepOutput):
@@ -154,6 +191,34 @@ def _apply_graph_correction(traj: Trajectory, node_fids, new_quats, new_pos):
             traj.quaternions[f] = _np_quat_mul(q_d, traj.quaternions[f])
 
 
+def _with_refine_servers(run):
+    """``run_frames`` over a process group: rank 0 runs ``run`` and, whatever
+    happens in it, tells the other ranks to stop at the end; the other ranks
+    serve its refines and return ``(None, None, stats)``."""
+    signature = inspect.signature(run)
+
+    @functools.wraps(run)
+    def wrapper(*args, **kw):
+        bound = signature.bind(*args, **kw)
+        bound.apply_defaults()
+        group = bound.arguments["ba_mesh"]
+        if group is None:
+            return run(*args, **kw)
+        device = resolve_device(bound.arguments["device"])
+        if dist.get_rank(group) != 0:
+            served = serve_refines(group, bound.arguments["cam"],
+                                   anchor_weights=bound.arguments["ba_anchor_weights"],
+                                   device=device)
+            return None, None, RunStats(ba_runs=served)
+        try:
+            return run(*args, **kw)
+        finally:
+            stop_serving(group, device)
+
+    return wrapper
+
+
+@_with_refine_servers
 def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                with_planes: bool = True, with_lines: bool = False, seed: int = 0,
                state: engine.SlamState | None = None, on_frame=None,
@@ -169,7 +234,13 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
     The loop reads a frame's summary from the device in batches of
     ``SUMMARY_BATCH`` frames (frame 0 alone), so ``on_frame(i, state, out, dt)``
     and the backend run up to a batch after their frame, with ``dt`` the
-    batch's mean time a frame.
+    batch's mean time a frame.  Frames that are tensors on ``device`` already
+    (``stage_frames``) are taken as they are.
+
+    ``camera_setup`` (a ``config.CameraSetup``) with a depth-to-RGB extrinsic
+    other than the identity makes the loop rectify every depth map into the RGB
+    camera (``ops.depth_cloud.rectify_depth``); at the identity the warp would
+    change nothing and is left out.
 
     When ``ba_every`` is set, a sliding ``KeyframeWindow`` collects the point
     observations of keyframes, selected by a motion gate (translation >=
@@ -181,23 +252,35 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
     refined relative poses feed a ``PoseGraph`` that re-solves the keyframe
     chain and is then the only writer of the trajectory.
 
+    ``ba_mesh`` is a ``torch.distributed`` process group over which every refine
+    is sharded by landmarks (``parallel.ba.make_sharded_ba``).  Every rank of
+    the group calls ``run_frames`` with the same arguments: rank 0 runs the
+    frame loop, the others serve its refines
+    (``parallel.keyframes.serve_refines``) until rank 0 is done, or has raised,
+    and return ``(None, None, stats)`` with the refines they served in
+    ``stats.ba_runs``.
+
+    When ``export_map`` is set, an OBJ map file is streamed during the run:
+    every local feature is appended when it dies (the step's eviction record)
+    and the surviving local map at the end, so that features lost on the way
+    still reach the file.
+
     Returns (final_state, Trajectory, RunStats)."""
-    if ba_mesh is not None:
-        raise NotImplementedError(
-            "ba_mesh: the sharded BA solve is not ported yet (ROADMAP queue 1 #11, the "
-            "sharded slice)")
-    if camera_setup is not None:
-        raise NotImplementedError(
-            "camera_setup: depth rectification (ops/depth_cloud.rectify_depth) is not "
-            "ported yet (ROADMAP queue 1 #11, the sharded slice)")
-    if export_map is not None:
-        raise NotImplementedError(
-            "export_map: the map writer is not ported yet (ROADMAP queue 1 #12)")
     device = resolve_device(device)
     if state is None:
         state = engine.init_state(cam, cfg, seed=seed, device=device)
     traj = Trajectory()
     stats = RunStats()
+
+    rectify = None
+    if camera_setup is not None:
+        ext = np.asarray(camera_setup.depth_to_rgb, np.float64)
+        if not np.allclose(ext, np.eye(4)):
+            ext_dev = torch.tensor(ext, dtype=torch.float32, device=device)
+            depth_cam = camera_setup.depth
+
+            def rectify(d):
+                return rectify_depth(d, depth_cam, cam, ext_dev)
 
     window = None
     graph = None
@@ -220,7 +303,7 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                 window.add_keyframe_packed(q_, p_, fo_, fi_, timestamp=ts_, frame_id=i_)
             pending_kfs.clear()
         t_ba = time.perf_counter()
-        res = window.refine(cam, iterations=ba_iterations)
+        res = window.refine(cam, iterations=ba_iterations, mesh=ba_mesh)
         if res is None:
             return
         refined, device_lm, costs = res
@@ -293,6 +376,9 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
             if window.n_keyframes + len(pending_kfs) >= 3 and (i + 1) % ba_every == 0:
                 _refine(i)
 
+        if map_writer is not None and summary[9] > 0.5:   # n_evicted
+            stats.map_streamed += append_dying_features(map_writer, out)
+
         if on_frame is not None:
             on_frame(i, frame_state, out, dt)
 
@@ -311,19 +397,29 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
             _process(pi, pts_, pstate, pout, row, per_frame)
         pending.clear()
 
-    for i, frame in enumerate(frames):
-        if len(frame) == 3:
-            gray, depth, ts = frame
-        else:
-            (gray, depth), ts = frame, float(i)
-        gray = torch.as_tensor(gray, dtype=torch.float32, device=device)
-        depth = torch.as_tensor(depth, dtype=torch.float32, device=device)
-        state, out = engine.step(state, gray, depth, cam, cfg, with_planes=with_planes,
-                                 with_lines=with_lines)
-        pending.append((i, ts, state, out, _pack_summary(out)))
-        if i == 0 or len(pending) >= SUMMARY_BATCH:
-            _drain()
-    _drain()
+    map_writer = OBJWriter(export_map) if export_map is not None else None
+    try:
+        for i, frame in enumerate(frames):
+            if len(frame) == 3:
+                gray, depth, ts = frame
+            else:
+                (gray, depth), ts = frame, float(i)
+            gray = torch.as_tensor(gray, dtype=torch.float32, device=device)
+            depth = torch.as_tensor(depth, dtype=torch.float32, device=device)
+            if rectify is not None:
+                depth = rectify(depth)
+            state, out = engine.step(state, gray, depth, cam, cfg, with_planes=with_planes,
+                                     with_lines=with_lines)
+            pending.append((i, ts, state, out, _pack_summary(out)))
+            if i == 0 or len(pending) >= SUMMARY_BATCH:
+                _drain()
+        _drain()
+        if map_writer is not None:
+            stats.map_alive_at_end = append_alive_features(map_writer, state,
+                                                           only_local=True)
+    finally:
+        if map_writer is not None:
+            map_writer.close()
     return state, traj, stats
 
 

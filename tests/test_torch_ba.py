@@ -134,15 +134,22 @@ def test_singular_window_gives_nonfinite_costs_and_does_not_raise(window):
     assert not accepted(tc) and accepted(jc)
 
 
-def test_a_mesh_is_refused_by_name():
-    w = KeyframeWindow(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.refine(T_CAM, mesh=object())
+def test_a_mesh_is_refused_by_name(window):
+    """The sharded solve takes a process group (``group=``), not the JAX
+    package's mesh axis: ``axis_name`` is refused as an unknown argument, and
+    without a group the reduced-solver options change nothing (bit-equal)."""
     z = torch.zeros
-    for kw in (dict(axis_name="lm"), dict(reduced_solver="pcg"), dict(cg_iterations=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ba._gn_iteration(z(2, 6), z(4, 3), z(4, 2, dtype=torch.int32), z(4, 2, 2),
-                             z(4, 2, dtype=torch.bool), T_CAM, 2, **kw)
+    with pytest.raises(TypeError, match="axis_name"):
+        ba._gn_iteration(z(2, 6), z(4, 3), z(4, 2, dtype=torch.int32), z(4, 2, 2),
+                         z(4, 2, dtype=torch.bool), T_CAM, 2, axis_name="lm")
+    args = [torch.tensor(window[name]) for name in ("poses0", "lm0", "obs_kf", "uv", "mask")]
+    k = args[0].shape[0]
+    ref = ba._gn_iteration(*args, T_CAM, k)
+    for kw in (dict(reduced_solver="pcg"), dict(cg_iterations=4)):
+        for a, b in zip(ba._gn_iteration(*args, T_CAM, k, **kw), ref):
+            assert torch.equal(a, b)
+    # an under-constrained window returns before it touches the mesh
+    assert KeyframeWindow(device="cpu").refine(T_CAM, mesh=object()) is None
 
 
 # ---------------------------------------------------------------------------
@@ -427,10 +434,28 @@ def test_backend_options(orbit):
 
 
 @pytest.mark.parametrize("kw, names", [
-    (dict(ba_mesh=object()), "ROADMAP"),
-    (dict(camera_setup=object()), "ROADMAP"),
-    (dict(export_map="map.obj"), "ROADMAP queue 1 #12"),
+    ("ba_mesh", "a process group of one rank"),
+    ("camera_setup", "a rig at the identity"),
+    ("export_map", "map.obj"),
 ])
-def test_unported_runner_arguments_raise(kw, names):
-    with pytest.raises(NotImplementedError, match=names):
-        runner.run_frames([], SMALL_CAM, SMALL_CFG, device="cpu", **kw)
+def test_unported_runner_arguments_raise(kw, names, tmp_path):
+    """The three runner arguments that raised ``NotImplementedError`` until the
+    map writer, the rectification and the sharded solve were ported: each is
+    taken now, here over an empty sequence."""
+    import torch.distributed as dist
+
+    value = {"camera_setup": tcfg.CameraSetup(rgb=SMALL_CAM, depth=SMALL_CAM),
+             "export_map": str(tmp_path / names)}.get(kw)
+    if kw == "ba_mesh":
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                                world_size=1, rank=0)
+        value = dist.group.WORLD
+    try:
+        state, traj, stats = runner.run_frames([], SMALL_CAM, SMALL_CFG, device="cpu",
+                                               ba_every=8, **{kw: value})
+    finally:
+        if kw == "ba_mesh":
+            dist.destroy_process_group()
+    assert stats.frame_count == 0 and len(traj.positions) == 0 and state is not None
+    if kw == "export_map":
+        assert (tmp_path / names).read_text() == ""

@@ -374,3 +374,104 @@ def test_backend_on_the_card_runs_and_repeats_bit_equal(cuda):
     assert np.isfinite(runs[0][0]).all()
     np.testing.assert_array_equal(runs[0][0], runs[1][0])
     np.testing.assert_array_equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+def test_rectify_depth_on_the_card_matches_the_cpu(cuda):
+    """The scatter-min on the card against the CPU's, with deterministic
+    algorithms demanded: it must neither raise nor warn, and repeat itself."""
+    import warnings
+
+    from rgbd_slam_tpu_torch.ops.depth_cloud import rectify_depth
+
+    cam = config.TUM_FR1
+    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+    depth = scene.render(*synthetic.orbit_trajectory(1)[0])[1]
+    ext = np.eye(4)
+    ext[0, 3] = 25.0
+    want = rectify_depth(torch.from_numpy(depth), cam, cam, ext)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = rectify_depth(torch.from_numpy(depth).to(cuda), cam, cam, ext)
+            again = rectify_depth(torch.from_numpy(depth).to(cuda), cam, cam, ext)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(got, again)
+    got = got.cpu()
+    # the card fuses multiply-adds: a pixel within rounding of an edge may move
+    assert int(((got == 0) != (want == 0)).sum()) <= 4
+    both = (got != 0) & (want != 0)
+    assert int(((got - want).abs()[both] > 1e-3).sum()) <= 4
+    assert int((got == 0).sum()) > int((torch.from_numpy(depth) == 0).sum())
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A state saved from the card loads back onto it bit for bit, generator
+    included, and onto the CPU with the same leaves (and a generator seeded from
+    the saved state: a card's generator state means nothing to a CPU's)."""
+    from rgbd_slam_tpu_torch.io import checkpoint
+
+    cam = config.CameraIntrinsics(width=320, height=240, fx=260.0, fy=260.0, cx=160.0,
+                                  cy=120.0)
+    cfg = config.SlamConfig()
+    scene = synthetic.RoomScene(cam)
+    state = engine.init_state(cam, cfg, seed=3, device=cuda)
+    for q, p in synthetic.orbit_trajectory(2):
+        g, d = scene.render(q, p)
+        state, _ = engine.step(state, torch.as_tensor(g, device=cuda),
+                               torch.as_tensor(d, device=cuda), cam, cfg)
+    path = str(tmp_path / "ckpt.npz")
+    checkpoint.save_state(state, path)
+    loaded = checkpoint.load_state(path, engine.init_state(cam, cfg, seed=8, device=cuda))
+    on_cpu = checkpoint.load_state(path, engine.init_state(cam, cfg, device="cpu"))
+    for a, b, c in zip(checkpoint._leaves(state), checkpoint._leaves(loaded),
+                       checkpoint._leaves(on_cpu)):
+        assert b.device.type == "cuda" and c.device.type == "cpu"
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert torch.equal(a.cpu().nan_to_num(), c.nan_to_num())
+    assert torch.equal(state.generator.get_state(), loaded.generator.get_state())
+    twice = checkpoint.load_state(path, on_cpu)
+    assert torch.equal(on_cpu.generator.get_state(), twice.generator.get_state())
+    draws = [torch.rand(4, generator=s.generator, device=cuda) for s in (state, loaded)]
+    assert torch.equal(*draws)
+
+
+def _collectives_rank(rank, world_size, init_method, out_path):
+    from rgbd_slam_tpu_torch import dryrun
+    from rgbd_slam_tpu_torch.parallel import ba
+
+    dryrun.join_group(rank, world_size, init_method)
+    try:
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
+        device = torch.device("cuda")
+        local = torch.arange(6, dtype=torch.float32, device=device).reshape(2, 3) + 10 * rank
+        gathered = ba.all_gather_rows(local, group)
+        full = torch.arange(4 * world_size, dtype=torch.float32,
+                            device=device).reshape(-1, 2) * (rank + 1)
+        scattered = ba.all_gather_rows(ba.reduce_scatter_rows(full, group), group)
+        if rank == 0:
+            np.savez(out_path, gathered=gathered.cpu().numpy(),
+                     scattered=scattered.cpu().numpy())
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_gloo_collectives_on_cuda_tensors(cuda, tmp_path):
+    """``all_gather_rows`` and ``reduce_scatter_rows`` over two ``gloo`` ranks
+    that share the card, against what they give on the CPU (plain arithmetic)."""
+    from rgbd_slam_tpu_torch import dryrun
+
+    out = str(tmp_path / "out.npz")
+    dryrun.run_ranks(_collectives_rank, 2, args=(out,), timeout=120.0)
+    with np.load(out) as data:
+        want = np.concatenate([np.arange(6, dtype=np.float32).reshape(2, 3) + 10 * r
+                               for r in range(2)])
+        np.testing.assert_array_equal(data["gathered"], want)
+        np.testing.assert_array_equal(data["scattered"],
+                                      3.0 * np.arange(8, dtype=np.float32).reshape(-1, 2))

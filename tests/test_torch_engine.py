@@ -332,7 +332,8 @@ def test_runner_and_unported_paths(frames):
     """run_frames drives the step (points only here, and the default plane step
     on one frame); lines and the BA backend, which used to raise, run (their own
     tests are test_torch_engine_lines.py and test_torch_ba.py); the sharded BA,
-    depth rectification and the map writer raise by name."""
+    depth rectification and the map writer, which used to raise by name, take
+    their arguments (test_torch_sharded_ba.py, test_torch_cli.py, test_torch_io.py)."""
     seen = []
     state, traj, stats = runner.run_frames(
         frames[:3], T_CAM, T_CFG, with_planes=False, device="cpu",
@@ -346,7 +347,10 @@ def test_runner_and_unported_paths(frames):
                                        with_lines=True, ba_every=2, device="cpu")
     assert stats.frame_count == 2 and stats.success_count == 2 and stats.keyframe_count >= 1
     assert stats.ba_runs == 0          # two keyframes at most: nothing to refine yet
-    for kw in ("ba_mesh", "camera_setup", "export_map"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a value of the wrong kind for the rig, the map file or the process group is
+    # refused where it is first used
+    for kw, error in (("ba_mesh", (TypeError, ValueError, AttributeError, RuntimeError)),
+                      ("camera_setup", AttributeError), ("export_map", OSError)):
+        with pytest.raises(error):
             runner.run_frames(frames[:1], T_CAM, T_CFG, with_planes=False, device="cpu",
-                              **{kw: "asked for"})
+                              **{kw: "/nowhere/asked for"})

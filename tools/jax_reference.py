@@ -1,6 +1,6 @@
 """The JAX reference runs behind ``chip_smoke.py``'s ``JAX_REFERENCE`` table.
 
-    python tools/jax_reference.py [--paths lines lines_lowtex ba] [--seeds 0 1 2]
+    python tools/jax_reference.py [--paths lines lines_lowtex ba tum] [--seeds 0 1 2]
 
 Runs ``rgbd_slam_tpu.runner.run_frames`` on a CPU (XLA's code capped at AVX2, as
 the repo's tests run it) over the frames ``chip_smoke.py`` renders for each
@@ -8,7 +8,10 @@ path, at 640x480 with ``TUM_FR1`` and the default ``SlamConfig``, once per seed,
 and prints one JSON line per run and one summary line per path: the worst
 ATE-RMSE, the most failed and lost frames and, for the backend path, the least
 keyframe, refine and accepted-refine counts over the seeds.  A seed spread of
-more than 2x in ATE is flagged (``spread_over_2x``): take 5 seeds then.
+more than 2x in ATE is flagged (``spread_over_2x``): take 5 seeds then.  The
+``tum`` path is the backend path on a calibrated rig: the arrays a TUM directory
+of the same frames decodes to, with a depth camera off the RGB camera's axis, so
+that the runner rectifies every depth map.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import numpy as np  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from rgbd_slam_tpu import runner, synthetic  # noqa: E402
-from rgbd_slam_tpu.config import TUM_FR1, DepthNoiseModel, SlamConfig  # noqa: E402
+from rgbd_slam_tpu.config import (TUM_FR1, CameraSetup, DepthNoiseModel,  # noqa: E402
+                                  SlamConfig)
 
 #: tracked-set capacity of chip_smoke's forward-only path
 FORWARD_ONLY_TRACKED = 99
@@ -50,6 +54,30 @@ def _stripe_wall(cam, n):
     return [scene.render(q, p) for q, p in poses], poses
 
 
+#: the ``tum`` path's rig: the depth camera sits 25 mm along the RGB camera's x
+RIG_BASELINE_MM = 25.0
+TUM_RIG = CameraSetup(rgb=TUM_FR1, depth=TUM_FR1, depth_to_rgb=(
+    (1.0, 0.0, 0.0, RIG_BASELINE_MM), (0.0, 1.0, 0.0, 0.0), (0.0, 0.0, 1.0, 0.0),
+    (0.0, 0.0, 0.0, 1.0)))
+
+
+def _tum_rig(cam, n):
+    """The room orbit as ``chip_smoke.py``'s ``tum_cli`` phase writes and decodes
+    it: gray from the RGB camera's pose, cut to 8 bits; depth from the depth
+    camera's pose (``RIG_BASELINE_MM`` along the RGB camera's x, a scene object of
+    its own for the noise), cut to the 0.2 mm steps of a 16-bit TUM depth PNG."""
+    rgb_scene = synthetic.RoomScene(cam)
+    depth_scene = synthetic.RoomScene(cam, depth_noise=DepthNoiseModel())
+    poses = synthetic.orbit_trajectory(60, speed_mm=4.0)[:n]
+    frames = []
+    for q, p in poses:
+        gray = np.clip(rgb_scene.render(q, p)[0], 0, 255).astype(np.uint8)
+        p_depth = np.asarray(p) + runner._np_quat_rotate(q, [RIG_BASELINE_MM, 0.0, 0.0])
+        d16 = np.clip(depth_scene.render(q, p_depth)[1] * 5.0, 0, 65535).astype(np.uint16)
+        frames.append((gray.astype(np.float32), d16.astype(np.float32) / 5.0))
+    return frames, poses
+
+
 #: path -> (frames maker, frame count, run_frames keywords, tracked-set cap or None)
 PATHS = {
     "planes": (_room, 60, dict(with_planes=True), None),
@@ -59,6 +87,7 @@ PATHS = {
     "lines_lowtex": (_stripe_wall, 30, dict(with_planes=False, with_lines=True), None),
     "lines_lowtex_off": (_stripe_wall, 30, dict(with_planes=False), None),
     "ba": (_room, 60, dict(with_planes=True, ba_every=8), None),
+    "tum": (_tum_rig, 60, dict(with_planes=True, ba_every=8, camera_setup=TUM_RIG), None),
 }
 
 

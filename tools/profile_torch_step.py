@@ -2,6 +2,8 @@
 
     python tools/profile_torch_step.py [--tracked 128] [--no-planes] [--frames 25]
                                        [--lines] [--stripe-wall] [--ba-every 8]
+    python tools/profile_torch_step.py --tum DIR [--camera-yaml FILE] [--frames 40]
+                                       [--ba-every 8]
 
 Runs RoomScene orbit frames at 640x480 (default ``SlamConfig``, depth noise on;
 ``--stripe-wall``: the low-texture StripeWallScene on a lateral run) through
@@ -16,6 +18,15 @@ name the package line of every host sync.  Each run segment is a ``run_frames``
 call of its own, so with ``--ba-every 8`` a refine fires only in a segment of
 16 frames or more (three keyframes by its frame 15): ``--frames 53``.
 Prints one JSON line.
+
+``--tum DIR`` profiles the command-line entry point's loop instead
+(``rgbd_slam_tpu_torch.cli``: decode with the native loader, upload, rectify for
+the rig of ``--camera-yaml``, step, streamed map export) over the first
+``--frames`` frames of a TUM directory: ms a frame by stage (decode on the host
+clock; rectify, step and export with a device sync on both sides; the rest is
+upload and the runner's own work), then the host syncs a frame by package line,
+once with the frames uploaded one by one from pageable memory, as the CLI feeds
+them, and once through ``runner.stage_frames``.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -37,8 +49,9 @@ from torch.autograd import DeviceType
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from rgbd_slam_tpu_torch import config, engine, runner, synthetic  # noqa: E402
+from rgbd_slam_tpu_torch import cli, config, engine, runner, synthetic  # noqa: E402
 from rgbd_slam_tpu_torch.features import primitives  # noqa: E402
+from rgbd_slam_tpu_torch.io import datasets  # noqa: E402
 from rgbd_slam_tpu_torch.ops import brief, fast, image, matching, optical_flow  # noqa: E402
 from rgbd_slam_tpu_torch.parallel.keyframes import KeyframeWindow  # noqa: E402
 from rgbd_slam_tpu_torch.parallel.pose_graph import PoseGraph  # noqa: E402
@@ -68,17 +81,26 @@ STAGES = {
 }
 
 
+#: the stages of the command-line loop (``--tum``)
+TUM_STAGES = {
+    "rectify": [(runner, "rectify_depth")],
+    "step": [(engine, "step")],
+    "map_export": [(runner, "append_dying_features"), (runner, "append_alive_features")],
+}
+
+
 class StageTimer:
     """Wraps each stage function with a device sync on both sides and a host
     clock; only the outermost wrapped call is timed."""
 
-    def __init__(self):
+    def __init__(self, stages=None):
+        self.stages = STAGES if stages is None else stages
         self.ms = defaultdict(float)
         self.active = False
         self.saved = []
 
     def install(self):
-        for stage, targets in STAGES.items():
+        for stage, targets in self.stages.items():
             for module, name in targets:
                 fn = getattr(module, name)
                 self.saved.append((module, name, fn))
@@ -115,7 +137,8 @@ def _card_line() -> str:
 
 def _sync_sites(frames, cam, cfg, run_kw, state, device):
     """Host syncs per frame by the package line that caused them, from
-    ``torch.cuda.set_sync_debug_mode``'s warnings over ``frames``."""
+    ``torch.cuda.set_sync_debug_mode``'s warnings over ``frames``; the key
+    ``all`` is their sum."""
     sites = defaultdict(int)
     package = str(Path(runner.__file__).parent)
 
@@ -135,7 +158,76 @@ def _sync_sites(frames, cam, cfg, run_kw, state, device):
             runner.run_frames(frames, cam, cfg, state=state, device=device, **run_kw)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return {k: v / len(frames) for k, v in sorted(sites.items())}
+    per_frame = {k: v / len(frames) for k, v in sorted(sites.items())}
+    per_frame["all"] = sum(per_frame.values())
+    return per_frame
+
+
+def profile_tum(args, device) -> int:
+    """The command-line loop over a TUM directory: stage times, then the syncs a
+    frame with and without staged uploads."""
+    setup = config.load_camera_yaml(args.camera_yaml) if args.camera_yaml else None
+    cam = setup.rgb if setup is not None else config.TUM_FR1
+    cfg = config.SlamConfig()
+    index = datasets.index_tum(args.tum)[:args.frames]
+    if not index:
+        print(f"profile_torch_step: no frames in {args.tum}", file=sys.stderr)
+        return 1
+    n = len(index)
+    decode_ms = [0.0]
+
+    def decoded():
+        frames = cli.open_frames(index, cam, native=True)
+        while True:
+            t0 = time.perf_counter()
+            frame = next(frames, None)
+            decode_ms[0] += 1e3 * (time.perf_counter() - t0)
+            if frame is None:
+                return
+            yield frame
+
+    with tempfile.TemporaryDirectory() as work:
+        run_kw = dict(ba_every=args.ba_every, camera_setup=setup,
+                      export_map=str(Path(work) / "map.obj"))
+        warm = list(cli.open_frames(index[:5], cam, native=True))
+        runner.run_frames(warm, cam, cfg, device=device, **run_kw)
+        timer = StageTimer(TUM_STAGES)
+        timer.install()
+        t0 = time.perf_counter()
+        _, _, stats = runner.run_frames(decoded(), cam, cfg, device=device, **run_kw)
+        torch.cuda.synchronize()
+        frame_ms = 1e3 * (time.perf_counter() - t0) / n
+        timer.remove()
+        frames = list(cli.open_frames(index, cam, native=True))
+        rectify_us, rectify_kernels = None, None
+        if setup is not None:
+            # device time and launches of one rectification, the profiler's count
+            depth = torch.as_tensor(frames[0][1], device=device)
+            ext = torch.tensor(setup.depth_to_rgb, dtype=torch.float32, device=device)
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(20):
+                    runner.rectify_depth(depth, setup.depth, cam, ext)
+                torch.cuda.synchronize()
+            on_card = [e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+            rectify_us, rectify_kernels = sum(on_card) / 20, len(on_card) / 20
+        pageable = _sync_sites(frames, cam, cfg, run_kw, None, device)
+        staged = _sync_sites(runner.stage_frames(frames, device=device), cam, cfg, run_kw,
+                             None, device)
+    stage_ms = {k: timer.ms[k] / n for k in TUM_STAGES}
+    stage_ms["decode"] = decode_ms[0] / n
+    stage_ms["upload_and_runner"] = frame_ms - sum(stage_ms.values())
+    print(json.dumps({
+        "card": _card_line(), "tum": args.tum, "frames": n, "ba_every": args.ba_every,
+        "rectified": setup is not None, "frame_ms": frame_ms, "stage_ms": stage_ms,
+        "rectify_device_us": rectify_us, "rectify_kernels": rectify_kernels,
+        "lost": stats.lost_count, "map_streamed": stats.map_streamed,
+        "map_alive_at_end": stats.map_alive_at_end,
+        "syncs_per_frame_pageable": pageable["all"], "syncs_per_frame_staged": staged["all"],
+        "sync_sites_per_frame_pageable": pageable, "sync_sites_per_frame_staged": staged,
+    }))
+    return 0
 
 
 def main() -> int:
@@ -149,11 +241,16 @@ def main() -> int:
                     help="the low-texture StripeWallScene instead of the RoomScene")
     ap.add_argument("--ba-every", type=int, default=None,
                     help="the backend on, a refine every this many frames")
+    ap.add_argument("--tum", default="", metavar="DIR",
+                    help="profile the command-line loop over this TUM directory instead")
+    ap.add_argument("--camera-yaml", default="", help="with --tum: the rig's camera YAML")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    if args.tum:
+        return profile_tum(args, device)
     cam = config.TUM_FR1
     cfg = config.SlamConfig()
     cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(
