@@ -52,7 +52,19 @@ Phases, one line of output each (any failure raises, so the last line, the
    finite, one copy to the device and one read back per refine and per graph
    solve; prints ms per refine and per graph solve past the first; then the
    first 30 frames twice, which must give the same ATE to the last bit.
-10. ``tum_cli``: the 60 frames written as a TUM directory (8-bit RGB and 16-bit
+10. the paths that only ``bench.py`` ran before, each over the first 30 frames
+    of its leg (``bench_torch.py``'s frame makers), planes on: ``hard``
+    (``HardRoomScene`` with depth noise on the orbit: depth holes, a noise burst
+    every 17th frame, a hanging sphere in front of the wall, a weak-texture
+    band; ``ba_every=8``), ``hard_pred`` (the same with motion-model
+    prediction), ``roll`` (the RoomScene rolling +-30 degrees about the optical
+    axis over a 120-frame period; ``ba_every=8``), ``tunnel`` (``TunnelScene``
+    on the forward flight) and ``tunnel_ba`` (the same, ``ba_every=8``).  Each
+    checks one fused launch a frame, failed/lost, the ATE bound and, with the
+    backend, the backend path's counts; the tunnel paths check cylinders on
+    every frame in place of planes alive.  Each prints the components
+    fixpoint's host reads a frame and the frames with a cylinder.
+11. ``tum_cli``: the 60 frames written as a TUM directory (8-bit RGB and 16-bit
     depth PNGs by this script's own writer, the three list files, a camera YAML
     whose depth camera sits 25 mm off the RGB camera, the depth maps rendered
     from there), then ``python -m rgbd_slam_tpu_torch.cli ... --ba 8
@@ -61,18 +73,18 @@ Phases, one line of output each (any failure raises, so the last line, the
     trajectory file, 0 failed and lost, one fused launch a frame, a map file
     with as many features as the run says it streamed and wrote at the end, at
     least one of them streamed when it died.
-11. ``checkpoint``: 30 frames straight; 15 frames, ``save_state``,
+12. ``checkpoint``: 30 frames straight; 15 frames, ``save_state``,
     ``load_state`` into a fresh template, 15 more; both with
     ``torch.use_deterministic_algorithms(True)``; trajectories and final states
     equal to the last bit.
-12. ``sharded_ba``: ``dryrun.dryrun_multichip(4)``: four ``gloo`` processes that
+13. ``sharded_ba``: ``dryrun.dryrun_multichip(4)``: four ``gloo`` processes that
     share the card, ``dense`` and ``pcg`` against the single-device solve;
     ``dryrun.nccl_single_rank()``; then the backend path over the 30 frames with
     the refines sharded over 2 ranks: the same keyframes, refines and accepted
     counts as one device, the ATE within the backend bound.  Processes that
     share one card take turns on it, so the times printed beside the
     single-device ones measure what the collectives cost, not a speed-up.
-13. the kernels' JSON line (launches summed over all paths), the card line
+14. the kernels' JSON line (launches summed over all paths), the card line
     again, and the result line.
 
 ``run_frames`` reads the frames' summaries in batches of 8, so the per-frame
@@ -108,7 +120,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from bench_torch import hard_orbit, room_roll, tunnel_flight
 from rgbd_slam_tpu_torch import config, dryrun, engine, runner, synthetic
+from rgbd_slam_tpu_torch.features import primitives
 from rgbd_slam_tpu_torch.io import checkpoint
 from rgbd_slam_tpu_torch.io.trajectory import ate_rmse
 from rgbd_slam_tpu_torch.ops import fast, image, lk_cuda
@@ -147,6 +161,26 @@ JAX_REFERENCE = {
            "keyframes": 16, "ba_runs": 6, "ba_accepted": 6},
     "tum": {"frames": 60, "worst_ate_mm": 11.917487719073332, "failed": 0, "lost": 0,
             "keyframes": 13, "ba_runs": 6, "ba_accepted": 6},
+    "hard": {"frames": 30, "worst_ate_mm": 49.63225932905733, "failed": 0, "lost": 0,
+             "keyframes": 14, "ba_runs": 3, "ba_accepted": 3},
+    "hard_pred": {"frames": 30, "worst_ate_mm": 49.63434038781985, "failed": 0, "lost": 0,
+                  "keyframes": 14, "ba_runs": 3, "ba_accepted": 3},
+    "roll": {"frames": 30, "worst_ate_mm": 9.115547573074586, "failed": 0, "lost": 0,
+             "keyframes": 22, "ba_runs": 3, "ba_accepted": 3},
+    "tunnel": {"frames": 30, "worst_ate_mm": 3.252573140666306, "failed": 0, "lost": 0,
+               "cylinder_frames": 30},
+    "tunnel_ba": {"frames": 30, "worst_ate_mm": 3.641390156742322, "failed": 0, "lost": 0,
+                  "keyframes": 10, "ba_runs": 3, "ba_accepted": 3, "cylinder_frames": 30},
+}
+#: the paths that only ``bench.py`` ran before, each over the first 30 frames of
+#: its leg (``bench_torch.py``'s frame makers): path -> (frames, run_frames
+#: keywords, motion-model prediction)
+BENCH_LEG_PATHS = {
+    "hard": ("hard", dict(ba_every=8), False),
+    "hard_pred": ("hard", dict(ba_every=8), True),
+    "roll": ("roll", dict(ba_every=8), False),
+    "tunnel": ("tunnel", dict(), False),
+    "tunnel_ba": ("tunnel", dict(ba_every=8), False),
 }
 #: frames of the backend path's repeat, of the checkpoint phase's straight run
 #: and of the sharded backend run
@@ -409,23 +443,27 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
     alive and matched when lines are on, and the backend's counts when it is.
     Returns (launch counts, ATE, RunStats)."""
     ref = JAX_REFERENCE.get(reference)
-    step_s, line_matches = [], []
+    step_s, line_matches, cylinders = [], [], []
 
     def on_frame(i, state, out, dt):
         step_s.append(dt)
         line_matches.append(out.n_line_matches)
+        cylinders.append(out.n_cylinders)
 
     lk_cuda.reset_launches()
+    primitives.FIXPOINT_READS["components"] = 0
     state, traj, stats = runner.run_frames(
         frames, cam, cfg, with_planes=with_planes, with_lines=with_lines,
         ba_every=ba_every, seed=SEED, device=device, on_frame=on_frame)
     launches = dict(lk_cuda.LAUNCHES)
+    fixpoint_reads = primitives.FIXPOINT_READS["components"]
 
     ate = runner.evaluate_against_ground_truth(traj, gt)["ate_rmse_mm"]
     failed = stats.frame_count - stats.success_count
     planes_alive = int((state.planes.fid >= 0).sum())
     lines_alive = int((state.lines.fid >= 0).sum())
     frames_with_line_matches = int((torch.stack(line_matches) > 0).sum())
+    frames_with_cylinders = int((torch.stack(cylinders) > 0).sum())
     steady_ms = np.array(step_s[1 + runner.SUMMARY_BATCH:]) * 1e3   # past the warm-up
     fields = dict(
         frames=stats.frame_count, launches=launches, failed=failed, lost=stats.lost_count,
@@ -434,6 +472,9 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
         step_ms_median=float(np.median(steady_ms)),
         step_ms_p80=float(np.percentile(steady_ms, 80)), first_frame_s=step_s[0],
         points_alive=int((state.points.fid >= 0).sum()), planes_alive=planes_alive)
+    if with_planes:
+        fields.update(frames_with_cylinders=frames_with_cylinders,
+                      fixpoint_reads_per_frame=fixpoint_reads / stats.frame_count)
     if with_lines:
         fields.update(lines_alive=lines_alive,
                       frames_with_line_matches=frames_with_line_matches)
@@ -465,8 +506,11 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
         if not ate <= ATE_MARGIN * ref["worst_ate_mm"]:
             problems.append(f"ATE {ate} mm over the {ATE_MARGIN * ref['worst_ate_mm']} mm "
                             "bound")
-    if with_planes and planes_alive == 0:
+    if with_planes and planes_alive == 0 and not (ref and "cylinder_frames" in ref):
         problems.append("no plane alive in the map")
+    if ref and frames_with_cylinders < ref.get("cylinder_frames", 0):
+        problems.append(f"cylinders on {frames_with_cylinders} frames, the JAX reference "
+                        f"on {ref['cylinder_frames']}")
     if with_lines and (lines_alive == 0 or frames_with_line_matches == 0):
         problems.append(f"{lines_alive} lines alive, {frames_with_line_matches} frames "
                         "with line matches")
@@ -801,6 +845,14 @@ def main() -> int:
         raise RuntimeError(f"backend path: ATE {ba_short[0][1]!r} mm, then "
                            f"{ba_short[1][1]!r} mm on the same frames")
     paths += ba_short
+    n_leg = JAX_REFERENCE["hard"]["frames"]
+    legs = {"hard": hard_orbit(cam, n_leg), "roll": room_roll(cam, n_leg),
+            "tunnel": tunnel_flight(cam, n_leg)}
+    cfg_pred = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, use_motion_model_prediction=True))
+    for name, (leg, kw, prediction) in BENCH_LEG_PATHS.items():
+        paths.append(run_path(name, cam, cfg_pred if prediction else cfg, device, *legs[leg],
+                              FUSED_ONLY, reference=name, **kw))
     counts = [p[0] for p in paths]
     counts.append(run_tum_cli(cam, frames, poses, gt))
     counts.append(run_checkpoint(cam, cfg, device, frames[:n_short]))

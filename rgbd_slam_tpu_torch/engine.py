@@ -873,7 +873,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     failed_count = torch.where(success, zero,
                                torch.where(first_frame, zero, state.failed_count + 1))
     is_lost = failed_count > cfg.engine.max_failed_tracking
-    motion_state, _, _ = motion_model.predict_next_pose(state.motion, new_quat, new_pos)
+    motion_state, _, _, _ = motion_model.predict_next_pose(state.motion, new_quat, new_pos)
     motion_state = motion_model.MotionModelState(*[
         torch.where(success, a, b)
         for a, b in zip(motion_state, motion_model.reset(dt, dev))])

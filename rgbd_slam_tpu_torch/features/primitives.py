@@ -41,6 +41,9 @@ HIST_BINS = 20
 CYL_SUBSEGMENTS = 3
 #: components fixpoint iterations between two convergence reads on the host
 CC_CHUNK = 8
+#: convergence reads the components fixpoint has made on the host (one a chunk);
+#: a caller sets it to 0 and reads it after a run
+FIXPOINT_READS = {"components": 0}
 
 
 class CellGrid(NamedTuple):
@@ -237,6 +240,7 @@ def _connected_components(edges, planar, gh: int, gw: int):
     while True:
         for _ in range(CC_CHUNK):
             prev, lbl = lbl, body(lbl)
+        FIXPOINT_READS["components"] += 1
         if not bool((lbl != prev).any().item()):
             return lbl.reshape(-1)
 

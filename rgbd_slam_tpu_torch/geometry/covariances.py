@@ -49,6 +49,19 @@ def is_covariance_valid_fast(cov, atol=1e-5):
     return finite & sym & pd
 
 
+def is_covariance_valid(cov, atol=1e-5):
+    """Symmetry + positive-semi-definiteness check by ``eigvalsh``; batched,
+    returns a bool mask.  A matrix with a non-finite entry is invalid (its
+    eigenvalues are not computed: ``eigvalsh`` raises on them)."""
+    sym_t = cov.transpose(-1, -2)
+    sym = (torch.abs(cov - sym_t) < atol).all(dim=-1).all(dim=-1)
+    finite = torch.isfinite(cov).all(dim=-1).all(dim=-1)
+    eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
+    eigs = torch.linalg.eigvalsh(torch.where(finite[..., None, None], 0.5 * (cov + sym_t), eye))
+    psd = finite & (eigs > -atol).all(dim=-1)
+    return sym & psd
+
+
 def screen_point_covariance(screen, model: DepthNoiseModel = DepthNoiseModel(),
                             xy_sigma_px: float = 0.1):
     """Measurement covariance of a screen observation [u, v, z]: fixed 0.1px xy
@@ -76,6 +89,20 @@ def screen_to_camera_covariance(screen, screen_cov, cam: CameraIntrinsics):
         torch.stack([zero, zero, one], dim=-1),
     ], dim=-2)
     return propagate_covariance(screen_cov, j)
+
+
+def camera_to_screen_covariance(pt_cam, cam_cov, cam: CameraIntrinsics):
+    """Camera-space covariance -> screen space."""
+    x, y, z = pt_cam[..., 0], pt_cam[..., 1], pt_cam[..., 2]
+    safe_z = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    zero = torch.zeros_like(z)
+    one = torch.ones_like(z)
+    j = torch.stack([
+        torch.stack([cam.fx / safe_z, zero, -cam.fx * x / (safe_z * safe_z)], dim=-1),
+        torch.stack([zero, cam.fy / safe_z, -cam.fy * y / (safe_z * safe_z)], dim=-1),
+        torch.stack([zero, zero, one], dim=-1),
+    ], dim=-2)
+    return propagate_covariance(cam_cov, j)
 
 
 def rotate_covariance(cov, rotation_33, pose_cov=None):

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..config import CameraIntrinsics
-from . import basis, pinhole
+from . import basis, lines, pinhole
 
 FIRST_POSE_IDX = 0
 INVERSE_DEPTH_IDX = 3
@@ -107,3 +107,35 @@ def estimation_bounds(state, rho_std):
     far = state[..., :3] + b / torch.clamp_min(rho - var3, 1e-9)
     near = state[..., :3] + b / torch.clamp_min(rho + var3, 1e-9)
     return far, near
+
+
+def to_screen_segment(state, rho_variance, w2c, cam: CameraIntrinsics):
+    """Project the +-3 sigma inverse-depth span to a screen segment.  Returns
+    (p0_uv, p1_uv, valid)."""
+    rho_std = torch.sqrt(torch.clamp_min(rho_variance, 0.0))
+    far, near = estimation_bounds(state, rho_std)
+    s0, v0 = pinhole.world_to_screen(far, w2c, cam)
+    s1, v1 = pinhole.world_to_screen(near, w2c, cam)
+    return s0[..., :2], s1[..., :2], v0 & v1
+
+
+def signed_screen_distance(state, rho_variance, obs_uv, w2c, cam: CameraIntrinsics,
+                           big=1e10):
+    """Signed px distance of an observation to the projected inverse-depth
+    segment's line; a near-zero-length segment falls back to the point distance
+    and an invalid projection maps to ``big``."""
+    p0, p1, valid = to_screen_segment(state, rho_variance, w2c, cam)
+    seg_len_sq = torch.sum((p1 - p0) ** 2, dim=-1)
+    line_d = lines.segment_signed_distance_to_point(p0, p1, obs_uv)
+    point_d = obs_uv - p0
+    d = torch.where((seg_len_sq < 1e-12)[..., None], point_d, line_d)
+    return torch.where(valid[..., None], d, torch.full_like(d, big))
+
+
+def signed_line_distance_to_observation(state, obs_uv, w2c, cam: CameraIntrinsics):
+    """3D line-to-line signed distance between this feature's bearing ray and
+    the ray of a new observation."""
+    c2w = torch.linalg.inv(w2c)
+    other = from_screen_observation(obs_uv, c2w, cam)
+    return lines.signed_line_distance(state[..., :3], bearing_vector(state),
+                                      other[..., :3], bearing_vector(other))

@@ -66,3 +66,17 @@ def is_in_screen_boundaries(screen, cam: CameraIntrinsics):
     if screen.shape[-1] >= 3:
         ok = ok & (screen[..., 2] > 0)
     return ok
+
+
+def signed_screen_distance_2d(world_pt, screen_obs_uv, w2c, cam: CameraIntrinsics, big=1e10):
+    """Signed px reprojection error of a world point against a 2D screen
+    observation; invalid projections map to ``big``."""
+    proj, valid = world_to_screen(world_pt, w2c, cam)
+    d = screen_obs_uv[..., :2] - proj[..., :2]
+    return torch.where(valid[..., None], d, torch.full_like(d, big))
+
+
+def screen_distance_px(world_pt, screen_obs_uv, w2c, cam: CameraIntrinsics, big=1e10):
+    """L1 reprojection distance in px."""
+    return torch.sum(torch.abs(
+        signed_screen_distance_2d(world_pt, screen_obs_uv, w2c, cam, big)), dim=-1)

@@ -109,6 +109,33 @@ def matrix_to_quat(m):
     return quat_normalize(q)
 
 
+def quat_from_axis_angle(axis, angle):
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    half = angle / 2.0
+    return torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axis], dim=-1)
+
+
+def quat_from_euler(yaw, pitch, roll):
+    """Euler -> quaternion with the convention ``Rx(roll) * Ry(pitch) * Rz(yaw)``.
+    Numbers and tensors mix; the result is at least float32, on the device of
+    the tensors given."""
+    tensors = [a for a in (yaw, pitch, roll) if isinstance(a, torch.Tensor)]
+    dt = functools.reduce(torch.promote_types,
+                          [t.dtype for t in tensors if t.is_floating_point()], torch.float32)
+    device = tensors[0].device if tensors else None
+    yaw, pitch, roll = (torch.as_tensor(a, dtype=dt, device=device)
+                        for a in (yaw, pitch, roll))
+
+    def axis_quat(angle, axis):
+        zero = torch.zeros_like(angle)
+        parts = [torch.cos(angle / 2), zero, zero, zero]
+        parts[axis] = torch.sin(angle / 2)
+        return torch.stack(parts, dim=-1)
+
+    return quat_multiply(quat_multiply(axis_quat(roll, 1), axis_quat(pitch, 2)),
+                         axis_quat(yaw, 3))
+
+
 def quat_slerp(a, b, t):
     """Spherical interpolation (motion model)."""
     dot = torch.sum(a * b, dim=-1, keepdim=True)
@@ -121,6 +148,12 @@ def quat_slerp(a, b, t):
     wa = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
     wb = torch.where(use_lerp, t * torch.ones_like(theta), torch.sin(t * theta) / safe)
     return quat_normalize(wa * a + wb * b)
+
+
+def quat_angle_distance(a, b):
+    """Absolute rotation angle between two unit quaternions, radians."""
+    dot = torch.clamp(torch.abs(torch.sum(a * b, dim=-1)), 0.0, 1.0)
+    return 2.0 * torch.arccos(dot)
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +187,15 @@ def camera_to_world(quat, position):
 def world_to_camera(quat, position):
     """Pose -> world->camera 4x4."""
     return invert_transform(camera_to_world(quat, position))
+
+
+def camera_to_world_no_correction(quat, position):
+    """Pose -> camera->world 4x4 without the axis correction (tests)."""
+    return make_transform(quat_to_matrix(quat), position)
+
+
+def world_to_camera_no_correction(quat, position):
+    return invert_transform(camera_to_world_no_correction(quat, position))
 
 
 def plane_camera_to_world_matrix(c2w):
@@ -200,3 +242,15 @@ def pose_to_coefficients(quat, position):
 def coefficients_to_pose(coeffs):
     """6-vector -> (quat, position)."""
     return stereographic_to_quat(coeffs[..., 3:]), coeffs[..., :3]
+
+
+# ---------------------------------------------------------------------------
+# pose error metrics
+# ---------------------------------------------------------------------------
+
+def position_error(p_a, p_b):
+    return torch.linalg.vector_norm(p_a - p_b, dim=-1)
+
+
+def rotation_error_deg(q_a, q_b):
+    return torch.rad2deg(quat_angle_distance(q_a, q_b))

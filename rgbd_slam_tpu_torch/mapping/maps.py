@@ -134,15 +134,17 @@ def allocate_slots(free_mask, want_mask):
 
 
 def lifecycle_update(is_local, match_count, miss_count, matched,
-                     promote_threshold: int, lose_threshold: int):
-    """Shared staged/local lifecycle step.  Returns (new_is_local,
-    new_match_count, new_miss_count, keep_mask)."""
+                     promote_threshold: int, lose_threshold: int,
+                     staged_drop_at_zero: bool = True):
+    """Shared staged/local lifecycle step; a staged feature that is not matched
+    and whose match count reaches 0 is dropped when ``staged_drop_at_zero``.
+    Returns (new_is_local, new_match_count, new_miss_count, keep_mask)."""
     new_match = torch.where(matched, match_count + 1, torch.clamp_min(match_count - 1, 0))
     new_miss = torch.where(matched, torch.zeros_like(miss_count), miss_count + 1)
     promote = ~is_local & (new_match >= promote_threshold)
     new_is_local = is_local | promote
     lost_local = is_local & (new_miss > lose_threshold)
-    lost_staged = ~is_local & ~matched & (new_match <= 0)
+    lost_staged = ~is_local & ~matched & (new_match <= 0) & staged_drop_at_zero
     keep = ~(lost_local | lost_staged)
     return new_is_local, new_match, new_miss, keep
 

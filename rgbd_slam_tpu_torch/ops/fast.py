@@ -83,6 +83,14 @@ def fast_response_2tier(img, threshold, low_threshold):
     return hi_c, hi_s, lo_c, lo_s
 
 
+def fast_response(img, threshold):
+    """FAST-9/16 segment test + corner score over the whole image.  Returns
+    (is_corner [H, W] bool, score [H, W]): the score sums the absolute circle
+    differences beyond the threshold."""
+    c, s, _, _ = fast_response_2tier(img, threshold, threshold)
+    return c, s
+
+
 def _subpixel_refine(score, ys, xs):
     """Quadratic 1D fits on the score surface around each detected corner."""
     h, w = score.shape

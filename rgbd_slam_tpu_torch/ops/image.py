@@ -1,4 +1,4 @@
-"""Core image operations (port of ``rgbd_slam_tpu/ops/image.py``): pyramids, box
+"""Core image operations (port of ``rgbd_slam_tpu/ops/image.py``): blur, pyramids, box
 filter, gradients, bilinear sampling, max pool and the border test, on [H, W]
 float32 images.
 
@@ -29,6 +29,26 @@ def _edge_cols(img, r: int):
     w = img.shape[1]
     idx = torch.arange(-r, w + r, device=img.device).clamp(0, w - 1)
     return img[:, idx]
+
+
+def _blur5_rows(img):
+    """The vertical pass of the 5-tap binomial blur, edge-replicated."""
+    h = img.shape[0]
+    padded = _edge_rows(img, 2)
+    out = torch.zeros_like(img)
+    for i in range(5):
+        out = out + _GAUSS_5[i] * padded[i:i + h]
+    return out
+
+
+def gaussian_blur5(img):
+    """5-tap binomial blur (the pyrDown kernel), separable, edge-replicated."""
+    w = img.shape[1]
+    padded = _edge_cols(_blur5_rows(img), 2)
+    out = torch.zeros_like(img)
+    for i in range(5):
+        out = out + _GAUSS_5[i] * padded[:, i:i + w]
+    return out
 
 
 def box_filter(img, size: int):
@@ -64,10 +84,7 @@ def _decim_matrix(w: int, dtype, device):
 def pyr_down(img):
     """Gaussian blur + 2x decimation (cv::pyrDown equivalent)."""
     h, w = img.shape
-    padded = _edge_rows(img, 2)
-    v = torch.zeros_like(img)
-    for i in range(5):
-        v = v + _GAUSS_5[i] * padded[i:i + h]
+    v = _blur5_rows(img)
     if h % 2:
         v = torch.cat([v, v[-1:]], dim=0)
     ho = (h + 1) // 2

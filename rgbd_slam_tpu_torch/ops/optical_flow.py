@@ -15,7 +15,18 @@ from __future__ import annotations
 import torch
 
 from .image import in_border
-from .lk_cuda import lk_fwd_bwd, lk_pyramid
+from .lk_cuda import _sample_windows, lk_fwd_bwd, lk_pyramid
+
+
+def sample_window(img, top_left_xy, h: int, w: int):
+    """Bilinear [h, w] window of ``img`` whose top-left corner is at the float
+    position ``top_left_xy`` = (x, y); a batch [..., 2] of corners gives
+    [..., h, w].  The fraction comes from the unclamped floor, the corner is
+    clamped into the image (callers gate border points).  The plain LK versions
+    sample through the same code."""
+    xy = top_left_xy.reshape(-1, 2)
+    out = _sample_windows(img, xy[:, 0], xy[:, 1], h, w)
+    return out.reshape(top_left_xy.shape[:-1] + (h, w))
 
 
 def lk_track(prev_pyramid, next_pyramid, points, points_valid, levels: int = 4,

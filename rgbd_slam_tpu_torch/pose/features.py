@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RansacConfig as _RANSAC_DEFAULTS
+from ..device import resolve_device
 
 POINT_SCORE = 1.0 / _RANSAC_DEFAULTS().min_point_count
 POINT2D_SCORE = 1.0 / _RANSAC_DEFAULTS().min_point2d_count
@@ -72,6 +73,15 @@ class MatchedFeatures(NamedTuple):
         return torch.cat([self.point_mask, self.point2d_mask, self.plane_mask,
                           self.line_mask], dim=-1)
 
+    def total_score(self):
+        return torch.sum(self.scores(), dim=-1)
+
+    def split_unified(self, unified):
+        """Split a unified-index tensor back into per-type blocks."""
+        np_, n2, nk, _ = self.capacities
+        return (unified[..., :np_], unified[..., np_:np_ + n2],
+                unified[..., np_ + n2:np_ + n2 + nk], unified[..., np_ + n2 + nk:])
+
     def with_masks(self, point_mask, point2d_mask, plane_mask, line_mask=None):
         return self._replace(
             point_mask=point_mask & self.point_mask,
@@ -79,3 +89,47 @@ class MatchedFeatures(NamedTuple):
             plane_mask=plane_mask & self.plane_mask,
             line_mask=(self.line_mask if line_mask is None
                        else line_mask & self.line_mask))
+
+
+def make_matched_features(point_obs_uv=None, point_world=None, point_world_std=None,
+                          point2d_obs_uv=None, point2d_state=None, point2d_state_std=None,
+                          plane_cam=None, plane_world=None, plane_world_std=None,
+                          line_obs_p0=None, line_obs_p1=None, line_world=None,
+                          line_world_std=None, capacities=(64, 32, 8, 8),
+                          dtype=torch.float32, device=None) -> MatchedFeatures:
+    """Build a mask-padded MatchedFeatures from (possibly None or shorter)
+    arrays or tensors; rows past a block's capacity are dropped."""
+    device = resolve_device(device)
+    if len(capacities) == 3:
+        capacities = tuple(capacities) + (8,)
+    np_, n2, nk, nl = capacities
+
+    def pad(arr, cap, width):
+        mask = torch.zeros((cap,), dtype=torch.bool, device=device)
+        out = torch.zeros((cap, width), dtype=dtype, device=device)
+        if arr is not None and arr.shape[0] > 0:
+            n = min(arr.shape[0], cap)
+            out[:n] = torch.as_tensor(arr[:n], dtype=dtype, device=device)
+            mask[:n] = True
+        return out, mask
+
+    p_uv, p_mask = pad(point_obs_uv, np_, 2)
+    p_w, _ = pad(point_world, np_, 3)
+    p_std, _ = pad(point_world_std, np_, 3)
+    q_uv, q_mask = pad(point2d_obs_uv, n2, 2)
+    q_st, _ = pad(point2d_state, n2, 6)
+    q_std, _ = pad(point2d_state_std, n2, 6)
+    k_c, k_mask = pad(plane_cam, nk, 4)
+    k_w, _ = pad(plane_world, nk, 4)
+    k_std, _ = pad(plane_world_std, nk, 4)
+    l_p0, l_mask = pad(line_obs_p0, nl, 2)
+    l_p1, _ = pad(line_obs_p1, nl, 2)
+    l_w, _ = pad(line_world, nl, 6)
+    l_std, _ = pad(line_world_std, nl, 6)
+    return MatchedFeatures(
+        point_obs_uv=p_uv, point_world=p_w, point_world_std=p_std, point_mask=p_mask,
+        point2d_obs_uv=q_uv, point2d_state=q_st, point2d_state_std=q_std,
+        point2d_mask=q_mask,
+        plane_cam=k_c, plane_world=k_w, plane_world_std=k_std, plane_mask=k_mask,
+        line_obs_p0=l_p0, line_obs_p1=l_p1, line_world=l_w, line_world_std=l_std,
+        line_mask=l_mask)

@@ -84,20 +84,24 @@ def draw_pose_draws(feats: MatchedFeatures, engine_cfg: EngineConfig,
 # Levenberg-Marquardt core
 # ---------------------------------------------------------------------------
 
-def lm_solve(coeffs0, feats: MatchedFeatures, cam: CameraIntrinsics,
+def lm_solve(coeffs0, feats: MatchedFeatures, cam: CameraIntrinsics, weights=None,
              iterations: int = 8, damping0: float = 1e-3):
     """Fixed-iteration damped least squares on the 6-dof pose coefficients, batched
-    over the leading axes of ``coeffs0`` [..., 6] (and of ``feats``).
+    over the leading axes of ``coeffs0`` [..., 6] (and of ``feats``).  ``weights``
+    (unified index space) keeps only the features with a positive weight.
 
     LM accept/reject with deferred evaluation: each iteration linearizes the
     residual once at the pending trial point, folds the trial into the running
     best if its cost decreased (damping /2 on accept, x4 on reject), and emits
     the next trial from the best point's normal equations.  Returns (coeffs,
     final_cost)."""
+    if weights is not None:
+        feats = feats.with_masks(*(w > 0 for w in feats.split_unified(weights)))
     if coeffs0.dim() == 1:
         # forward AD of python-scalar arithmetic on 0-dim tensors yields float64
         # tangents, so a single pose runs as a batch of one
-        coeffs, cost = lm_solve(coeffs0[None], feats, cam, iterations, damping0)
+        coeffs, cost = lm_solve(coeffs0[None], feats, cam, iterations=iterations,
+                                damping0=damping0)
         return coeffs[0], cost[0]
     dt = coeffs0.dtype
     prep = prepare_features(feats, cam)
@@ -231,9 +235,11 @@ def compute_optimized_pose(quat0, position0, feats: MatchedFeatures,
                            ransac_cfg: RansacConfig = RansacConfig(),
                            engine_cfg: EngineConfig = EngineConfig(),
                            generator: torch.Generator | None = None,
-                           draws: PoseDraws | None = None) -> PoseOptimizationResult:
+                           draws: PoseDraws | None = None,
+                           compute_covariance: bool = True) -> PoseOptimizationResult:
     """RANSAC over feature subsets, LM refit on the best inlier set, Monte-Carlo
-    covariance.  Failure is reported through ``success``.  Either ``draws`` or a
+    covariance (``compute_covariance=False``: the refit alone and a covariance of
+    1e-3 I).  Failure is reported through ``success``.  Either ``draws`` or a
     ``generator`` to draw them from must be given."""
     if draws is None:
         if generator is None:
@@ -283,10 +289,15 @@ def compute_optimized_pose(quat0, position0, feats: MatchedFeatures,
 
     _, _, (p_in, q_in, k_in, l_in) = _score_pose(best_coeffs, prep_all, cam, ransac_cfg)
     inlier_feats = compact_features(feats.with_masks(p_in, q_in, k_in, l_in))
-    final_coeffs, covariance = refit_with_variance(
-        best_coeffs, inlier_feats, cam, draws.noise,
-        mc_iterations=engine_cfg.pose_covariance_mc_iterations,
-        lm_iterations=engine_cfg.refit_lm_iterations)
+    if compute_covariance:
+        final_coeffs, covariance = refit_with_variance(
+            best_coeffs, inlier_feats, cam, draws.noise,
+            mc_iterations=engine_cfg.pose_covariance_mc_iterations,
+            lm_iterations=engine_cfg.refit_lm_iterations)
+    else:
+        final_coeffs, _ = lm_solve(best_coeffs, inlier_feats, cam,
+                                   iterations=engine_cfg.refit_lm_iterations)
+        covariance = torch.eye(6, dtype=dt, device=dev) * 1e-3
 
     final_score, _, (p_in2, q_in2, k_in2, l_in2) = _score_pose(
         final_coeffs, prep_all, cam, ransac_cfg)
@@ -325,14 +336,26 @@ def refit_with_variance(coeffs0, inlier_feats: MatchedFeatures, cam: CameraIntri
     std dev, and the sample covariance of their solutions (+1e-3 diagonal floor)
     is the pose covariance."""
     m = mc_iterations + 1
-    member = torch.arange(m, device=coeffs0.device)
-    zero_first = [(member > 0).to(x.dtype).reshape((m,) + (1,) * (x.dim() - 1)) * x
-                  for x in noise]
-    var_feats = random_variation(inlier_feats, VariationNoise(*zero_first))
+    scales = (torch.arange(m, device=coeffs0.device) > 0).to(coeffs0.dtype)
+    var_feats = random_variation(inlier_feats, noise, scale=scales)
     cs, _ = lm_solve(coeffs0.expand(m, 6).contiguous(), var_feats, cam, iterations=lm_iterations)
-    final_coeffs = cs[0]
-    vecs = _pose_vector(cs[1:])
+    return cs[0], _sample_covariance(_pose_vector(cs[1:]))
+
+
+def _sample_covariance(vecs):
+    """Sample covariance of the pose vectors [n, 6] + 1e-3 on the diagonal."""
     centered = vecs - torch.mean(vecs, dim=0, keepdim=True)
-    cov = (centered.T @ centered) / (mc_iterations - 1)
-    cov = cov + 1e-3 * torch.eye(6, dtype=cov.dtype, device=cov.device)
-    return final_coeffs, cov
+    cov = (centered.T @ centered) / (vecs.shape[0] - 1)
+    return cov + 1e-3 * torch.eye(6, dtype=cov.dtype, device=cov.device)
+
+
+def compute_pose_variance(coeffs_opt, inlier_feats: MatchedFeatures, cam: CameraIntrinsics,
+                          noise: VariationNoise, iterations: int = 100,
+                          lm_iterations: int = 16):
+    """Sample covariance of re-optimized poses under feature noise: ``noise``
+    holds one perturbation per member on its leading axis ([iterations, ...]),
+    each member re-runs LM from ``coeffs_opt``, +1e-3 on the diagonal."""
+    var_feats = random_variation(inlier_feats, noise)
+    cs, _ = lm_solve(coeffs_opt.expand(iterations, 6).contiguous(), var_feats, cam,
+                     iterations=lm_iterations)
+    return _sample_covariance(_pose_vector(cs))

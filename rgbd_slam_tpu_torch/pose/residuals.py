@@ -123,6 +123,40 @@ def residual_vector_prepared(coeffs, prep: PreparedFeatures, cam: CameraIntrinsi
                       rl.flatten(-2)], dim=-1)
 
 
+def point_residuals(feats: MatchedFeatures, w2c, cam: CameraIntrinsics):
+    """Signed 2D px reprojection error per 3D point, [NP, 2]."""
+    d = pinhole.signed_screen_distance_2d(feats.point_world, feats.point_obs_uv, w2c, cam,
+                                          big=BIG_RESIDUAL)
+    return torch.where(feats.point_mask[..., None], d, 0.0)
+
+
+def point2d_residuals(feats: MatchedFeatures, w2c, cam: CameraIntrinsics):
+    """Signed px distance of the observation to the projected inverse-depth
+    segment, [N2, 2]; the rho variance comes from the state's std dev."""
+    rho_var = feats.point2d_state_std[..., idp.INVERSE_DEPTH_IDX] ** 2
+    d = idp.signed_screen_distance(feats.point2d_state, rho_var, feats.point2d_obs_uv, w2c,
+                                   cam, big=BIG_RESIDUAL)
+    return torch.where(feats.point2d_mask[..., None], d, 0.0)
+
+
+def plane_residuals(feats: MatchedFeatures, w2c, cam: CameraIntrinsics = None):
+    """Reduced ``d*n`` plane error, [NK, 3]."""
+    plane_w2c = se3.plane_world_to_camera_matrix(w2c)
+    d = planes.reduced_signed_distance(feats.plane_world, feats.plane_cam, plane_w2c)
+    return torch.where(feats.plane_mask[..., None], d, 0.0)
+
+
+def residual_vector(coeffs, feats: MatchedFeatures, cam: CameraIntrinsics, weights=None):
+    """Full stacked residual vector for the 6-dof coefficients.  ``weights``
+    (unified index space) selects the RANSAC subset: unselected features of all
+    four types contribute zero.  (The JAX function unpacks three of the four
+    blocks and raises when given weights; this is the masking its ``lm_solve``
+    does.)"""
+    if weights is not None:
+        feats = feats.with_masks(*(w > 0 for w in feats.split_unified(weights)))
+    return residual_vector_prepared(coeffs, prepare_features(feats, cam), cam)
+
+
 def inlier_masks_prepared(quat, position, prep: PreparedFeatures,
                           cam: CameraIntrinsics, ransac: RansacConfig = RansacConfig()):
     """Per-type inlier masks at a pose: points L1 px <= 3; 2D points per
@@ -156,6 +190,13 @@ def inlier_masks_prepared(quat, position, prep: PreparedFeatures,
     return point_in, point2d_in, plane_in, line_in
 
 
+def inlier_masks(quat, position, feats: MatchedFeatures, cam: CameraIntrinsics,
+                 ransac: RansacConfig = RansacConfig()):
+    """Per-type inlier masks at a pose (:func:`inlier_masks_prepared` of the
+    prepared set)."""
+    return inlier_masks_prepared(quat, position, prepare_features(feats, cam), cam, ransac)
+
+
 class VariationNoise(NamedTuple):
     """Standard-normal draws of one Monte-Carlo perturbation per leading index
     (the five ``jax.random.normal`` calls of ``random_variation``)."""
@@ -166,24 +207,31 @@ class VariationNoise(NamedTuple):
     line: torch.Tensor    # [..., NL, 6]
 
 
-def random_variation(feats: MatchedFeatures, noise: VariationNoise) -> MatchedFeatures:
+def random_variation(feats: MatchedFeatures, noise: VariationNoise,
+                     scale=1.0) -> MatchedFeatures:
     """Perturb map features by their standard deviation for the Monte-Carlo pose
     covariance: full N(0, std) on world points, theta/phi only (clamped to their
     domains) on inverse-depth points, normal + d with renormalization on planes.
-    Zero noise gives the unperturbed member of a fused batch."""
-    new_points = feats.point_world + noise.point * feats.point_world_std
+    ``scale`` multiplies the noise: a number, or a tensor of the draws' leading
+    (member) shape; 0 gives the unperturbed member of a fused batch."""
+    def s(trailing):
+        if isinstance(scale, torch.Tensor):
+            return scale.reshape(scale.shape + (1,) * trailing)
+        return scale
+
+    new_points = feats.point_world + s(2) * (noise.point * feats.point_world_std)
 
     theta = feats.point2d_state[..., idp.THETA_IDX]
     phi = feats.point2d_state[..., idp.PHI_IDX]
-    nt = torch.clamp(theta + noise.theta * feats.point2d_state_std[..., idp.THETA_IDX],
+    nt = torch.clamp(theta + s(1) * noise.theta * feats.point2d_state_std[..., idp.THETA_IDX],
                      0.0, torch.pi)
-    nphi = torch.clamp(phi + noise.phi * feats.point2d_state_std[..., idp.PHI_IDX],
+    nphi = torch.clamp(phi + s(1) * noise.phi * feats.point2d_state_std[..., idp.PHI_IDX],
                        -torch.pi, torch.pi)
     new_state = torch.cat([feats.point2d_state[..., :idp.THETA_IDX].expand(
         nt.shape + (idp.THETA_IDX,)), nt[..., None], nphi[..., None]], dim=-1)
 
     new_planes = planes.normalize_plane(feats.plane_world
-                                        + noise.plane * feats.plane_world_std)
-    new_lines = feats.line_world + noise.line * feats.line_world_std
+                                        + s(2) * noise.plane * feats.plane_world_std)
+    new_lines = feats.line_world + s(2) * (noise.line * feats.line_world_std)
     return feats._replace(point_world=new_points, point2d_state=new_state,
                           plane_world=new_planes, line_world=new_lines)

@@ -40,9 +40,11 @@ def predict_pose(state: MotionModelState, quat, position):
     return pred_quat, pred_position
 
 
-def predict_next_pose(state: MotionModelState, quat, position):
+def predict_next_pose(state: MotionModelState, quat, position,
+                      should_increase_variance: bool = False):
     """Predict the next pose and update the model.  Returns (new_state,
-    predicted_quat, predicted_position)."""
+    predicted_quat, predicted_position, pose_var_inflation_66): the inflation is
+    diag(10, 10, 10 mm, 0.1, 0.1, 0.1 rad)^2 when asked for, else zero."""
     dt = position.dtype
     new_lin_vel = ((position - state.last_position) + state.linear_velocity) * 0.5
     ang_diff = se3.quat_multiply(quat, se3.quat_conjugate(state.last_q))
@@ -53,8 +55,12 @@ def predict_next_pose(state: MotionModelState, quat, position):
     pred_position = torch.where(state.is_set, position + new_lin_vel, position)
     pred_quat = torch.where(
         state.is_set, se3.quat_normalize(se3.quat_multiply(quat, new_ang_vel)), quat)
+    inflation = torch.zeros((6, 6), dtype=dt, device=position.device)
+    if should_increase_variance:
+        std = torch.tensor([10.0, 10.0, 10.0, 0.1, 0.1, 0.1], dtype=dt, device=position.device)
+        inflation = torch.diag(std * std)
     new_state = MotionModelState(
         last_q=quat, last_position=position, linear_velocity=new_lin_vel,
         angular_velocity=new_ang_vel,
         is_set=torch.ones((), dtype=torch.bool, device=position.device))
-    return new_state, pred_quat, pred_position
+    return new_state, pred_quat, pred_position, inflation

@@ -42,6 +42,12 @@ def project_to_plane(points, center, u, v):
                         (rel * v[..., None, :]).sum(dim=-1)], dim=-1)
 
 
+def unproject_from_plane(pts2, center, u, v):
+    """2D plane-local coordinates [..., P, 2] -> 3D points; center, u, v [..., 3]."""
+    return (center[..., None, :] + pts2[..., 0:1] * u[..., None, :]
+            + pts2[..., 1:2] * v[..., None, :])
+
+
 def _convexify(verts, count):
     """True convex hull of the first ``count`` vertices, CCW-ordered: edge i->j is
     a hull edge iff every other active point lies on its left; hull vertices are

@@ -167,30 +167,30 @@ class _Record:
         self.point_obs_uv, self.point_obs_z = uv, z
 
 
-def _keyframe_records(n_keyframes=10, seed=5):
+def _keyframe_records(n_keyframes=10, seed=5, n_slots=N_SLOTS):
     """Seeded keyframes on a lateral run over landmarks on a slab: per keyframe
     (quat, position, record, map positions).  Slots are reused by other feature
     ids over time, and every keyframe sees a random three quarters of the map."""
     rng = np.random.default_rng(seed)
-    world = np.concatenate([rng.uniform(2000, 4000, (N_SLOTS + 12, 1)),
-                            rng.uniform(-1200, 1200, (N_SLOTS + 12, 2))], 1).astype(np.float32)
+    world = np.concatenate([rng.uniform(2000, 4000, (n_slots + 12, 1)),
+                            rng.uniform(-1200, 1200, (n_slots + 12, 2))], 1).astype(np.float32)
     out = []
     for i in range(n_keyframes):
         quat = np.asarray(j_se3.quat_from_axis_angle(jnp.array([0.0, 0.0, 1.0]),
                                                      jnp.float32(0.01 * i)))
         pos = np.array([20.0 * i, 30.0 * i, 5.0 * i], np.float32)
-        # slot s holds feature s, or feature N_SLOTS + s once it is reused
-        fid = np.arange(N_SLOTS, dtype=np.int32)
-        reused = (np.arange(N_SLOTS) < 12) & (i >= 5)
-        fid[reused] += N_SLOTS
+        # slot s holds feature s, or feature n_slots + s once it is reused
+        fid = np.arange(n_slots, dtype=np.int32)
+        reused = (np.arange(n_slots) < 12) & (i >= 5)
+        fid[reused] += n_slots
         fid[40:44] = -1
         lm = world[np.where(fid >= 0, fid, 0)]
         w2c = j_se3.world_to_camera(jnp.asarray(quat), jnp.asarray(pos))
         screen, ok = j_pinhole.world_to_screen(jnp.asarray(lm), w2c, CAM)
         screen = np.asarray(screen)
-        matched = np.asarray(ok) & (rng.uniform(size=N_SLOTS) < 0.75)
-        uv = (screen[:, :2] + rng.normal(0, 0.3, (N_SLOTS, 2))).astype(np.float32)
-        z = np.where(rng.uniform(size=N_SLOTS) < 0.8, screen[:, 2], 0.0).astype(np.float32)
+        matched = np.asarray(ok) & (rng.uniform(size=n_slots) < 0.75)
+        uv = (screen[:, :2] + rng.normal(0, 0.3, (n_slots, 2))).astype(np.float32)
+        z = np.where(rng.uniform(size=n_slots) < 0.8, screen[:, 2], 0.0).astype(np.float32)
         noisy_lm = (lm + rng.normal(0, 15.0, lm.shape)).astype(np.float32)
         out.append((quat, pos, _Record(matched, fid, uv, z), noisy_lm))
     return out
@@ -230,6 +230,28 @@ def test_window_bookkeeping_equals_jax(packed):
     assert t.dropped_obs == j.dropped_obs > 0
     assert t.dropped_landmarks == j.dropped_landmarks > 0
     assert sorted(t.obs) == sorted(j.obs)
+
+
+def test_default_window_overflow_equals_jax():
+    """A window at the runner's capacities (8 keyframes, 512 landmarks) over 12
+    keyframes of 640 map slots, with a cap of 6 observations a landmark: it
+    drops landmarks past 512 (the best-constrained are kept) and observations
+    past 6 as the JAX window does, packs equal arrays, and refines alike (the
+    tolerances of ``test_refine_matches_jax``)."""
+    records = _keyframe_records(12, seed=9, n_slots=640)
+    j = _fill(JKeyframeWindow(max_obs_per_landmark=6), records, True)
+    t = _fill(KeyframeWindow(max_obs_per_landmark=6, device="cpu"), records, True)
+    for a, b in zip(t.build_problem(), j.build_problem()):
+        np.testing.assert_array_equal(a, b)
+    assert t.dropped_landmarks == j.dropped_landmarks > 0
+    assert t.dropped_obs == j.dropped_obs > 0
+    (j_ref, _, j_costs), (t_ref, _, t_costs) = j.refine(CAM, iterations=3), \
+        t.refine(T_CAM, iterations=3)
+    np.testing.assert_allclose(t_costs, j_costs, rtol=1e-3)
+    for (tq, tp), (jq, jp) in zip(t_ref, j_ref):
+        np.testing.assert_allclose(tq, jq, atol=1e-6)
+        np.testing.assert_allclose(tp, jp, atol=5e-3)
+    assert t.dropped_landmarks == j.dropped_landmarks
 
 
 def test_underconstrained_window_builds_nothing():
@@ -420,6 +442,43 @@ def test_run_frames_with_the_backend(orbit, monkeypatch):
     assert np.isfinite(np.array(traj.quaternions)).all()
     assert np.isfinite(state.points.pos.numpy()).all()
     assert ate_on <= ate_off * 1.08, (ate_on, ate_off)
+
+
+def test_blackout_with_the_backend_matches_jax_runner():
+    """A loss with planes and the backend on: 10 orbit frames, a blackout
+    (featureless gray, no depth) long enough to lose tracking while the camera
+    holds still, then the orbit again from where it stopped; ``ba_every=4``.
+    Both runners fail and lose the same frames and select and refine the same
+    keyframes (none while failing, the map re-seeded on the first frame back),
+    and the port's ATE is within the margin of ``test_run_frames_with_the_backend``
+    (8%) of the JAX runner's.  The runners draw their own random numbers."""
+    from rgbd_slam_tpu.config import DepthNoiseModel as JDepthNoiseModel
+    from rgbd_slam_tpu.synthetic import RoomScene as JRoomScene
+    from test_torch_engine import CAM as J_CAM
+    from test_torch_engine import CFG as J_CFG
+
+    scene = JRoomScene(J_CAM, depth_noise=JDepthNoiseModel())
+    orbit = orbit_trajectory(16, speed_mm=8.0)
+    n_blackout = J_CFG.engine.max_failed_tracking + 2
+    poses = orbit[:10] + [orbit[9]] * n_blackout + orbit[9:]
+    dark = (np.full((J_CAM.height, J_CAM.width), 128.0, np.float32),
+            np.zeros((J_CAM.height, J_CAM.width), np.float32))
+    frames = [dark if 10 <= i < 10 + n_blackout else scene.render(q, p)
+              for i, (q, p) in enumerate(poses)]
+    gt = np.stack([p for _, p in poses]).astype(np.float64)
+    _, j_traj, j_stats = j_runner.run_frames(frames, J_CAM, J_CFG, with_planes=True,
+                                             ba_every=4, seed=0)
+    _, t_traj, t_stats = runner.run_frames(frames, SMALL_CAM, SMALL_CFG, with_planes=True,
+                                           ba_every=4, seed=0, device="cpu")
+    for key in ("frame_count", "success_count", "lost_count", "keyframe_count", "ba_runs",
+                "ba_accepted"):
+        assert getattr(t_stats, key) == getattr(j_stats, key), key
+    assert j_stats.frame_count - j_stats.success_count == n_blackout
+    assert j_stats.lost_count >= 1 and j_stats.ba_runs >= 2
+    j_ate = j_runner.evaluate_against_ground_truth(j_traj, gt)["ate_rmse_mm"]
+    t_ate = runner.evaluate_against_ground_truth(t_traj, gt)["ate_rmse_mm"]
+    assert np.isfinite(t_traj.positions_array()).all()
+    assert t_ate <= j_ate * 1.08, (t_ate, j_ate)
 
 
 def test_backend_options(orbit):

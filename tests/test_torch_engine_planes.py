@@ -7,7 +7,10 @@ the JAX draws injected), over 10 RoomScene orbit frames with depth noise.  In
 them planes are detected, matched, polygon-merged, inserted, promoted and
 dropped, and one frame detects a cylinder.  Two tracked-set capacities: 64
 (the fused forward-backward LK) and 50 (N % 4 != 0: the forward-only LK twice,
-which the JAX step on the CPU composes the same way).
+which the JAX step on the CPU composes the same way); and the fused one with
+``use_motion_model_prediction`` on, where the motion model's prediction feeds
+the LK and matching gates, the LM start and a failed frame's pose, and the
+model's ``is_set`` flag must turn in the same frame in both packages.
 
 Discrete fields (ids, masks, counters, polygon vertex counts, cylinder cells)
 must be equal.  The pose is held to the reference's Monte-Carlo spread as in
@@ -36,9 +39,10 @@ torch.set_num_threads(2)
 N_FRAMES = 10
 
 
-def _cfg(tracked: int):
-    return dataclasses.replace(CFG, mapping=dataclasses.replace(
-        CFG.mapping, max_tracked_points=tracked))
+def _cfg(tracked: int, prediction: bool = False):
+    return dataclasses.replace(
+        CFG, mapping=dataclasses.replace(CFG.mapping, max_tracked_points=tracked),
+        engine=dataclasses.replace(CFG.engine, use_motion_model_prediction=prediction))
 
 
 @pytest.fixture(scope="module")
@@ -47,11 +51,12 @@ def frames():
     return [scene.render(q, p) for q, p in orbit_trajectory(N_FRAMES, speed_mm=6.0)]
 
 
-@pytest.fixture(scope="module", params=[64, 50], ids=["fused_lk", "forward_only_lk"])
+@pytest.fixture(scope="module", params=[(64, False), (50, False), (64, True)],
+                ids=["fused_lk", "forward_only_lk", "prediction"])
 def stepped(request, frames):
     """Both steps from each JAX input state: [(jax_state_in, jax (state, out),
     port (state, out))] per frame."""
-    cfg = _cfg(request.param)
+    cfg = _cfg(*request.param)
     t_cfg = _port_config(cfg)
     results = []
     j_state = j_engine.init_state(CAM, cfg, seed=0)
@@ -149,6 +154,13 @@ def test_next_state_matches_jax(stepped, frame):
         np.testing.assert_array_equal(getattr(t_np.points, f), _np(getattr(j_new.points, f)),
                                       err_msg=f"points.{f}")
     _assert_planes_close(t_new.planes, j_new.planes, t_out, j_out)
+    # the motion model: set in the same frame, velocities from poses that agree
+    # to the pose bound
+    np.testing.assert_array_equal(t_np.motion.is_set, _np(j_new.motion.is_set))
+    np.testing.assert_allclose(t_np.motion.linear_velocity,
+                               _np(j_new.motion.linear_velocity), atol=2e-2)
+    np.testing.assert_allclose(t_np.motion.angular_velocity,
+                               _np(j_new.motion.angular_velocity), atol=1e-5)
     # plane covariances: Kalman fusions of observation covariances rotated with
     # the frame's pose and carrying its position covariance (fused_cov_extra)
     alive = _np(j_new.planes.fid) >= 0

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no jax, and ``chip_smoke.py`` refuses to run
-without a CUDA card or without the package beside it."""
+"""The port stands alone: it imports no jax, and ``chip_smoke.py`` and
+``bench_torch.py`` refuse to run without a CUDA card (``chip_smoke.py`` also
+without the package beside it)."""
 
 import json
 import os
@@ -18,8 +19,9 @@ def _run(args, cwd, env=None):
 
 
 def _port_modules():
-    """Every module of the port, by its files: the package's, ``chip_smoke`` and
-    the example launcher."""
+    """Every module of the port, by its files: the package's, ``chip_smoke``,
+    ``bench_torch`` and the stage profiler it imports, and the example
+    launcher."""
     names = []
     package = os.path.join(ROOT, "rgbd_slam_tpu_torch")
     for folder, dirs, files in os.walk(package):
@@ -28,7 +30,8 @@ def _port_modules():
             if f.endswith(".py"):
                 rel = os.path.relpath(os.path.join(folder, f), ROOT)[:-3]
                 names.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
-    return names + ["chip_smoke", "examples/run_tum_torch.py"]
+    return names + ["chip_smoke", "bench_torch", "tools.profile_torch_step",
+                    "examples/run_tum_torch.py"]
 
 
 #: imports every module in one interpreter under a watch on the import system:
@@ -48,8 +51,9 @@ class Watch:
             frame = sys._getframe(1)
             while frame is not None:
                 who = frame.f_globals.get("__name__", "")
-                if who.startswith("rgbd_slam_tpu_torch") or who in ("chip_smoke",
-                                                                     "run_tum_torch"):
+                if who.startswith("rgbd_slam_tpu_torch") or who in (
+                        "chip_smoke", "bench_torch", "tools.profile_torch_step",
+                        "run_tum_torch"):
                     asked.setdefault(who, []).append(name)
                     break
                 frame = frame.f_back
@@ -104,6 +108,13 @@ def test_chip_smoke_fails_without_a_card():
                 env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_bench_torch_fails_without_a_card():
+    proc = _run(["bench_torch.py"], cwd=ROOT,
+                env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 1
+    assert proc.stdout == "" and "no CUDA device" in proc.stderr
 
 
 def test_chip_smoke_fails_without_the_package(tmp_path):

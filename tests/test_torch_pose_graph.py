@@ -151,6 +151,38 @@ def test_node_overflow_and_coexisting_edges_equal_jax():
     np.testing.assert_allclose(t_solved[2], j_solved[2], atol=1e-2)
 
 
+def test_default_capacity_overflow_equals_jax():
+    """A graph at the runner's capacities (64 nodes, 256 edges) past both: 80
+    keyframes of a drifting chain, BA windows that tie each keyframe to the next
+    four, so that the 64 live nodes carry more than 256 edges.  The 16 oldest
+    nodes and their edges go, the oldest surplus edges are dropped at the solve,
+    both counted as the JAX graph counts them, and the solves agree (the
+    tolerances of ``test_pose_graph_layer_matches_jax``)."""
+    n = 80
+    quats, positions = _gt_chain(n, seed=2)
+    rng = np.random.default_rng(11)
+    noise = rng.standard_normal((n, 3))
+    graphs = [m.PoseGraph(**kw) for m, kw in ((j_pg, {}), (pg, {"device": "cpu"}))]
+    assert (graphs[1].max_nodes, graphs[1].max_edges) == (64, 256)
+    for graph in graphs:
+        for i in range(n):
+            graph.add_keyframe(i, quats[i], positions[i] + noise[i] * 2.0 + 0.5 * i)
+        for stride in (1, 2, 3, 4):
+            for start in range(n - 8 * stride):
+                fids = [start + stride * j for j in range(8)]
+                graph.add_ba_window(fids, [(quats[f], positions[f]) for f in fids])
+    j_graph, t_graph = graphs
+    assert t_graph.dropped_nodes == j_graph.dropped_nodes == n - 64
+    assert t_graph.frame_ids == j_graph.frame_ids == list(range(n - 64, n))
+    assert list(t_graph.edges) == list(j_graph.edges) and len(t_graph.edges) > 256
+    j_fids, j_q, j_p = j_graph.solve(iterations=10)
+    t_fids, t_q, t_p = t_graph.solve(iterations=10)
+    assert t_graph.dropped_edges == j_graph.dropped_edges == len(j_graph.edges) - 256
+    assert t_fids == j_fids
+    np.testing.assert_allclose(t_q, j_q, atol=1e-5)
+    np.testing.assert_allclose(t_p, j_p, atol=1e-2)
+
+
 def test_edge_overflow_keeps_the_newest_and_counts():
     """7 chained nodes with room for 4 edges: the 2 oldest edges go and are
     counted.  The nodes they held are then tied to nothing, the normal matrix

@@ -142,7 +142,7 @@ def test_motion_model():
         q /= np.linalg.norm(q)
         p = rng.normal(0, 100, 3).astype(np.float32)
         j_state, jq, jp, _ = j_motion.predict_next_pose(j_state, q, p)
-        t_state, tq, tp = motion_model.predict_next_pose(t_state, _t(q), _t(p))
+        t_state, tq, tp, _ = motion_model.predict_next_pose(t_state, _t(q), _t(p))
         _close(tq, jq, atol=1e-6)
         _close(tp, jp)
         for a, b in zip(t_state, j_state):

@@ -128,6 +128,56 @@ class StageTimer:
         return timed
 
 
+#: prefix of the profiler ranges that ``StageRanges`` opens around a stage
+RANGE_PREFIX = "stage:"
+
+
+class StageRanges(StageTimer):
+    """Opens a ``torch.profiler.record_function`` range around the outermost
+    call of each stage function, with no sync and no clock: under
+    ``torch.profiler`` the kernels a stage launches are charged to it
+    (``device_breakdown``)."""
+
+    def _wrap(self, stage, fn):
+        def ranged(*args, **kw):
+            if self.active:
+                return fn(*args, **kw)
+            self.active = True
+            try:
+                with torch.profiler.record_function(RANGE_PREFIX + stage):
+                    return fn(*args, **kw)
+            finally:
+                self.active = False
+        return ranged
+
+
+def device_breakdown(prof, n_frames: int):
+    """Device time of a ``torch.profiler`` run over ``n_frames`` frames under
+    ``StageRanges``.  Returns (device µs a frame by stage, ``other`` for the
+    kernels launched outside every stage; device µs a frame in all; FLOPs a
+    frame that the profiler counts, which needs ``with_flops=True``; the names
+    of the ops whose FLOPs it counts)."""
+    stages = defaultdict(float)
+    total_us = flops = 0.0
+    flop_ops = set()
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            # a range also shows on the device's timeline: it is not a kernel
+            if not evt.name.startswith(RANGE_PREFIX):
+                total_us += evt.time_range.elapsed_us()
+            continue
+        if evt.name.startswith(RANGE_PREFIX):
+            under = getattr(evt, "device_time_total", None)
+            stages[evt.name[len(RANGE_PREFIX):]] += (
+                evt.cuda_time_total if under is None else under)
+        if evt.flops:
+            flops += evt.flops
+            flop_ops.add(evt.name)
+    per_frame = {k: v / n_frames for k, v in sorted(stages.items(), key=lambda kv: -kv[1])}
+    per_frame["other"] = (total_us - sum(stages.values())) / n_frames
+    return per_frame, total_us / n_frames, flops / n_frames, sorted(flop_ops)
+
+
 def _card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
