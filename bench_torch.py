@@ -12,13 +12,18 @@ exits 1 and prints no result.
 Legs (``bench.py``'s, in its order):
 
 1. throughput: RoomScene orbit frames (4 mm a frame, depth noise on) through
-   ``engine.step`` from a fresh state: the first 10 frames warm up, the rest
-   are timed on the host clock with one final ``torch.cuda.synchronize()``.
-2. stage breakdown: 4 frames of a second state (after 6 of warm-up) under
+   the step as one CUDA graph (``step_graph.StepGraph``, as ``run_frames``
+   runs it) from a fresh state: the first 10 frames warm up (the first records
+   the graph), the rest are timed on the host clock with one final
+   ``torch.cuda.synchronize()``.  The leg runs twice, each from a fresh state
+   and graph, and ``value`` is the first run; then 4 replays under
+   ``torch.profiler`` give the graph's kernels and device µs a frame, and the
+   device's busy share of a frame at the first run's rate.
+2. stage breakdown of the eager step (the stages cannot be told apart inside
+   a graph): 4 frames of a second state (after 6 of warm-up) under
    ``torch.profiler`` with ``with_flops=True``, each stage function of
    ``tools/profile_torch_step.py`` in a profiler range: device µs a frame by
-   stage, the device's busy share of a frame at the measured throughput, and
-   the FLOPs the profiler counts over 67 TFLOP/s (``chip_smoke.PEAK_F32_FLOPS``,
+   stage, and the FLOPs the profiler counts over 67 TFLOP/s (``chip_smoke.PEAK_F32_FLOPS``,
    f32 outside the tensor cores); ``utilization_flops_ops`` names the ops those
    FLOPs come from (the profiler counts matrix products, convolutions and a few
    elementwise ops, nothing else).
@@ -32,7 +37,7 @@ Legs (``bench.py``'s, in its order):
 5. roll: the RoomScene on ``roll_trajectory`` over ``bench.py``'s 120-frame
    period (the first ``ate_frames`` frames of it), ``ba_every=8``.
 6. lines: planes and lines on over the first ``lines_frames`` room frames: the
-   runner's ATE, then the step loop's frames/s as in leg 1.
+   runner's ATE, then the graph step loop's frames/s as in leg 1.
 7. low-texture lines: ``StripeWallScene(texture_scale=0.03,
    stripe_period_z=2400.0)`` on a lateral run, planes off, lines on and off,
    seeds 0-4 (the JAX reference spreads 3.7x over seeds): median and per seed.
@@ -58,8 +63,8 @@ import time
 import numpy as np
 import torch
 
-from rgbd_slam_tpu_torch import config, engine, runner, synthetic
-from rgbd_slam_tpu_torch.ops import lk_cuda
+from rgbd_slam_tpu_torch import config, engine, runner, step_graph, synthetic
+from rgbd_slam_tpu_torch.ops import components_cuda, lk_cuda
 from rgbd_slam_tpu_torch.synthetic import _quat_from_euler
 
 #: (ate_frames, hard_frames, lines_frames, tunnel_frames): the default, and
@@ -130,17 +135,41 @@ def _ate(traj, gt):
 
 
 def step_loop_fps(frames, cam, cfg, device, with_lines=False):
-    """Frames/s of the bare step loop past ``WARMUP_FRAMES``: host clock, one
-    device sync at the end.  Returns (fps, the last output)."""
-    state = engine.init_state(cam, cfg, seed=0, device=device)
-    for gray, depth in frames[:WARMUP_FRAMES]:
-        state, out = engine.step(state, gray, depth, cam, cfg, with_lines=with_lines)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for gray, depth in frames[WARMUP_FRAMES:]:
-        state, out = engine.step(state, gray, depth, cam, cfg, with_lines=with_lines)
-    torch.cuda.synchronize()
-    return (len(frames) - WARMUP_FRAMES) / (time.perf_counter() - t0), out
+    """Frames/s of the bare loop of the graph step past ``WARMUP_FRAMES``: host
+    clock, one device sync at the end.  Returns (fps, the last output, copied
+    out of the graph's buffers)."""
+    graph = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=device), cam,
+                                 cfg, with_lines=with_lines)
+    try:
+        for gray, depth in frames[:WARMUP_FRAMES]:
+            graph.step(gray, depth)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for gray, depth in frames[WARMUP_FRAMES:]:
+            _, out = graph.step(gray, depth)
+        torch.cuda.synchronize()
+        fps = (len(frames) - WARMUP_FRAMES) / (time.perf_counter() - t0)
+        return fps, step_graph.clone_tree(out)
+    finally:
+        graph.close()
+
+
+def graph_device_profile(frames, cam, cfg, device):
+    """Kernels and device µs a frame of the graph step: ``PROFILED_FRAMES``
+    replays under ``torch.profiler`` after ``PROFILE_WARMUP`` frames
+    (``chip_smoke.profile_replays``)."""
+    from chip_smoke import profile_replays
+
+    graph = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=device), cam,
+                                 cfg)
+    try:
+        for gray, depth in frames[:PROFILE_WARMUP]:
+            graph.step(gray, depth)
+        torch.cuda.synchronize()
+        got = profile_replays(graph, frames[PROFILE_WARMUP:PROFILE_WARMUP + PROFILED_FRAMES])
+    finally:
+        graph.close()
+    return got["kernels_per_frame"], got["device_us_per_frame"]
 
 
 def stage_breakdown(frames, cam, cfg, device):
@@ -194,17 +223,22 @@ def main() -> int:
     cfg_pred = dataclasses.replace(cfg, engine=dataclasses.replace(
         cfg.engine, use_motion_model_prediction=True))
     lk_cuda.reset_launches()
+    components_cuda.reset_launches()
     t_start = time.perf_counter()
 
     frames_np, gt = room_orbit(cam, n_ate)
     frames = runner.stage_frames(frames_np, device=device)
     t0 = time.perf_counter()
     fps, last = step_loop_fps(frames, cam, cfg, device)
+    fps_again, _ = step_loop_fps(frames, cam, cfg, device)
     final_err = float(torch.linalg.vector_norm(
         last.position.double().cpu() - torch.as_tensor(gt[-1])))
-    stages, device_us, flops, flop_ops = stage_breakdown(frames, cam, cfg, device)
+    graph_kernels, device_us = graph_device_profile(frames, cam, cfg, device)
+    stages, eager_device_us, flops, flop_ops = stage_breakdown(frames, cam, cfg, device)
     wall_us = 1e6 / fps
-    _say("throughput", fps=fps, device_us_per_frame=device_us, stage_us=stages,
+    _say("throughput", fps=fps, fps_second_run=fps_again, device_us_per_frame=device_us,
+         kernels_per_frame=graph_kernels, device_busy_fraction=device_us / wall_us,
+         eager_device_us_per_frame=eager_device_us, eager_stage_us=stages,
          leg_s=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
@@ -275,10 +309,13 @@ def main() -> int:
         "value": fps,
         "unit": "fps@640x480",
         "vs_baseline": fps / 400.0,
+        "value_second_run": fps_again,
         "stage_us_per_frame": stages,
         "device_us_per_frame": device_us,
+        "kernels_per_frame": graph_kernels,
+        "eager_device_us_per_frame": eager_device_us,
         "device_busy_fraction": device_us / wall_us,
-        "device_utilization_vs_peak": flops / (device_us * 1e-6) / PEAK_F32_FLOPS,
+        "device_utilization_vs_peak": flops / (eager_device_us * 1e-6) / PEAK_F32_FLOPS,
         "utilization_flops_ops": flop_ops,
         "utilization_peak_flops": PEAK_F32_FLOPS,
         "step_ms_batch_median": float(np.median(batch_ms)),
@@ -318,6 +355,7 @@ def main() -> int:
         "ba_runs": stats.ba_runs,
         "ba_accepted": stats.ba_accepted,
         "lk_launches": dict(lk_cuda.LAUNCHES),
+        "components_launches": dict(components_cuda.LAUNCHES),
         "card": card,
         "torch": torch.__version__,
         "total_s": time.perf_counter() - t_start,

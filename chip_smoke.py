@@ -7,9 +7,10 @@ Phases, one line of output each (any failure raises, so the last line, the
 
 1. device: a CUDA card must be present (no CPU run); prints
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. build: compiles the LK kernels (``rgbd_slam_tpu_torch/csrc/lk.cu``) with nvcc
-   from the sources in this checkout; prints the seconds and what ptxas says of
-   each kernel's registers and spills.
+2. build: compiles the LK kernels (``rgbd_slam_tpu_torch/csrc/lk.cu``) and the
+   components kernel (``csrc/components.cu``) with nvcc from the sources in
+   this checkout, one ``nvcc`` a source, started together; prints the seconds
+   and what ptxas says of each kernel's registers and spills.
 3. kernels, each against its plain PyTorch version on the card, on a 640x480
    RoomScene frame pair with the default windows and levels:
    * fused forward-backward LK, 128 FAST points;
@@ -29,7 +30,17 @@ Phases, one line of output each (any failure raises, so the last line, the
    the tensor cores) or bytes over 3.35 TB/s, whichever is larger; both counts
    are upper ones (every sample charged its own taps, whole pyramids), so the
    share of the bound a kernel reaches is an upper estimate.  No PyTorch call
-   computes pyramidal LK, so ``library_ms`` is null.
+   computes pyramidal LK, so ``library_ms`` is null.  Then the components
+   kernel (the plane extraction's connected components, no Pallas port)
+   against its plain version on the cell graph of a 640x480 RoomScene depth
+   map, a serpentine one-cell-wide component and the grid in one component:
+   labels equal; timed on the first (see ``check_components``).
+   graph: the plane step over 30 staged frames eagerly and as one CUDA graph
+   (``StepGraph``): poses and final states equal to the bit, ms a frame of
+   both, the warm-up and capture time, 4 replays under the profiler (kernels
+   and device time a frame; the launch counts must be what the profiler
+   saw), and ``run_frames`` over the frames under ``set_sync_debug_mode``:
+   every host sync must be the runner's summary read (``run_graph_phase``).
 4. plane path: ``runner.run_frames`` over 60 RoomScene orbit frames at 640x480,
    default ``SlamConfig``, planes on (the default step), seed 0; checks one
    fused-kernel launch per frame, no more failed or lost frames than the JAX
@@ -87,9 +98,15 @@ Phases, one line of output each (any failure raises, so the last line, the
 14. the kernels' JSON line (launches summed over all paths), the card line
     again, and the result line.
 
-``run_frames`` reads the frames' summaries in batches of 8, so the per-frame
-times a path prints are means over a batch; ``fps_from_frame_10`` leaves out
-frame 0 and the first batch, which hold the warm-up.
+Every path runs through ``runner.run_frames``, which on the card records the
+step as one CUDA graph at its first frame (one eager warm-up step, whose
+launches count: each path expects its launches a frame times its frames plus
+``RunStats.warmup_steps``) and replays it for every frame; no path may read
+the components fixpoint on the host.  ``run_frames`` reads the frames'
+summaries in batches of 8, so the per-frame times a path prints are means over
+a batch; ``fps_from_frame_10`` leaves out frame 0 and the first batch, which
+hold the recording.  The last phase before the JSON lines prints the
+script's wall time.
 
 The JAX references come from ``rgbd_slam_tpu.runner.run_frames`` on the same
 frames with seeds 0, 1 and 2 (0-4 for the low-texture path, whose seeds spread
@@ -104,7 +121,10 @@ is held to 1.5 x the worst JAX seed.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import inspect
 import json
+import math
 import os
 import re
 import statistics
@@ -113,7 +133,11 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 import zlib
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -121,11 +145,12 @@ import torch
 import torch.distributed as dist
 
 from bench_torch import hard_orbit, room_roll, tunnel_flight
-from rgbd_slam_tpu_torch import config, dryrun, engine, runner, synthetic
+from rgbd_slam_tpu_torch import config, dryrun, engine, runner, step_graph, synthetic
 from rgbd_slam_tpu_torch.features import primitives
 from rgbd_slam_tpu_torch.io import checkpoint
 from rgbd_slam_tpu_torch.io.trajectory import ate_rmse
-from rgbd_slam_tpu_torch.ops import fast, image, lk_cuda
+from rgbd_slam_tpu_torch.ops import components_cuda, fast, image, lk_cuda
+from rgbd_slam_tpu_torch.ops.depth_cloud import depth_to_cloud
 from rgbd_slam_tpu_torch.parallel.pose_graph import _np_quat_rotate
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -187,12 +212,23 @@ BENCH_LEG_PATHS = {
 SHORT_RUN_FRAMES = 30
 #: the ``tum_cli`` rig: the depth camera sits this far along the RGB camera's x
 RIG_BASELINE_MM = 25.0
-#: one fused forward-backward launch a frame: every path but the forward-only one
-FUSED_ONLY = {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0}
-#: the Pallas kernel each CUDA kernel replaces
+#: one fused forward-backward launch a frame (every path but the forward-only
+#: one) and one components launch a frame with planes on
+FUSED_ONLY = {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0, "components": 1}
+#: the Pallas kernel each CUDA kernel replaces; the components kernel replaces
+#: the JAX step's components lax.while_loop, no Pallas kernel
 REPLACES = {"lk_fwd_bwd": "rgbd_slam_tpu/ops/pallas_lk.py:408",
             "lk_pyramid": "rgbd_slam_tpu/ops/pallas_lk.py:472",
-            "lk_level": "rgbd_slam_tpu/ops/pallas_lk.py:514"}
+            "lk_level": "rgbd_slam_tpu/ops/pallas_lk.py:514",
+            "components": "rgbd_slam_tpu/features/primitives.py:267"}
+SOURCES = {"lk_fwd_bwd": "rgbd_slam_tpu_torch/csrc/lk.cu",
+           "lk_pyramid": "rgbd_slam_tpu_torch/csrc/lk.cu",
+           "lk_level": "rgbd_slam_tpu_torch/csrc/lk.cu",
+           "components": "rgbd_slam_tpu_torch/csrc/components.cu"}
+#: plane frames the graph phase runs eagerly and as a CUDA graph, and the
+#: replays it profiles
+GRAPH_FRAMES = 30
+PROFILED_REPLAYS = 4
 
 
 def _say(phase: str, **fields):
@@ -269,7 +305,7 @@ def ptxas_usage(log: str):
     for name, body in re.findall(
             r"Function properties for (\w+)\n(.*?)(?=ptxas info\s*: Compiling|\Z)", log,
             flags=re.S):
-        kernel = re.search(r"lk_\w+_kernel", name)
+        kernel = re.search(r"(?:lk_\w+|components)_kernel", name)
         regs = re.search(r"Used (\d+) registers", body)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         if kernel and regs and spills:
@@ -277,6 +313,15 @@ def ptxas_usage(log: str):
                                       "spill_store_bytes": int(spills.group(1)),
                                       "spill_load_bytes": int(spills.group(2))}
     return usage
+
+
+def reset_launches():
+    lk_cuda.reset_launches()
+    components_cuda.reset_launches()
+
+
+def launch_counts() -> dict:
+    return {**lk_cuda.LAUNCHES, **components_cuda.LAUNCHES}
 
 
 def _room_pair(cam, device):
@@ -435,10 +480,211 @@ def check_kernels(cam, cfg, device):
     return results
 
 
+def components_cases(cam, cfg, device):
+    """(name, edges, planar, gh, gw) of the components kernel's checks: the
+    cell graph ``find_primitives`` builds from a 640x480 RoomScene depth map
+    (the main path's input), a serpentine one-cell-wide component through the
+    same grid (the longest chain) and the grid in one component."""
+    det = cfg.detection
+    depth = torch.as_tensor(room_frames(cam, 1)[0][0][1], device=device)
+    gh, gw = cam.height // det.depth_patch_size_px, cam.width // det.depth_patch_size_px
+    cloud, valid = depth_to_cloud(depth, cam)
+    grid = primitives.fit_cells(cloud, valid, det)
+    edges = primitives._edge_maps(grid, gh, gw,
+                                  math.cos(math.radians(det.max_plane_merge_angle_d)))
+    snake = np.zeros((4, gh, gw), bool)
+    snake[0, :, 1:] = True
+    for y in range(gh - 1):
+        snake[2, y + 1, gw - 1 if y % 2 == 0 else 0] = True
+    ones = torch.ones(gh * gw, dtype=torch.bool, device=device)
+    return [("room_frame", edges.contiguous(), grid.planar.contiguous(), gh, gw),
+            ("serpentine", torch.as_tensor(snake, device=device), ones, gh, gw),
+            ("one_component", torch.ones((4, gh, gw), dtype=torch.bool, device=device), ones,
+             gh, gw)]
+
+
+def check_components(cam, cfg, device):
+    """The components kernel against its plain version (labels must be equal)
+    on each case; the main path's case is then timed as the LK kernels are.
+    The bound counts bytes (edges and planar mask read once, int64 labels
+    written once) over 3.35 TB/s and 12 integer operations a planar cell a
+    round of the JAX loop, these inputs' rounds, over 67 T/s (the card's rate
+    outside the tensor cores; the published table gives no int32 rate).  No
+    PyTorch call computes connected components: ``library_ms`` is null."""
+    result = None
+    for name, edges, planar, gh, gw in components_cases(cam, cfg, device):
+        got = components_cuda.connected_components(edges, planar, gh, gw)
+        torch.cuda.synchronize()
+        want = components_cuda.components_reference(edges, planar, gh, gw)
+        differ = int((got != want).sum())
+        work = components_cuda.components_work(edges, planar, gh, gw)
+        fields = dict(name=name, grid=f"{gw}x{gh}", planar_cells=work["planar_cells"],
+                      components=int(torch.unique(want[planar]).numel()),
+                      jax_loop_rounds=work["rounds"], labels_that_differ=differ)
+        if differ:
+            _say("kernel", **fields)
+            raise RuntimeError(f"components kernel disagrees with its plain version on {name}")
+        if result is None:
+            by_ops = work["ops"] / PEAK_F32_FLOPS * 1e3
+            by_bytes = work["bytes"] / PEAK_BYTES_PER_S * 1e3
+            result = dict(
+                max_abs_err=0.0,
+                ms=_median_ms(lambda: components_cuda.connected_components(edges, planar, gh,
+                                                                           gw)),
+                plain_ms=_median_ms(lambda: components_cuda.components_reference(
+                    edges, planar, gh, gw)),
+                device_us=graph_launch_us(
+                    lambda: components_cuda.connected_components(edges, planar, gh, gw)),
+                bound_ms=max(by_ops, by_bytes),
+                bound_by="operations" if by_ops >= by_bytes else "bytes", library_ms=None)
+            fields.update(bytes=work["bytes"], int_ops=work["ops"],
+                          **{k: result[k] for k in ("ms", "plain_ms", "device_us", "bound_ms",
+                                                    "bound_by")})
+        _say("kernel", **fields)
+    return result
+
+
+def host_sync_sites(fn):
+    """{``file:line`` of the innermost frame of the package: count} of the host
+    syncs ``fn()`` makes, by ``torch.cuda.set_sync_debug_mode("warn")``; a sync
+    with no frame of the package on the stack counts as ``"elsewhere"``."""
+    package = str(Path(runner.__file__).parent)
+    sites = {}
+    inside = [False]
+
+    def record(message, *_args, **_kw):
+        # a warning the mode's own switch raises is not ``fn``'s
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack() if f.filename.startswith(package)]
+        where = f"{Path(ours[-1].filename).name}:{ours[-1].lineno}" if ours else "elsewhere"
+        sites[where] = sites.get(where, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside[0] = True
+            fn()
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def _source_line(fn, text: str) -> str:
+    """``file:line`` of the line of ``fn``'s source that holds ``text``."""
+    lines, first = inspect.getsourcelines(fn)
+    for k, line in enumerate(lines):
+        if text in line:
+            return f"{Path(inspect.getsourcefile(fn)).name}:{first + k}"
+    raise RuntimeError(f"no line with {text!r} in {fn.__name__}")
+
+
+def _bit_equal(a, b) -> bool:
+    return all(torch.equal(x.contiguous().view(-1).view(torch.uint8),
+                           y.contiguous().view(-1).view(torch.uint8))
+               for x, y in zip(step_graph.tensor_leaves(a), step_graph.tensor_leaves(b),
+                               strict=True))
+
+
+def profile_replays(graph, frames):
+    """``graph.step`` over ``frames`` under ``torch.profiler``: kernels and
+    device µs a frame, and each kernel's launches as the profiler saw them
+    beside the launch counts the wrappers kept (the graph adds what it
+    recorded on each replay)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for gray, depth in frames:
+            graph.step(gray, depth)
+        torch.cuda.synchronize()
+    counted = {k: v - before[k] for k, v in launch_counts().items()}
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seen = {k: sum(e.name.startswith(k + "_kernel") for e in on_card) for k in counted}
+    return dict(kernels_per_frame=len(on_card) / len(frames),
+                device_us_per_frame=sum(e.time_range.elapsed_us() for e in on_card)
+                / len(frames), launches_counted=counted, launches_profiled=seen)
+
+
+def run_graph_phase(cam, cfg, device, frames, card):
+    """The plane step over the first ``GRAPH_FRAMES`` frames, staged on the
+    card: eagerly (``engine.step`` in a loop) and as one CUDA graph
+    (``StepGraph``), with equal poses and final states to the bit; ms a frame
+    of both past frame 0 (host clock, one sync at the end) and the graph's
+    warm-up and capture time; ``PROFILED_REPLAYS`` replays under the profiler
+    (kernels and device µs a frame, the busy share; the kernels' launches as
+    the profiler sees them must equal the wrappers' counts); then
+    ``run_frames`` over the same frames under ``set_sync_debug_mode``: every
+    host sync must be the runner's summary read or the recording's.  Returns
+    the frames/s of both."""
+    staged = runner.stage_frames(frames[:GRAPH_FRAMES], device=device)
+
+    def timed(step):
+        poses = []
+        for i, (gray, depth) in enumerate(staged):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, out = step(gray, depth)
+            poses.append(torch.cat([out.position, out.quat]))
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (len(staged) - 1), torch.stack(poses), state
+
+    eager = step_graph.EagerStep(engine.init_state(cam, cfg, seed=SEED, device=device), cam,
+                                 cfg)
+    eager_ms, eager_poses, eager_final = timed(eager.step)
+    graph = step_graph.StepGraph(engine.init_state(cam, cfg, seed=SEED, device=device), cam,
+                                 cfg)
+    try:
+        graph_ms, graph_poses, graph_final = timed(graph.step)
+        states_equal = _bit_equal(graph_final, eager_final)
+        replays = profile_replays(graph, staged[:PROFILED_REPLAYS])
+    finally:
+        graph.close()
+    poses_equal = torch.equal(eager_poses, graph_poses)
+
+    primitives.FIXPOINT_READS["components"] = 0
+    gc.collect()   # no garbage of the runs above may be freed inside the watch
+    torch.cuda.synchronize()
+    sites = host_sync_sites(lambda: runner.run_frames(staged, cam, cfg, seed=SEED,
+                                                      device=device))
+    summary_read = _source_line(runner.run_frames, "for p in pending]).cpu()")
+    recording = {k: v for k, v in sites.items() if k.startswith("step_graph.py")}
+    others = {k: v for k, v in sites.items() if k != summary_read and k not in recording}
+    syncs = sites.get(summary_read, 0)
+    _say("graph", card=card, frames=len(staged), eager_ms_per_frame=eager_ms,
+         graph_ms_per_frame=graph_ms, eager_fps=1e3 / eager_ms, graph_fps=1e3 / graph_ms,
+         device_busy_share=replays["device_us_per_frame"] / (1e3 * graph_ms), **replays,
+         warmup_and_capture_s=graph.record_s, poses_equal_to_the_bit=poses_equal,
+         final_states_equal_to_the_bit=states_equal,
+         summary_read_syncs_per_frame=syncs / len(staged), summary_read_site=summary_read,
+         recording_syncs=recording, other_host_syncs=others,
+         fixpoint_reads=primitives.FIXPOINT_READS["components"])
+    problems = []
+    if not (poses_equal and states_equal):
+        problems.append("the graph's poses or state differ from the eager step's")
+    if replays["launches_counted"] != replays["launches_profiled"] \
+            or replays["launches_counted"]["lk_fwd_bwd"] != PROFILED_REPLAYS:
+        problems.append(f"launches counted {replays['launches_counted']}, profiled "
+                        f"{replays['launches_profiled']} over {PROFILED_REPLAYS} replays")
+    if others or primitives.FIXPOINT_READS["components"]:
+        problems.append(f"host syncs outside the summary read: {others}, fixpoint reads "
+                        f"{primitives.FIXPOINT_READS['components']}")
+    if problems:
+        raise RuntimeError("graph phase: " + "; ".join(problems))
+    return 1e3 / eager_ms, 1e3 / graph_ms
+
+
 def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=True,
              with_lines=False, ba_every=None, reference=None):
     """Drive ``runner.run_frames`` over ``frames`` with the launch counts set to 0
-    just before; check the launches per frame, failed/lost frames and the ATE
+    just before; check the launches per frame (the step's CUDA graph replays one
+    launch a frame and its warm-up step launches once more), no components
+    fixpoint read on the host, failed/lost frames and the ATE
     against the path's JAX reference (``reference=None``: print only), lines
     alive and matched when lines are on, and the backend's counts when it is.
     Returns (launch counts, ATE, RunStats)."""
@@ -450,12 +696,12 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
         line_matches.append(out.n_line_matches)
         cylinders.append(out.n_cylinders)
 
-    lk_cuda.reset_launches()
+    reset_launches()
     primitives.FIXPOINT_READS["components"] = 0
     state, traj, stats = runner.run_frames(
         frames, cam, cfg, with_planes=with_planes, with_lines=with_lines,
         ba_every=ba_every, seed=SEED, device=device, on_frame=on_frame)
-    launches = dict(lk_cuda.LAUNCHES)
+    launches = launch_counts()
     fixpoint_reads = primitives.FIXPOINT_READS["components"]
 
     ate = runner.evaluate_against_ground_truth(traj, gt)["ate_rmse_mm"]
@@ -466,7 +712,8 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
     frames_with_cylinders = int((torch.stack(cylinders) > 0).sum())
     steady_ms = np.array(step_s[1 + runner.SUMMARY_BATCH:]) * 1e3   # past the warm-up
     fields = dict(
-        frames=stats.frame_count, launches=launches, failed=failed, lost=stats.lost_count,
+        frames=stats.frame_count, warmup_steps=stats.warmup_steps, launches=launches,
+        failed=failed, lost=stats.lost_count,
         ate_rmse_mm=ate, ate_bound_mm=ATE_MARGIN * ref["worst_ate_mm"] if ref else None,
         fps_from_frame_10=1e3 * len(steady_ms) / steady_ms.sum(),
         step_ms_median=float(np.median(steady_ms)),
@@ -493,9 +740,14 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
             backend_readbacks=stats.backend_readbacks)
     _say(name, **fields)
     problems = []
-    want = {k: v * stats.frame_count for k, v in expect_launches.items()}
+    if not with_planes:
+        expect_launches = {**expect_launches, "components": 0}
+    want = {k: v * (stats.frame_count + stats.warmup_steps)
+            for k, v in expect_launches.items()}
     if launches != want:
         problems.append(f"launches {launches}, expected {want}")
+    if fixpoint_reads:
+        problems.append(f"{fixpoint_reads} components fixpoint reads on the host")
     if not np.isfinite(traj.positions_array()).all() \
             or not np.isfinite(np.array(traj.quaternions)).all():
         problems.append("a pose is not finite")
@@ -622,7 +874,8 @@ def run_tum_cli(cam, frames, poses, gt):
             map_lines = f.read().splitlines()
         with open(report_path) as f:
             report = json.load(f)
-    stats, launches = report["stats"], report["lk_launches"]
+    stats = report["stats"]
+    launches = {**report["lk_launches"], **report["components_launches"]}
     ate_file = ate_rmse(traj[:, 1:4], gt)
     vertices = sum(ln.startswith("v ") for ln in map_lines)
     features = sum(ln.startswith(("p ", "l ", "f ")) for ln in map_lines)
@@ -650,7 +903,7 @@ def run_tum_cli(cam, frames, poses, gt):
         problems.append(f"ATE {ate_file} mm over the bound")
     if failed > ref["failed"] or stats["lost_count"] > ref["lost"]:
         problems.append(f"failed/lost {failed}/{stats['lost_count']}")
-    if launches != {k: v * n for k, v in FUSED_ONLY.items()}:
+    if launches != {k: v * (n + stats["warmup_steps"]) for k, v in FUSED_ONLY.items()}:
         problems.append(f"launches {launches}")
     for key in ("ba_runs", "ba_accepted"):
         if stats[key] < ref[key]:
@@ -669,13 +922,14 @@ def run_checkpoint(cam, cfg, device, frames):
     last bit.  Returns the launch counts."""
     n, half = len(frames), len(frames) // 2
     timed = [(g, d, float(i)) for i, (g, d) in enumerate(frames)]
-    lk_cuda.reset_launches()
+    reset_launches()
     torch.use_deterministic_algorithms(True)
     try:
         with tempfile.TemporaryDirectory() as work:
-            straight, traj_a, _ = runner.run_frames(timed, cam, cfg, seed=SEED, device=device)
-            first, traj_b, _ = runner.run_frames(timed[:half], cam, cfg, seed=SEED,
-                                                 device=device)
+            straight, traj_a, stats_a = runner.run_frames(timed, cam, cfg, seed=SEED,
+                                                          device=device)
+            first, traj_b, stats_b = runner.run_frames(timed[:half], cam, cfg, seed=SEED,
+                                                       device=device)
             path = os.path.join(work, "state.npz")
             t0 = time.perf_counter()
             checkpoint.save_state(first, path)
@@ -685,8 +939,8 @@ def run_checkpoint(cam, cfg, device, frames):
             t0 = time.perf_counter()
             loaded = checkpoint.load_state(path, template)
             load_s = time.perf_counter() - t0
-            resumed, traj_c, _ = runner.run_frames(timed[half:], cam, cfg, state=loaded,
-                                                   device=device)
+            resumed, traj_c, stats_c = runner.run_frames(timed[half:], cam, cfg,
+                                                         state=loaded, device=device)
             finals = []
             for name, state in (("straight", straight), ("resumed", resumed)):
                 checkpoint.save_state(state, os.path.join(work, name + ".npz"))
@@ -694,7 +948,8 @@ def run_checkpoint(cam, cfg, device, frames):
                     finals.append({k: data[k] for k in data.files})
     finally:
         torch.use_deterministic_algorithms(False)
-    launches = dict(lk_cuda.LAUNCHES)
+    launches = launch_counts()
+    warmups = stats_a.warmup_steps + stats_b.warmup_steps + stats_c.warmup_steps
     a = np.concatenate([traj_a.positions_array(), np.array(traj_a.quaternions)], axis=1)
     b = np.concatenate([np.concatenate([traj_b.positions_array(), traj_c.positions_array()]),
                         np.array(traj_b.quaternions + traj_c.quaternions)], axis=1)
@@ -707,7 +962,7 @@ def run_checkpoint(cam, cfg, device, frames):
     if not np.array_equal(a, b) or leaves_differ or finals[0].keys() != finals[1].keys():
         raise RuntimeError("checkpoint: the resumed run differs from the straight run: max "
                            f"|d pose| {np.abs(a - b).max()}, leaves {leaves_differ}")
-    if launches != {k: v * 2 * n for k, v in FUSED_ONLY.items()}:
+    if launches != {k: v * (2 * n + warmups) for k, v in FUSED_ONLY.items()}:
         raise RuntimeError(f"checkpoint: launches {launches}")
     return launches
 
@@ -721,13 +976,13 @@ def _sharded_backend_rank(rank, world_size, init_method, out_path, n_frames):
         frames, gt = [], None
         if rank == 0:
             frames, gt = room_frames(cam, n_frames)
-        lk_cuda.reset_launches()
+        reset_launches()
         _, traj, stats = runner.run_frames(frames, cam, cfg, seed=SEED, ba_every=8,
                                            ba_mesh=dist.group.WORLD, device="cuda")
         if rank == 0:
             report = dataclasses.asdict(stats)
             report.update(ate_rmse_mm=runner.evaluate_against_ground_truth(
-                traj, gt)["ate_rmse_mm"], launches=dict(lk_cuda.LAUNCHES))
+                traj, gt)["ate_rmse_mm"], launches=launch_counts())
             with open(out_path, "w") as f:
                 json.dump(report, f)
         else:
@@ -777,7 +1032,8 @@ def run_sharded_ba(one_device_stats, one_device_ate, n_frames):
         problems.append(f"rank 1 served {served} of {got['ba_runs']} refines")
     if not got["ate_rmse_mm"] <= ATE_MARGIN * ref["worst_ate_mm"]:
         problems.append(f"ATE {got['ate_rmse_mm']} mm over the bound")
-    if got["launches"] != {k: v * n_frames for k, v in FUSED_ONLY.items()}:
+    if got["launches"] != {k: v * (n_frames + got["warmup_steps"])
+                           for k, v in FUSED_ONLY.items()}:
         problems.append(f"launches {got['launches']}")
     if problems:
         raise RuntimeError("sharded_ba: " + "; ".join(problems))
@@ -794,6 +1050,7 @@ def room_frames(cam, n):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
               file=sys.stderr)
@@ -802,16 +1059,23 @@ def main() -> int:
     card = _card_line()
     _say("device", card=card, torch=torch.__version__, cuda=torch.version.cuda)
 
-    _say("build", source="csrc/lk.cu", nvcc_s=lk_cuda.build())
-    for kernel, usage in ptxas_usage(lk_cuda.BUILD_LOG).items():
-        _say("ptxas", kernel=kernel, **usage)
+    # one nvcc a source, started together
+    with ThreadPoolExecutor(2) as pool:
+        builds = {"csrc/lk.cu": pool.submit(lk_cuda.build),
+                  "csrc/components.cu": pool.submit(components_cuda.build)}
+        _say("build", **{src: f"{job.result():.1f} s" for src, job in builds.items()})
+    for log in (lk_cuda.BUILD_LOG, components_cuda.BUILD_LOG):
+        for kernel, usage in ptxas_usage(log).items():
+            _say("ptxas", kernel=kernel, **usage)
 
     cam = config.TUM_FR1
     cfg = config.SlamConfig()
     kernels = check_kernels(cam, cfg, device)
+    kernels["components"] = check_components(cam, cfg, device)
 
     poses = synthetic.orbit_trajectory(JAX_REFERENCE["planes"]["frames"], speed_mm=4.0)
     frames, gt = room_frames(cam, len(poses))
+    run_graph_phase(cam, cfg, device, frames, card)
     cfg_fwd = dataclasses.replace(cfg, mapping=dataclasses.replace(
         cfg.mapping, max_tracked_points=FORWARD_ONLY_TRACKED))
     n_fwd = JAX_REFERENCE["forward_only"]["frames"]
@@ -819,7 +1083,8 @@ def main() -> int:
     paths = [
         run_path("planes", cam, cfg, device, frames, gt, FUSED_ONLY, reference="planes"),
         run_path("forward_only", cam, cfg_fwd, device, frames[:n_fwd], gt[:n_fwd],
-                 {"lk_fwd_bwd": 0, "lk_pyramid": 2, "lk_level": 0}, reference="forward_only"),
+                 {"lk_fwd_bwd": 0, "lk_pyramid": 2, "lk_level": 0, "components": 1},
+                 reference="forward_only"),
         run_path("points", cam, cfg, device, frames[:n_pts], gt[:n_pts], FUSED_ONLY,
                  with_planes=False, reference="points"),
     ]
@@ -859,8 +1124,9 @@ def main() -> int:
     counts.append(run_sharded_ba(ba_short[0][2], ba_short[0][1], n_short))
     launches = {name: sum(c[name] for c in counts) for name in kernels}
 
+    _say("wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": "rgbd_slam_tpu_torch/csrc/lk.cu",
+        {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name], **measured}
         for name, measured in kernels.items()]}))
     print(card)

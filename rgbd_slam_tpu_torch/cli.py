@@ -13,7 +13,7 @@ trajectory and the map went.  Runs on the card unless ``--device`` says
 otherwise, and raises without one.
 
 With ``RGBD_SLAM_RUN_REPORT=FILE`` in the environment the run's ``RunStats`` and
-the LK kernels' launch counts are also written to FILE as one JSON object, for
+the CUDA kernels' launch counts are also written to FILE as one JSON object, for
 a caller that starts this as a subprocess.
 """
 
@@ -32,7 +32,7 @@ from .config import TUM_FR1, CameraIntrinsics, SlamConfig, load_camera_yaml
 from .io import datasets
 from .io.map_writer import export_slam_map
 from .io.trajectory import ate_rmse
-from .ops import lk_cuda
+from .ops import components_cuda, lk_cuda
 
 CAMERAS = {
     "tum_fr1": TUM_FR1,
@@ -136,7 +136,8 @@ def main(argv=None) -> int:
     if report:
         with open(report, "w") as f:
             json.dump({"stats": dataclasses.asdict(stats),
-                       "lk_launches": dict(lk_cuda.LAUNCHES)}, f)
+                       "lk_launches": dict(lk_cuda.LAUNCHES),
+                       "components_launches": dict(components_cuda.LAUNCHES)}, f)
     return 0
 
 

@@ -13,16 +13,23 @@ its per-endpoint Kalman update, lifecycle and insertion.
 
 Differences from the JAX step that do not change its results:
 
-* ``lax.cond`` on the detection flag is a Python branch: one ``.item()`` host
-  sync per frame decides both the detection and the matching branch.  The
-  plane extraction's components fixpoint adds one host read per
-  ``primitives.CC_CHUNK`` iterations.
+* ``lax.cond`` on the detection flag: the flag stays a tensor on the device,
+  and the detection and matching branches both run on every frame; their
+  outputs are selected with ``torch.where`` against the skip branches'
+  constants (JAX's ``skip_branch`` and ``no_match_branch``).  Neither branch
+  draws a random number, so the selected values are the branch's.
+* the plane extraction's components ``lax.while_loop`` is one CUDA kernel on
+  the card (``ops.components_cuda``); on the CPU its plain version reads the
+  host once per ``ops.components_cuda.CC_CHUNK`` rounds.  On the card the step
+  reads the host nowhere, so ``step_graph.StepGraph`` records it as one CUDA
+  graph, the counterpart of ``jax.jit(step)``.
 * ``.at[i].set(..., mode="drop")`` is :func:`_scatter_set`: out-of-range rows go
   to a sink row, and among duplicate indices the last write wins, which is what
   XLA's serial scatter does (the compacted blocks scatter their unfilled rows to
   slot 0, so the order matters there).
 * Randomness comes from the state's ``torch.Generator`` (which ``step``
-  advances), or from ``draws``, which replaces every draw of the step.
+  advances, by :func:`draw_step_draws` at the start of the step), or from
+  ``draws``, which replaces every draw of the step.
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ from .mapping import maps
 from .ops import brief, fast, image, matching, optical_flow
 from .ops.fast import top_k
 from .pose.features import MatchedFeatures
-from .pose.optimizer import PoseDraws, compact_rows, compute_optimized_pose
+from .pose.optimizer import (PoseDraws, compact_rows, compute_optimized_pose,
+                             draw_pose_draws_for)
 from .tracking import inverse_depth_tracking as idt
 from .tracking import kalman, motion_model
 from .utils import polygon as poly
@@ -116,6 +124,18 @@ class StepDraws(NamedTuple):
     pose: PoseDraws
 
 
+def draw_step_draws(cfg: SlamConfig, generator: torch.Generator, device=None,
+                    dtype=torch.float32) -> StepDraws:
+    """Every draw of one :func:`step` from ``generator``, in the order the step
+    makes them when it is given no ``draws``: the same numbers."""
+    m = cfg.mapping
+    drop = torch.randint(0, 2 * cfg.detection.keypoint_refresh_frequency,
+                         (m.max_points_3d,), generator=generator, device=device)
+    caps = (m.max_points_3d, m.max_points_2d, m.max_planes, m.max_lines)
+    return StepDraws(drop=drop, pose=draw_pose_draws_for(caps, cfg.engine, generator,
+                                                        device=device, dtype=dtype))
+
+
 def init_state(cam: CameraIntrinsics, cfg: SlamConfig, quat=None, position=None,
                seed: int = 0, device=None) -> SlamState:
     """A fresh state on ``device`` (``None``: the card, see ``resolve_device``)."""
@@ -125,8 +145,8 @@ def init_state(cam: CameraIntrinsics, cfg: SlamConfig, quat=None, position=None,
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
 
-    def i32(v):
-        return torch.tensor(v, dtype=torch.int32, device=device)
+    def i32(v):   # a fill on the device: no copy from the host, no sync
+        return torch.full((), v, dtype=torch.int32, device=device)
 
     return SlamState(
         quat=se3.quat_identity(dt, device) if quat is None
@@ -146,7 +166,7 @@ def init_state(cam: CameraIntrinsics, cfg: SlamConfig, quat=None, position=None,
         tracked_ok=torch.zeros((t_cap,), dtype=torch.bool, device=device),
         tracked_map_idx=torch.full((t_cap,), -1, dtype=torch.int32, device=device),
         frame_idx=i32(0), failed_count=i32(0),
-        is_lost=torch.tensor(False, device=device), next_id=i32(1),
+        is_lost=torch.zeros((), dtype=torch.bool, device=device), next_id=i32(1),
         generator=generator,
     )
 
@@ -459,11 +479,6 @@ def _update_lines(li: maps.LineMap, obs: _LineObservations, l_match_idx, l_final
             evict_eps)
 
 
-def _sync_detect_flag(do_detect) -> bool:
-    """The Python branch on the detection flag: one host read."""
-    return bool(do_detect.item())
-
-
 def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
          with_planes: bool = True, with_lines: bool = False,
          draws: StepDraws | None = None):
@@ -476,12 +491,9 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     m2 = cfg.mapping.max_points_2d
     mp = cfg.mapping.max_planes
     ml = cfg.mapping.max_lines
-    drop_chance = 2 * det_cfg.keypoint_refresh_frequency  # 1/10 drop
     if draws is None:
-        drop = torch.randint(0, drop_chance, (m3,), generator=state.generator, device=dev)
-        pose_draws = None
-    else:
-        drop, pose_draws = draws.drop, draws.pose
+        draws = draw_step_draws(cfg, state.generator, dev, dt)
+    drop, pose_draws = draws.drop, draws.pose   # 1 in 2 * refresh frequency drops
 
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=dev)
@@ -520,29 +532,29 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     of_uv = _scatter_set(full((m3, 2), 0.0, dt), t_idx, of_uv_t)
     of_ok = _scatter_set(full((m3,), False, torch.bool), t_idx, True)
 
+    # detection runs on refresh frames, when optical flow tracked too few
+    # points, or when lost; the flag stays on the device (lax.cond in JAX):
+    # both branches run and the skip branch's zeros are selected by it
     n_tracked = torch.sum(of_ok_t)
-    do_detect = _sync_detect_flag(
-        (state.frame_idx % det_cfg.keypoint_refresh_frequency == 0)
-        | (n_tracked < det_cfg.max_point_per_frame) | state.is_lost)
+    do_detect = ((state.frame_idx % det_cfg.keypoint_refresh_frequency == 0)
+                 | (n_tracked < det_cfg.max_point_per_frame) | state.is_lost)
     n_det = det_cfg.max_point_per_frame
-    if do_detect:
-        det_mask = fast.tracked_points_mask((cam.height, cam.width), of_uv_t, of_ok_t,
-                                            det_cfg.tracked_mask_radius_px)
-        deficit = torch.clamp_min(det_cfg.max_point_per_frame - n_tracked, 10).to(dt)
-        thr = det_cfg.fast_curve_scale * torch.pow(
-            det_cfg.fast_curve_decay, det_cfg.fast_deficit_mult_high * deficit)
-        thr_low = det_cfg.fast_curve_scale * torch.pow(
-            det_cfg.fast_curve_decay, det_cfg.fast_deficit_mult_low * deficit)
-        det_xy, _, det_valid = fast.detect_fast_grid(
-            gray, detection_mask=det_mask, threshold=thr, low_threshold=thr_low,
-            max_points=n_det,
-            cell_rows=det_cfg.keypoint_cell_detection_height_count,
-            cell_cols=det_cfg.keypoint_cell_detection_width_count)
-        det_desc, det_valid = brief.compute_brief(gray, det_xy, det_valid)
-    else:
-        det_xy = full((n_det, 2), 0.0, dt)
-        det_valid = full((n_det,), False, torch.bool)
-        det_desc = full((n_det, brief.N_WORDS), 0, torch.int32)
+    det_mask = fast.tracked_points_mask((cam.height, cam.width), of_uv_t, of_ok_t,
+                                        det_cfg.tracked_mask_radius_px)
+    deficit = torch.clamp_min(det_cfg.max_point_per_frame - n_tracked, 10).to(dt)
+    thr = det_cfg.fast_curve_scale * torch.pow(
+        det_cfg.fast_curve_decay, det_cfg.fast_deficit_mult_high * deficit)
+    thr_low = det_cfg.fast_curve_scale * torch.pow(
+        det_cfg.fast_curve_decay, det_cfg.fast_deficit_mult_low * deficit)
+    det_xy, _, det_valid = fast.detect_fast_grid(
+        gray, detection_mask=det_mask, threshold=thr, low_threshold=thr_low,
+        max_points=n_det,
+        cell_rows=det_cfg.keypoint_cell_detection_height_count,
+        cell_cols=det_cfg.keypoint_cell_detection_width_count)
+    det_desc, det_valid = brief.compute_brief(gray, det_xy, det_valid)
+    det_xy = torch.where(do_detect, det_xy, 0.0)
+    det_valid = det_valid & do_detect
+    det_desc = torch.where(do_detect, det_desc, 0)
     det_z = _sample_depth(depth, det_xy)
     det_depth_ok = pinhole.is_depth_valid(det_z, cfg.engine.min_depth_mm,
                                           cfg.engine.max_depth_mm) & det_valid
@@ -556,41 +568,41 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     p2_alive = maps.alive(p2)
     proj2, proj2_ok = pinhole.world_to_screen(idp.to_world(p2.state), w2c, cam)
 
-    if do_detect:
-        det_taken = torch.zeros_like(det_valid)
-        ham3, dsq3 = matching.match_precompute(pts.desc, proj3[:, :2], det_desc, det_xy)
+    # descriptor matching exists only on detection frames (lax.cond in JAX):
+    # the no-match branch's constants are selected by the flag
+    det_taken = torch.zeros_like(det_valid)
+    ham3, dsq3 = matching.match_precompute(pts.desc, proj3[:, :2], det_desc, det_xy)
 
-        def match_pass(mask, taken, radius):
-            idx, dist = matching.match_from_distances(
-                ham3, dsq3, mask, det_valid, taken, search_radius=radius,
-                lowe_ratio=cfg.matching.max_match_distance)
-            idx = matching.resolve_match_conflicts(idx, dist, n_det)
-            return idx, _scatter_set(taken, torch.where(idx >= 0, idx, n_det), True)
-
-        radius = cfg.matching.match_search_radius_px
-        idx_loc, det_taken = match_pass(need_desc_match & pts.is_local, det_taken, radius)
-        idx_stg, det_taken = match_pass(need_desc_match & ~pts.is_local, det_taken, radius)
-        p_match_idx = torch.where(idx_loc >= 0, idx_loc, idx_stg)
-
-        # advanced search: 2x radius retry when below minimumPointForOptimization
-        n_matched_now = torch.sum(of_ok) + torch.sum(p_match_idx >= 0)
-        idx_adv, det_taken_adv = match_pass(need_desc_match & (p_match_idx < 0),
-                                            det_taken, radius * 2.0)
-        use_adv = n_matched_now < cfg.ransac.min_point_count
-        p_match_idx = torch.where(use_adv & (p_match_idx < 0), idx_adv, p_match_idx)
-        det_taken = torch.where(use_adv, det_taken_adv, det_taken)
-
-        q_match_idx, q_dist = matching.match_descriptors(
-            p2.desc, proj2[:, :2], p2_alive & proj2_ok, det_desc, det_xy, det_valid,
-            det_taken, search_radius=cfg.matching.match_search_radius_px,
+    def match_pass(mask, taken, radius):
+        idx, dist = matching.match_from_distances(
+            ham3, dsq3, mask, det_valid, taken, search_radius=radius,
             lowe_ratio=cfg.matching.max_match_distance)
-        q_match_idx = matching.resolve_match_conflicts(q_match_idx, q_dist, n_det)
-        det_taken = _scatter_set(det_taken, torch.where(q_match_idx >= 0, q_match_idx,
-                                                        n_det), True)
-    else:
-        p_match_idx = full((m3,), -1, torch.int32)
-        q_match_idx = full((m2,), -1, torch.int32)
-        det_taken = torch.zeros_like(det_valid)
+        idx = matching.resolve_match_conflicts(idx, dist, n_det)
+        return idx, _scatter_set(taken, torch.where(idx >= 0, idx, n_det), True)
+
+    radius = cfg.matching.match_search_radius_px
+    idx_loc, det_taken = match_pass(need_desc_match & pts.is_local, det_taken, radius)
+    idx_stg, det_taken = match_pass(need_desc_match & ~pts.is_local, det_taken, radius)
+    p_match_idx = torch.where(idx_loc >= 0, idx_loc, idx_stg)
+
+    # advanced search: 2x radius retry when below minimumPointForOptimization
+    n_matched_now = torch.sum(of_ok) + torch.sum(p_match_idx >= 0)
+    idx_adv, det_taken_adv = match_pass(need_desc_match & (p_match_idx < 0),
+                                        det_taken, radius * 2.0)
+    use_adv = n_matched_now < cfg.ransac.min_point_count
+    p_match_idx = torch.where(use_adv & (p_match_idx < 0), idx_adv, p_match_idx)
+    det_taken = torch.where(use_adv, det_taken_adv, det_taken)
+
+    q_match_idx, q_dist = matching.match_descriptors(
+        p2.desc, proj2[:, :2], p2_alive & proj2_ok, det_desc, det_xy, det_valid,
+        det_taken, search_radius=cfg.matching.match_search_radius_px,
+        lowe_ratio=cfg.matching.max_match_distance)
+    q_match_idx = matching.resolve_match_conflicts(q_match_idx, q_dist, n_det)
+    det_taken = _scatter_set(det_taken, torch.where(q_match_idx >= 0, q_match_idx,
+                                                    n_det), True)
+    p_match_idx = torch.where(do_detect, p_match_idx, -1)
+    q_match_idx = torch.where(do_detect, q_match_idx, -1)
+    det_taken = det_taken & do_detect
 
     def det_rows(match_idx):
         return match_idx.clamp(0, n_det - 1).to(torch.int64)

@@ -9,9 +9,11 @@ plane.  Shapes are fixed (``MAX_PLANES`` and ``MAX_CYLINDERS`` slots, masked).
 
 Differences from the JAX function that do not change its results:
 
-* the components fixpoint (``lax.while_loop``) runs in chunks of
-  ``CC_CHUNK`` iterations with one host read after each chunk; an iteration
-  past the fixpoint changes nothing, so the labels are the same;
+* the components fixpoint (``lax.while_loop``) is one CUDA kernel on the card
+  (``ops.components_cuda``), which runs to its own convergence; on the CPU it
+  runs in chunks of ``CC_CHUNK`` iterations with one host read after each
+  chunk.  The fixpoint does not depend on the schedule, so the labels are the
+  same;
 * ``lax.top_k`` is a stable descending sort (ties to the lower index);
 * ``segment_sum`` is ``index_add_`` with the sentinel bucket ``n_cells``;
 * the cylinder triplet scramble's uint32 arithmetic is int64 masked to 32 bits;
@@ -28,6 +30,8 @@ import torch
 from ..config import CameraIntrinsics, DetectionConfig
 from ..geometry.covariances import get_depth_quantization
 from ..geometry.eig3 import sym_eig3_smallest
+from ..ops import components_cuda
+from ..ops.components_cuda import CC_CHUNK, FIXPOINT_READS, _clear_edge  # noqa: F401
 from ..ops.depth_cloud import depth_to_cloud
 from ..ops.fast import top_k
 from ..pose.linalg6 import solve_spd
@@ -39,11 +43,6 @@ MAX_CYLINDERS = 4
 HIST_BINS = 20
 #: sub-segments extracted per cylinder region
 CYL_SUBSEGMENTS = 3
-#: components fixpoint iterations between two convergence reads on the host
-CC_CHUNK = 8
-#: convergence reads the components fixpoint has made on the host (one a chunk);
-#: a caller sets it to 0 and reads it after a run
-FIXPOINT_READS = {"components": 0}
 
 
 class CellGrid(NamedTuple):
@@ -171,14 +170,6 @@ def fit_cells(cloud, valid, cfg: DetectionConfig = DetectionConfig()) -> CellGri
 # mergeability edges + connected components
 # ---------------------------------------------------------------------------
 
-def _clear_edge(m, dim: int, first: bool):
-    """``m.at[...].set(False)`` on the first or last index along ``dim``
-    (out of place)."""
-    m = m.clone()
-    m.select(dim, 0 if first else m.shape[dim] - 1).fill_(False)
-    return m
-
-
 def _edge_maps(grid: CellGrid, gh: int, gw: int, cos_max: float):
     """Directed mergeability edges [4, gh, gw]: edge[dir][y, x] is True when the
     neighbour in that direction may grow into cell (y, x)."""
@@ -207,42 +198,10 @@ def _connected_components(edges, planar, gh: int, gw: int):
     """Connected components of the planar-cell mergeability graph: min-label
     propagation with pointer-jumping shortcuts, run to its fixpoint.  Returns [C]
     int64 labels (component = min member cell index; non-planar cells get C).
-
-    The fixpoint runs ``CC_CHUNK`` iterations at a time and reads on the host
-    whether the chunk's last iteration changed a label: one read per chunk."""
-    c = gh * gw
-    dev = planar.device
-    planar2 = planar.reshape(gh, gw)
-    sym_l = _clear_edge(edges[0] | torch.roll(edges[1], 1, dims=1), 1, first=True)
-    sym_u = _clear_edge(edges[2] | torch.roll(edges[3], 1, dims=0), 0, first=True)
-    sym_r = _clear_edge(torch.roll(sym_l, -1, dims=1), 1, first=False)
-    sym_d = _clear_edge(torch.roll(sym_u, -1, dims=0), 0, first=False)
-
-    big = torch.full((gh, gw), c, dtype=torch.int64, device=dev)
-    lbl = torch.where(planar2, torch.arange(c, device=dev).reshape(gh, gw), big)
-
-    def prop(lbl):
-        nb = torch.minimum(
-            torch.minimum(torch.where(sym_l, torch.roll(lbl, 1, dims=1), big),
-                          torch.where(sym_r, torch.roll(lbl, -1, dims=1), big)),
-            torch.minimum(torch.where(sym_u, torch.roll(lbl, 1, dims=0), big),
-                          torch.where(sym_d, torch.roll(lbl, -1, dims=0), big)))
-        return torch.where(planar2, torch.minimum(lbl, nb), big)
-
-    def body(lbl):
-        new = prop(prop(lbl))
-        # pointer jumping: a cell may adopt its label's own label
-        for _ in range(2):
-            flat = torch.cat([new.reshape(-1), big[:1, 0]])
-            new = torch.minimum(new, flat[new.reshape(-1)].reshape(gh, gw))
-        return new
-
-    while True:
-        for _ in range(CC_CHUNK):
-            prev, lbl = lbl, body(lbl)
-        FIXPOINT_READS["components"] += 1
-        if not bool((lbl != prev).any().item()):
-            return lbl.reshape(-1)
+    On the card the fixpoint runs in one CUDA kernel and reads the host
+    nowhere; on the CPU the plain version reads the host once per
+    ``CC_CHUNK`` rounds (``ops.components_cuda``)."""
+    return components_cuda.connected_components(edges, planar, gh, gw)
 
 
 def _normal_bins(normals):

@@ -25,19 +25,12 @@ roofline bounds.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import time
 
 import torch
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCE = os.path.join(_HERE, "..", "csrc", "lk.cu")
-_BUILD_DIR = os.path.join(_HERE, "..", "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from . import nvcc
+
 _MAX_LEVELS = 8  # LK_MAX_LEVELS in the kernel source
 
 #: launches of each CUDA kernel since import (or since :func:`reset_launches`)
@@ -56,48 +49,18 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return found
-
-
 def build(profile: bool = False) -> float:
-    """Compile and load the kernel library if none is loaded yet.  The output
-    name carries the hash of the source and flags, so an edited source is
-    rebuilt.  ``profile`` asks for the ``-DLK_PHASE_PROFILE`` build (see
-    :func:`profile_attach`), which takes the normal one's place and then stays:
-    it launches the same kernels.  Returns the seconds spent (0.0 when already
-    loaded)."""
+    """Compile and load the kernel library if none is loaded yet
+    (:func:`nvcc.load_library`).  ``profile`` asks for the
+    ``-DLK_PHASE_PROFILE`` build (see :func:`profile_attach`), which takes the
+    normal one's place and then stays: it launches the same kernels.  Returns
+    the seconds spent (0.0 when already loaded)."""
     global _lib, _lib_profiled, BUILD_LOG
     if _lib is not None and (_lib_profiled or not profile):
         return 0.0
     t0 = time.perf_counter()
-    flags = [*_NVCC_FLAGS, *(["-DLK_PHASE_PROFILE"] if profile else [])]
-    digest = hashlib.sha256(" ".join(flags).encode())
-    with open(_SOURCE, "rb") as f:
-        digest.update(f.read())
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(_BUILD_DIR, f"liblk_{digest.hexdigest()[:16]}.so")
-    log_path = so_path + ".log"
-    if not os.path.exists(so_path):
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, _SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        with open(log_path, "w") as f:
-            f.write(proc.stderr)
-        os.replace(tmp, so_path)
-    with open(log_path) as f:
-        BUILD_LOG = f.read()
-    lib = ctypes.CDLL(so_path)
+    lib, BUILD_LOG = nvcc.load_library(
+        "lk.cu", "lk", ["-DLK_PHASE_PROFILE"] if profile else [])
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.lk_fwd_bwd_launch.argtypes = [ptrs, ptrs, ctypes.POINTER(ctypes.c_int), i32, i32,
@@ -344,7 +307,9 @@ def _sample_windows(img, x, y, h: int, w: int):
 def _level_reference(src, dst, tlx, tly, gx, gy, valid, wh: int, ww: int,
                      iterations: int, eps_sq: float, taken=None):
     """One LK level of all points in lockstep from the guesses (gx, gy); a
-    converged point's step is frozen (the Pallas semantics).  Returns (gx, gy,
+    converged point's step is frozen (the Pallas semantics), and the loop runs
+    all ``iterations`` without asking the host whether every point is done, so
+    that the step it is part of reads the host nowhere.  Returns (gx, gy,
     lvl_ok).  ``taken``, a list, receives the [N] count of iterations each point
     really ran (a point stops after the step that falls under eps)."""
     tp = _sample_windows(src, tlx - 1.0, tly - 1.0, wh + 2, ww + 2)
@@ -361,8 +326,6 @@ def _level_reference(src, dst, tlx, tly, gx, gy, valid, wh: int, ww: int,
     done = ~lvl_ok
     n_taken = torch.zeros_like(done, dtype=torch.int64)
     for _ in range(iterations):
-        if bool(done.all()):
-            break
         n_taken += ~done
         j = _sample_windows(dst, tlx + gx, tly + gy, wh, ww)
         diff = t - j

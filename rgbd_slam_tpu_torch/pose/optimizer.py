@@ -60,21 +60,27 @@ _REFIT_CAPS = (256, 128, 32, 16)
 def draw_pose_draws(feats: MatchedFeatures, engine_cfg: EngineConfig,
                     generator: torch.Generator) -> PoseDraws:
     """Draw a :class:`PoseDraws` for ``feats`` from ``generator``."""
-    dev = feats.point_world.device
-    dt = feats.point_world.dtype
-    f = sum(feats.capacities)
+    return draw_pose_draws_for(feats.capacities, engine_cfg, generator,
+                               device=feats.point_world.device,
+                               dtype=feats.point_world.dtype)
+
+
+def draw_pose_draws_for(capacities, engine_cfg: EngineConfig, generator: torch.Generator,
+                        device=None, dtype=torch.float32) -> PoseDraws:
+    """Draw a :class:`PoseDraws` for features of ``capacities`` (points, 2D
+    points, planes, lines) from ``generator``."""
+    f = sum(capacities)
     m = engine_cfg.pose_covariance_mc_iterations + 1
     cp, c2, ck, cl = _REFIT_CAPS
 
     def normal(*shape):
-        return torch.randn(shape, generator=generator, device=dev, dtype=dt)
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
 
     return PoseDraws(
         subset_priority=torch.rand((engine_cfg.ransac_hypothesis_batch, f),
-                                   generator=generator, device=dev, dtype=dt),
-        p3p_priority=torch.rand((engine_cfg.p3p_hypothesis_batch,
-                                 feats.point_mask.shape[-1]),
-                                generator=generator, device=dev, dtype=dt),
+                                   generator=generator, device=device, dtype=dtype),
+        p3p_priority=torch.rand((engine_cfg.p3p_hypothesis_batch, capacities[0]),
+                                generator=generator, device=device, dtype=dtype),
         noise=VariationNoise(point=normal(m, cp, 3), theta=normal(m, c2),
                              phi=normal(m, c2), plane=normal(m, ck, 4),
                              line=normal(m, cl, 6)))

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import engine
+from . import engine, step_graph
 from .config import CameraIntrinsics, SlamConfig
 from .device import resolve_device
 from .io.map_writer import OBJWriter, append_alive_features, append_dying_features
@@ -28,10 +28,15 @@ from .parallel.pose_graph import PoseGraph, _np_quat_mul, _np_quat_rotate
 
 @dataclass
 class RunStats:
-    """Wall-clock accounting.  ``compile_s`` is the first frame's time, which
-    includes the kernel build and device warm-up; ``ba_compile_s`` the first
-    refine's, which includes the solver's warm-up."""
+    """Wall-clock accounting.  ``compile_s`` is the first frame's time: on a card
+    the kernels' build, the warm-up step and the capture of the step's CUDA
+    graph (``step_graph.StepGraph``, the counterpart of the JAX step's compile)
+    and the first replay; on the CPU the first eager step.  ``warmup_steps``
+    counts the eager steps the warm-up ran (their kernel launches are counted
+    with the frames').  ``ba_compile_s`` is the first refine's, which includes
+    the solver's warm-up."""
     frame_count: int = 0
+    warmup_steps: int = 0
     success_count: int = 0
     lost_count: int = 0
     total_step_s: float = 0.0
@@ -130,13 +135,14 @@ def _pack_summary(out: engine.StepOutput):
 
 
 def _pack_keyframe_obs(out: engine.StepOutput, point_positions):
-    """A keyframe's observation record as two tensors (one float32 [M3, 7]:
+    """A keyframe's observation record as two new tensors (one float32 [M3, 7]:
     matched, u, v, z, map position; one int32 [M3]: feature ids), so that the
-    keyframe window reads the host twice, not five times."""
+    keyframe window reads the host twice, not five times, and the record
+    outlives the step's buffers."""
     f32 = torch.float32
     fobs = torch.cat([out.point_matched.to(f32)[:, None], out.point_obs_uv.to(f32),
                       out.point_obs_z.to(f32)[:, None], point_positions.to(f32)], dim=-1)
-    return fobs, out.point_fid
+    return fobs, out.point_fid.clone()
 
 
 def _scatter_kernel(points_pos, points_fid, slots, fids, new_lm, lm_valid):
@@ -231,6 +237,12 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
     """Run the engine over an iterable of (gray, depth[, timestamp]) frames (numpy
     or tensors), on ``device`` (``None``: the card, see ``resolve_device``).
 
+    On a card the step runs as one CUDA graph (``step_graph.StepGraph``),
+    recorded at the first frame and freed at the end; on the CPU it runs
+    eagerly.  What the loop keeps of a frame past the next one (its summary,
+    a keyframe's observation record, and for ``on_frame`` or the map export its
+    state and outputs) is copied out of the graph's buffers on the device.
+
     The loop reads a frame's summary from the device in batches of
     ``SUMMARY_BATCH`` frames (frame 0 alone), so ``on_frame(i, state, out, dt)``
     and the backend run up to a batch after their frame, with ``dt`` the
@@ -269,6 +281,8 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
     device = resolve_device(device)
     if state is None:
         state = engine.init_state(cam, cfg, seed=seed, device=device)
+    stepper = step_graph.stepper(state, cam, cfg, with_planes=with_planes,
+                                 with_lines=with_lines)
     traj = Trajectory()
     stats = RunStats()
 
@@ -294,7 +308,6 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
             graph = PoseGraph(device=device)
 
     def _refine(i):
-        nonlocal state
         if pending_kfs:
             # every waiting keyframe's pack in two reads
             fobs = torch.stack([kf[2] for kf in pending_kfs]).cpu().numpy()
@@ -319,7 +332,7 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                 window.apply_refinement(refined, device_lm)
                 # the live state may be up to a batch past frame i: the scatter
                 # is guarded by feature id
-                state = _scatter_ba_landmarks(state, device_lm)
+                stepper.state = _scatter_ba_landmarks(stepper.state, device_lm)
             if ba_correct_traj and graph is None:
                 for kf, fi in enumerate(window.frame_ids):
                     q, p = refined[kf]
@@ -342,10 +355,11 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
         stats.backend_uploads = sum(t["uploads"] for t in moved)
         stats.backend_readbacks = sum(t["readbacks"] for t in moved)
 
-    def _process(i, ts, frame_state, out, summary, dt):
+    def _process(i, ts, frame_state, out, summary, kf_obs, dt):
         """Consume one frame's summary: stats, trajectory, keyframes and BA.
         ``frame_state`` is the state of the same step as ``out`` (its slots
-        align with ``out``'s records)."""
+        align with ``out``'s records) and ``kf_obs`` its keyframe observation
+        record; each is None where nothing reads it."""
         nonlocal last_kf_quat, last_kf_pos
         pos_np = summary[0:3]
         quat_np = summary[3:7]
@@ -355,6 +369,7 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
         stats.total_step_s += dt
         if i == 0:
             stats.compile_s = dt
+            stats.warmup_steps = stepper.warmup_steps
         stats.success_count += int(success)
         stats.lost_count += int(summary[8] > 0.5)
         traj.append(ts, pos_np, quat_np)
@@ -369,8 +384,7 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
             if is_kf:
                 stats.keyframe_count += 1
                 last_kf_quat, last_kf_pos = quat_np, pos_np
-                fobs, kf_fids = _pack_keyframe_obs(out, frame_state.points.pos)
-                pending_kfs.append((quat_np, pos_np, fobs, kf_fids, ts, i))
+                pending_kfs.append((quat_np, pos_np, *kf_obs, ts, i))
                 if graph is not None:
                     graph.add_keyframe(i, quat_np, pos_np)
             if window.n_keyframes + len(pending_kfs) >= 3 and (i + 1) % ba_every == 0:
@@ -393,8 +407,8 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
         now = time.perf_counter()
         per_frame = (now - t_prev) / len(pending)
         t_prev = now
-        for row, (pi, pts_, pstate, pout, _) in zip(batch, pending):
-            _process(pi, pts_, pstate, pout, row, per_frame)
+        for row, (pi, pts_, pstate, pout, _, kf_obs) in zip(batch, pending):
+            _process(pi, pts_, pstate, pout, row, kf_obs, per_frame)
         pending.clear()
 
     map_writer = OBJWriter(export_map) if export_map is not None else None
@@ -408,19 +422,28 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
             depth = torch.as_tensor(depth, dtype=torch.float32, device=device)
             if rectify is not None:
                 depth = rectify(depth)
-            state, out = engine.step(state, gray, depth, cam, cfg, with_planes=with_planes,
-                                     with_lines=with_lines)
-            pending.append((i, ts, state, out, _pack_summary(out)))
+            frame_state, out = stepper.step(gray, depth)
+            kf_obs = (_pack_keyframe_obs(out, frame_state.points.pos)
+                      if window is not None else None)
+            summary = _pack_summary(out)
+            if stepper.reuses_outputs:
+                # the next replay overwrites both: keep copies where they are read
+                keep_out = on_frame is not None or map_writer is not None
+                frame_state = (step_graph.clone_tree(frame_state) if on_frame is not None
+                               else None)
+                out = step_graph.clone_tree(out) if keep_out else None
+            pending.append((i, ts, frame_state, out, summary, kf_obs))
             if i == 0 or len(pending) >= SUMMARY_BATCH:
                 _drain()
         _drain()
         if map_writer is not None:
-            stats.map_alive_at_end = append_alive_features(map_writer, state,
+            stats.map_alive_at_end = append_alive_features(map_writer, stepper.state,
                                                            only_local=True)
     finally:
+        stepper.close()
         if map_writer is not None:
             map_writer.close()
-    return state, traj, stats
+    return stepper.state, traj, stats
 
 
 def evaluate_against_ground_truth(traj: Trajectory, gt_positions_mm) -> dict:

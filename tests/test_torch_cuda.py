@@ -4,7 +4,7 @@ Run them on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 This file imports no jax, so it runs where only PyTorch is installed.
 """
 
-import types
+import gc
 
 import numpy as np
 import pytest
@@ -12,7 +12,7 @@ import torch
 
 from rgbd_slam_tpu_torch import config, convert, engine, synthetic
 from rgbd_slam_tpu_torch.ops import fast, image, lk_cuda
-from rgbd_slam_tpu_torch.pose.optimizer import PoseDraws, draw_pose_draws
+from rgbd_slam_tpu_torch.pose.optimizer import PoseDraws
 from rgbd_slam_tpu_torch.pose.residuals import VariationNoise
 
 #: 0.05 px: the kernel and the plain version sum the window's products in a
@@ -177,15 +177,7 @@ def test_plane_step_with_99_points_launches_the_forward_only_kernel(cuda):
 
 def _step_draws(cfg, generator):
     """Every draw of one engine step, from a CPU generator."""
-    m = cfg.mapping
-    caps = (m.max_points_3d, m.max_points_2d, m.max_planes, m.max_lines)
-    shapes = types.SimpleNamespace(point_world=torch.zeros(m.max_points_3d, 3),
-                                   point_mask=torch.zeros(m.max_points_3d, dtype=torch.bool),
-                                   capacities=caps)
-    drop = torch.randint(0, 2 * cfg.detection.keypoint_refresh_frequency,
-                         (m.max_points_3d,), generator=generator)
-    return engine.StepDraws(drop=drop,
-                            pose=draw_pose_draws(shapes, cfg.engine, generator))
+    return engine.draw_step_draws(cfg, generator)
 
 
 def _draws_to(draws, device):
@@ -475,3 +467,220 @@ def test_gloo_collectives_on_cuda_tensors(cuda, tmp_path):
         np.testing.assert_array_equal(data["gathered"], want)
         np.testing.assert_array_equal(data["scattered"],
                                       3.0 * np.arange(8, dtype=np.float32).reshape(-1, 2))
+
+
+# ---------------------------------------------------------------------------
+# the components kernel and the step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+def _serpentine(gh, gw):
+    """One component snaking through the grid a row at a time, the longest
+    chain a grid holds."""
+    edges = np.zeros((4, gh, gw), bool)
+    edges[0, :, 1:] = True
+    for y in range(gh - 1):
+        edges[2, y + 1, gw - 1 if y % 2 == 0 else 0] = True
+    return edges, np.ones(gh * gw, bool)
+
+
+def _components_case(name):
+    """(edges [4, gh, gw], planar [C], gh, gw) of a named grid."""
+    rng = np.random.default_rng(0)
+    if name == "serpentine_32x24":
+        return (*_serpentine(24, 32), 24, 32)
+    if name == "full_32x24":
+        return np.ones((4, 24, 32), bool), np.ones(24 * 32, bool), 24, 32
+    if name.startswith("random"):
+        gh, gw = {"random_32x24": (24, 32), "random_7x5": (5, 7),
+                  "random_160x120": (120, 160)}[name]
+        planar = rng.random(gh * gw) < 0.7
+        edges = rng.random((4, gh, gw)) < 0.6
+        p2 = planar.reshape(gh, gw)
+        edges &= p2[None]            # an edge joins two planar cells, as _edge_maps gives
+        return edges, planar, gh, gw
+    raise ValueError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random_32x24", "serpentine_32x24", "full_32x24",
+                                  "random_7x5", "random_160x120"])
+def test_components_kernel_matches_its_plain_version(cuda, name):
+    """The kernel's labels equal the plain version's on random planar masks
+    (the 640x480 grid, a grid under one warp, and 19,200 cells: more cells than
+    threads, and shared memory past the 48 KB default), on a serpentine
+    one-cell-wide component (the longest chain) and on the full grid in one
+    component.  One launch a call; a grid past shared memory raises."""
+    from rgbd_slam_tpu_torch.ops import components_cuda
+
+    edges, planar, gh, gw = _components_case(name)
+    want = components_cuda.components_reference(torch.from_numpy(edges),
+                                                torch.from_numpy(planar), gh, gw)
+    before = components_cuda.LAUNCHES["components"]
+    got = components_cuda.connected_components(torch.from_numpy(edges).to(cuda),
+                                               torch.from_numpy(planar).to(cuda), gh, gw)
+    torch.cuda.synchronize()
+    assert components_cuda.LAUNCHES["components"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    with pytest.raises(ValueError, match="shared memory"):
+        components_cuda.connected_components(
+            torch.zeros((4, 240, 320), dtype=torch.bool, device=cuda),
+            torch.zeros(240 * 320, dtype=torch.bool, device=cuda), 240, 320)
+
+
+def _bits(t):
+    return t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+
+
+def _assert_bit_equal(a, b, what):
+    from rgbd_slam_tpu_torch.step_graph import tensor_leaves
+
+    la, lb = tensor_leaves(a), tensor_leaves(b)
+    assert len(la) == len(lb), what
+    for k, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and x.shape == y.shape, (what, k)
+        assert torch.equal(_bits(x), _bits(y)), (what, k)
+
+
+def _room_frames(cam, n, device):
+    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+    return [tuple(torch.as_tensor(a, device=device) for a in scene.render(q, p))
+            for q, p in synthetic.orbit_trajectory(n, speed_mm=4.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lines", [False, True], ids=["planes", "lines"])
+def test_step_graph_equals_the_eager_step(cuda, with_lines):
+    """``StepGraph`` over 10 frames at 640x480 against ``engine.step`` in a
+    loop from the same seed: every state leaf and output equal to the bit at
+    every frame, and the launch counts those of the eager steps (one warm-up
+    step more)."""
+    from rgbd_slam_tpu_torch import step_graph
+    from rgbd_slam_tpu_torch.ops import components_cuda
+
+    cam, cfg = config.TUM_FR1, config.SlamConfig()
+    frames = _room_frames(cam, 10, cuda)
+    eager = engine.init_state(cam, cfg, seed=0, device=cuda)
+    graph = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=cuda), cam, cfg,
+                                 with_lines=with_lines)
+    counts = [0, 0]
+    try:
+        for i, (gray, depth) in enumerate(frames):
+            before = (lk_cuda.LAUNCHES["lk_fwd_bwd"], components_cuda.LAUNCHES["components"])
+            g_state, g_out = graph.step(gray, depth)
+            counts[0] += lk_cuda.LAUNCHES["lk_fwd_bwd"] - before[0]
+            counts[1] += components_cuda.LAUNCHES["components"] - before[1]
+            eager, e_out = engine.step(eager, gray, depth, cam, cfg, with_lines=with_lines)
+            _assert_bit_equal(g_out, e_out, f"frame {i} output")
+            _assert_bit_equal(g_state, eager, f"frame {i} state")
+            assert torch.equal(g_state.generator.get_state(), eager.generator.get_state())
+    finally:
+        graph.close()
+    # one launch of each kernel a replay, and one in the warm-up step
+    assert graph.warmup_steps == 1 and counts == [11, 11], counts
+
+
+@pytest.mark.cuda
+def test_run_frames_on_the_card_equals_the_eager_runner(cuda, monkeypatch, tmp_path):
+    """``run_frames`` (the step as a CUDA graph) with the backend, the streamed
+    map and a frame callback, over 30 frames at 640x480, against the same
+    runner with ``engine.step`` run eagerly: trajectories, callbacks, counts and
+    map files equal to the bit."""
+    from rgbd_slam_tpu_torch import runner, step_graph
+
+    cam, cfg = config.TUM_FR1, config.SlamConfig()
+    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+    frames = [scene.render(q, p) for q, p in synthetic.orbit_trajectory(30, speed_mm=4.0)]
+
+    def run(tag):
+        seen = []
+        path = str(tmp_path / f"{tag}.obj")
+        state, traj, stats = runner.run_frames(
+            frames, cam, cfg, ba_every=8, export_map=path, device=cuda,
+            on_frame=lambda i, s, o, dt: seen.append((o.position.cpu(), s.next_id.cpu())))
+        with open(path) as f:
+            return state, traj, stats, seen, f.read()
+
+    graphed = run("graph")
+    monkeypatch.setattr(step_graph, "stepper", step_graph.EagerStep)
+    eager = run("eager")
+    assert graphed[2].warmup_steps == 1 and eager[2].warmup_steps == 0
+    assert graphed[2].ba_accepted >= 1
+    np.testing.assert_array_equal(graphed[1].positions_array(), eager[1].positions_array())
+    np.testing.assert_array_equal(np.array(graphed[1].quaternions),
+                                  np.array(eager[1].quaternions))
+    for key in ("keyframe_count", "ba_runs", "ba_accepted", "graph_solves", "map_streamed",
+                "map_alive_at_end", "success_count", "lost_count"):
+        assert getattr(graphed[2], key) == getattr(eager[2], key), key
+    for (p_a, n_a), (p_b, n_b) in zip(graphed[3], eager[3], strict=True):
+        assert torch.equal(p_a, p_b) and torch.equal(n_a, n_b)
+    assert graphed[4] == eager[4]
+    _assert_bit_equal(graphed[0], eager[0], "final state")
+
+
+def _sync_sites(fn):
+    """Package lines of the host syncs ``fn`` makes, by
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import traceback
+    import warnings
+    from pathlib import Path
+
+    package = str(Path(engine.__file__).parent)
+    sites = []
+    inside = [False]
+
+    def record(message, *_args, **_kw):
+        # a warning the mode's own switch raises is not ``fn``'s
+        if inside[0] and "synchroniz" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            ours = [f for f in stack if f.filename.startswith(package)]
+            sites.append(f"{Path(ours[-1].filename).name}:{ours[-1].lineno}" if ours
+                         else "outside the package: " + " < ".join(
+                             f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                             for f in reversed(stack[-6:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside[0] = True
+            fn()
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["planes", "lines", "points", "tracked_99", "prediction"])
+def test_a_warmed_step_reads_the_host_nowhere(cuda, path):
+    """One eager step at 640x480 warms every path's libraries and caches; the
+    next makes no host sync, by ``set_sync_debug_mode``: first listing every
+    site it finds ("warn"), then raising on the first ("error")."""
+    import dataclasses
+
+    cam, cfg = config.TUM_FR1, config.SlamConfig()
+    kw = dict(with_planes=path != "points", with_lines=path == "lines")
+    if path == "tracked_99":
+        cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping,
+                                                                   max_tracked_points=99))
+    if path == "prediction":
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, use_motion_model_prediction=True))
+    frames = _room_frames(cam, 3, cuda)
+    state = engine.init_state(cam, cfg, seed=0, device=cuda)
+    state, _ = engine.step(state, *frames[0], cam, cfg, **kw)
+    gc.collect()   # what earlier tests left (a graph's pool) is not freed inside the watch
+    torch.cuda.synchronize()
+    box = [state]
+
+    def step(frame):
+        box[0], _ = engine.step(box[0], *frame, cam, cfg, **kw)
+
+    assert _sync_sites(lambda: step(frames[1])) == []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(frames[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

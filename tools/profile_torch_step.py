@@ -7,7 +7,10 @@
 
 Runs RoomScene orbit frames at 640x480 (default ``SlamConfig``, depth noise on;
 ``--stripe-wall``: the low-texture StripeWallScene on a lateral run) through
-``rgbd_slam_tpu_torch.runner.run_frames`` on the card, with lines (``--lines``)
+``rgbd_slam_tpu_torch.runner.run_frames`` on the card, with the step run eagerly
+(``step_graph.EagerStep``, where ``run_frames`` would record it as one CUDA
+graph: the stage timer's syncs and ranges cannot run inside a graph; the JSON
+line's ``step`` says so), with lines (``--lines``)
 and the keyframe / BA / pose-graph backend (``--ba-every``) on request.  The frames
 after a 5-frame warm-up are split in two: the first half is timed per stage
 (each stage's entry function gets a device sync on both sides and a host clock),
@@ -49,7 +52,8 @@ from torch.autograd import DeviceType
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from rgbd_slam_tpu_torch import cli, config, engine, runner, synthetic  # noqa: E402
+from rgbd_slam_tpu_torch import (cli, config, engine, runner, step_graph,  # noqa: E402
+                                 synthetic)
 from rgbd_slam_tpu_torch.features import primitives  # noqa: E402
 from rgbd_slam_tpu_torch.io import datasets  # noqa: E402
 from rgbd_slam_tpu_torch.ops import brief, fast, image, matching, optical_flow  # noqa: E402
@@ -80,6 +84,10 @@ STAGES = {
     "pose_graph": [(PoseGraph, "solve")],
 }
 
+
+#: how the profiled runs step: eagerly, stage by stage
+EAGER = "eager: engine.step a frame (step_graph.EagerStep), not the CUDA graph run_frames " \
+    "records on a card"
 
 #: the stages of the command-line loop (``--tum``)
 TUM_STAGES = {
@@ -269,7 +277,7 @@ def profile_tum(args, device) -> int:
     stage_ms["decode"] = decode_ms[0] / n
     stage_ms["upload_and_runner"] = frame_ms - sum(stage_ms.values())
     print(json.dumps({
-        "card": _card_line(), "tum": args.tum, "frames": n, "ba_every": args.ba_every,
+        "card": _card_line(), "step": EAGER, "tum": args.tum, "frames": n, "ba_every": args.ba_every,
         "rectified": setup is not None, "frame_ms": frame_ms, "stage_ms": stage_ms,
         "rectify_device_us": rectify_us, "rectify_kernels": rectify_kernels,
         "lost": stats.lost_count, "map_streamed": stats.map_streamed,
@@ -299,6 +307,7 @@ def main() -> int:
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    step_graph.stepper = step_graph.EagerStep
     if args.tum:
         return profile_tum(args, device)
     cam = config.TUM_FR1
@@ -356,7 +365,7 @@ def main() -> int:
     stage_ms = {k: timer.ms[k] / n_staged for k in STAGES}
     stage_ms["rest"] = staged_ms - sum(stage_ms.values())
     print(json.dumps({
-        "card": _card_line(), "with_planes": with_planes, "with_lines": args.lines,
+        "card": _card_line(), "step": EAGER, "with_planes": with_planes, "with_lines": args.lines,
         "scene": "stripe_wall" if args.stripe_wall else "room", "ba_every": args.ba_every,
         "tracked": args.tracked,
         "staged_frames": n_staged, "profiled_frames": n_prof,
