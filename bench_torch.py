@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from rgbd_slam_tpu_torch import config, engine, runner, step_graph, synthetic
-from rgbd_slam_tpu_torch.ops import components_cuda, lk_cuda
+from rgbd_slam_tpu_torch.ops import components_cuda, lk_cuda, lm_cuda
 from rgbd_slam_tpu_torch.synthetic import _quat_from_euler
 
 #: (ate_frames, hard_frames, lines_frames, tunnel_frames): the default, and
@@ -224,6 +224,7 @@ def main() -> int:
         cfg.engine, use_motion_model_prediction=True))
     lk_cuda.reset_launches()
     components_cuda.reset_launches()
+    lm_cuda.reset_launches()
     t_start = time.perf_counter()
 
     frames_np, gt = room_orbit(cam, n_ate)
@@ -356,6 +357,7 @@ def main() -> int:
         "ba_accepted": stats.ba_accepted,
         "lk_launches": dict(lk_cuda.LAUNCHES),
         "components_launches": dict(components_cuda.LAUNCHES),
+        "lm_launches": dict(lm_cuda.LAUNCHES),
         "card": card,
         "torch": torch.__version__,
         "total_s": time.perf_counter() - t_start,

@@ -7,10 +7,11 @@ Phases, one line of output each (any failure raises, so the last line, the
 
 1. device: a CUDA card must be present (no CPU run); prints
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. build: compiles the LK kernels (``rgbd_slam_tpu_torch/csrc/lk.cu``) and the
-   components kernel (``csrc/components.cu``) with nvcc from the sources in
-   this checkout, one ``nvcc`` a source, started together; prints the seconds
-   and what ptxas says of each kernel's registers and spills.
+2. build: compiles the LK kernels (``rgbd_slam_tpu_torch/csrc/lk.cu``), the
+   components kernel (``csrc/components.cu``) and the LM kernel
+   (``csrc/lm.cu``) with nvcc from the sources in this checkout, one ``nvcc``
+   a source, started together; prints the seconds and what ptxas says of each
+   kernel's registers and spills.
 3. kernels, each against its plain PyTorch version on the card, on a 640x480
    RoomScene frame pair with the default windows and levels:
    * fused forward-backward LK, 128 FAST points;
@@ -35,6 +36,18 @@ Phases, one line of output each (any failure raises, so the last line, the
    against its plain version on the cell graph of a 640x480 RoomScene depth
    map, a serpentine one-cell-wide component and the grid in one component:
    labels equal; timed on the first (see ``check_components``).
+   lm: the LM kernel (the pose optimizer's ``lm_solve``, no Pallas port)
+   against its plain version on the inputs of both ``lm_solve`` calls (the
+   32 RANSAC hypotheses over 6/6/3/6-feature subsets, 10 iterations; the
+   refit + 100 Monte-Carlo members over 256/128/32/16 features, 6
+   iterations) of three frames: the plane step's second room-orbit frame,
+   the striped wall's with lines on, and a hard-scene frame with live
+   inverse-depth points.  One linearization's normal equations, then the full
+   LM held to the plain version step by step (each linearization, decision
+   and trial of the kernel's run), a repeat to the bit, and the members whose
+   result differs from the plain version's printed with their accept
+   sequences; timed at both shapes on the plane frame (see ``check_lm``); the
+   kernel line sums the two calls of a frame.
    graph: the plane step over 30 staged frames eagerly and as one CUDA graph
    (``StepGraph``): poses and final states equal to the bit, ms a frame of
    both, the warm-up and capture time, 4 replays under the profiler (kernels
@@ -95,8 +108,9 @@ Phases, one line of output each (any failure raises, so the last line, the
     counts as one device, the ATE within the backend bound.  Processes that
     share one card take turns on it, so the times printed beside the
     single-device ones measure what the collectives cost, not a speed-up.
-14. the kernels' JSON line (launches summed over all paths), the card line
-    again, and the result line.
+14. the kernels' JSON line (launches summed over all paths; every path
+    expects two LM launches a frame), the card line again, and the result
+    line.
 
 Every path runs through ``runner.run_frames``, which on the card records the
 step as one CUDA graph at its first frame (one eager warm-up step, whose
@@ -149,7 +163,7 @@ from rgbd_slam_tpu_torch import config, dryrun, engine, runner, step_graph, synt
 from rgbd_slam_tpu_torch.features import primitives
 from rgbd_slam_tpu_torch.io import checkpoint
 from rgbd_slam_tpu_torch.io.trajectory import ate_rmse
-from rgbd_slam_tpu_torch.ops import components_cuda, fast, image, lk_cuda
+from rgbd_slam_tpu_torch.ops import components_cuda, fast, image, lk_cuda, lm_cuda
 from rgbd_slam_tpu_torch.ops.depth_cloud import depth_to_cloud
 from rgbd_slam_tpu_torch.parallel.pose_graph import _np_quat_rotate
 
@@ -213,18 +227,45 @@ SHORT_RUN_FRAMES = 30
 #: the ``tum_cli`` rig: the depth camera sits this far along the RGB camera's x
 RIG_BASELINE_MM = 25.0
 #: one fused forward-backward launch a frame (every path but the forward-only
-#: one) and one components launch a frame with planes on
-FUSED_ONLY = {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0, "components": 1}
-#: the Pallas kernel each CUDA kernel replaces; the components kernel replaces
-#: the JAX step's components lax.while_loop, no Pallas kernel
+#: one), one components launch a frame with planes on, and two LM launches a
+#: frame (the hypothesis batch and the refit + Monte-Carlo batch)
+FUSED_ONLY = {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0, "components": 1,
+              "lm_solve": 2}
+#: the Pallas kernel each CUDA kernel replaces; the components and LM kernels
+#: replace XLA code of the JAX step, no Pallas kernel
 REPLACES = {"lk_fwd_bwd": "rgbd_slam_tpu/ops/pallas_lk.py:408",
             "lk_pyramid": "rgbd_slam_tpu/ops/pallas_lk.py:472",
             "lk_level": "rgbd_slam_tpu/ops/pallas_lk.py:514",
-            "components": "rgbd_slam_tpu/features/primitives.py:267"}
+            "components": "rgbd_slam_tpu/features/primitives.py:267",
+            "lm_solve": "rgbd_slam_tpu/pose/optimizer.py:50 (XLA: lax.scan over jax.linearize)"}
 SOURCES = {"lk_fwd_bwd": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "lk_pyramid": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "lk_level": "rgbd_slam_tpu_torch/csrc/lk.cu",
-           "components": "rgbd_slam_tpu_torch/csrc/components.cu"}
+           "components": "rgbd_slam_tpu_torch/csrc/components.cu",
+           "lm_solve": "rgbd_slam_tpu_torch/csrc/lm.cu"}
+#: the two lm_solve calls of a plane step, in their order
+LM_CALLS = ("hypotheses", "refit_mc")
+#: the lm phase's tolerances.  A linearization's cost and normal equations
+#: against the plain version's at the same point in float64: each entry within
+#: LM_LINEARIZATION_RTOL (LM_COST_RTOL for the cost) of the member's largest
+#: entry of its kind, plus LM_SPREAD_FACTOR times how far moving every input
+#: and the point by an ulp moves that entry (the largest of LM_SPREAD_DRAWS
+#: seeded draws of the ulps' signs).  Float32 resolves a Jtr near the optimum,
+#: or the direction of an inverse-depth point's short projected segment, no
+#: better than that, and a row's value and tangents pass through some 30
+#: roundings (the pose, the projection, the distance), each of which may move
+#: them as far as an ulp of the inputs does.  A trial against the plain
+#: version's damped step from the same state: within LM_POSITION_TOL_MM (mm)
+#: and LM_STEREO_TOL.
+LM_LINEARIZATION_RTOL = 1e-4
+LM_COST_RTOL = 1e-4
+LM_POSITION_TOL_MM = 1e-3
+LM_STEREO_TOL = 1e-5
+LM_SPREAD_FACTOR = 32.0
+LM_SPREAD_DRAWS = 3
+#: launches of the full LM that must each repeat the first to the bit (a race
+#: on the kernel's shared memory would show as a run that differs)
+LM_REPEATS = 32
 #: plane frames the graph phase runs eagerly and as a CUDA graph, and the
 #: replays it profiles
 GRAPH_FRAMES = 30
@@ -305,7 +346,7 @@ def ptxas_usage(log: str):
     for name, body in re.findall(
             r"Function properties for (\w+)\n(.*?)(?=ptxas info\s*: Compiling|\Z)", log,
             flags=re.S):
-        kernel = re.search(r"(?:lk_\w+|components)_kernel", name)
+        kernel = re.search(r"(?:lk_\w+|components|lm_solve)_kernel", name)
         regs = re.search(r"Used (\d+) registers", body)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         if kernel and regs and spills:
@@ -318,10 +359,11 @@ def ptxas_usage(log: str):
 def reset_launches():
     lk_cuda.reset_launches()
     components_cuda.reset_launches()
+    lm_cuda.reset_launches()
 
 
 def launch_counts() -> dict:
-    return {**lk_cuda.LAUNCHES, **components_cuda.LAUNCHES}
+    return {**lk_cuda.LAUNCHES, **components_cuda.LAUNCHES, **lm_cuda.LAUNCHES}
 
 
 def _room_pair(cam, device):
@@ -542,6 +584,293 @@ def check_components(cam, cfg, device):
                                                     "bound_by")})
         _say("kernel", **fields)
     return result
+
+
+def lm_call_sites(cam, cfg, device, frames, with_planes=True, with_lines=False):
+    """The inputs of the two ``lm_cuda.lm_solve`` calls (the hypothesis batch,
+    then the refit + Monte-Carlo batch) of each of ``frames`` but the first,
+    recorded from an eager ``engine.step`` on the card: a list, a frame each,
+    of {name: (inputs, coeffs0, iterations, damping0)}."""
+    calls = []
+    solve = lm_cuda.lm_solve
+
+    def record(inputs, coeffs0, iterations, damping0, details=False):
+        calls.append((lm_cuda.LMInputs(*(t.clone() if isinstance(t, torch.Tensor) else t
+                                         for t in inputs)),
+                      coeffs0.clone(), iterations, damping0))
+        return solve(inputs, coeffs0, iterations, damping0, details)
+
+    stepper = step_graph.EagerStep(engine.init_state(cam, cfg, seed=SEED, device=device),
+                                   cam, cfg, with_planes=with_planes, with_lines=with_lines)
+    staged = runner.stage_frames(frames, device=device)
+    stepper.step(*staged[0])
+    lm_cuda.lm_solve = record
+    try:
+        for frame in staged[1:]:
+            stepper.step(*frame)
+    finally:
+        lm_cuda.lm_solve = solve
+    torch.cuda.synchronize()
+    if len(calls) != 2 * (len(frames) - 1):
+        raise RuntimeError(f"lm phase: {len(frames) - 1} steps called lm_solve {len(calls)} "
+                           "times")
+    return [dict(zip(LM_CALLS, calls[i:i + 2])) for i in range(0, len(calls), 2)]
+
+
+def _widened(inputs: lm_cuda.LMInputs, ulps=None) -> lm_cuda.LMInputs:
+    """The inputs in float64, each float first moved by an ulp of float32 in a
+    direction drawn from the generator ``ulps`` (None: not moved)."""
+    def wide(t):
+        if not isinstance(t, torch.Tensor) or not t.is_floating_point():
+            return t
+        return _ulp_moved(t, ulps).double()
+
+    return lm_cuda.LMInputs(*(wide(t) for t in inputs))
+
+
+def _ulp_moved(t, ulps):
+    if ulps is None:
+        return t
+    up = torch.rand(t.shape, generator=ulps, device=t.device) < 0.5
+    return torch.nextafter(t, torch.where(up, math.inf, -math.inf).to(t.dtype))
+
+
+def normal_equation_errors(inputs: lm_cuda.LMInputs, damping0: float, points, costs, jtjs,
+                           jtrs) -> dict:
+    """The cost and normal equations of an LM run at its linearization points
+    (``points`` [B, L, 6], ``costs`` [B, L], ``jtjs`` [B, L, 6, 6], ``jtrs`` [B,
+    L, 6]) against the plain version's at the same points in float64, in units
+    of the tolerance (see ``LM_LINEARIZATION_RTOL``): {"jtj", "jtr", "cost":
+    the worst over the run [B] (at most 1 passes), and the same as the
+    largest error relative to the largest entry, ``*_of_largest``}.  A point
+    that is not finite is skipped (the decisions reject it)."""
+    b, n_lin = points.shape[:2]
+    keys = ("jtj", "jtr", "cost")
+    got = dict(zip(keys, (jtjs, jtrs, costs)))
+    rtol = dict(jtj=LM_LINEARIZATION_RTOL, jtr=LM_LINEARIZATION_RTOL, cost=LM_COST_RTOL)
+    zeros = torch.zeros(b, dtype=torch.float64, device=points.device)
+    out = {k: zeros.clone() for k in keys + tuple(f"{k}_of_largest" for k in keys)}
+    tiny = torch.finfo(torch.float64).tiny
+    exact = _widened(inputs)
+    for j in range(n_lin):
+        finite = torch.isfinite(points[:, j]).all(-1)
+        at = torch.where(finite[:, None], points[:, j], 0.0)
+        want = lm_cuda.lm_solve_reference(exact, at.double(), 0, damping0, details=True)
+        spread = {k: torch.zeros_like(getattr(want, k)) for k in keys}
+        ulps = torch.Generator(device=points.device).manual_seed(j)
+        for _ in range(LM_SPREAD_DRAWS):
+            moved = lm_cuda.lm_solve_reference(_widened(inputs, ulps),
+                                               _ulp_moved(at, ulps).double(), 0, damping0,
+                                               details=True)
+            for k in keys:
+                spread[k] = torch.maximum(spread[k], (getattr(moved, k) - getattr(want, k)).abs())
+        for k in keys:
+            w = getattr(want, k).reshape(b, -1)
+            err = (got[k][:, j].double().reshape(b, -1) - w).abs()
+            scale = w.abs().amax(-1, keepdim=True)
+            tol = rtol[k] * scale + LM_SPREAD_FACTOR * spread[k].reshape(b, -1)
+            for key, e in ((k, (err / tol.clamp_min(tiny)).amax(-1)),
+                           (f"{k}_of_largest", (err / scale.clamp_min(tiny)).amax(-1))):
+                e = torch.where(finite, torch.nan_to_num(e, nan=math.inf), zeros)
+                out[key] = torch.maximum(out[key], e)
+    return out
+
+
+def lm_replay(inputs: lm_cuda.LMInputs, damping0: float, got: lm_cuda.LMResult) -> dict:
+    """Hold an LM run ``got`` (``lm_cuda.lm_solve(..., details=True)`` over a
+    batch [B]) to the rules of the LM step by step, each step from the run's
+    own state, so that a decision that a tie flipped does not carry over:
+
+    1. each linearization (the start, then each finite trial) against the plain
+       version's at the same point (:func:`normal_equation_errors`);
+    2. each decision from the run's own costs: accept exactly when the trial's
+       cost is below the best point's and the trial is finite;
+    3. each trial against ``lm_cuda.damped_step`` from the best point so far,
+       its normal equations and the damping that the decisions give, within
+       ``LM_POSITION_TOL_MM`` and ``LM_STEREO_TOL``;
+    4. the point, cost and normal equations returned are the best point's, to
+       the bit.
+
+    Returns {name: [B]}: those of (1), and ``step`` (3) in units of the
+    tolerance (at most 1 passes); ``decisions``, the wrong decisions (2);
+    ``result``, whether (4) failed; ``step_abs``, the largest |trial - plain
+    step| in either unit."""
+    b, n_lin = got.points.shape[:2]
+    out = normal_equation_errors(inputs, damping0, got.points, got.costs, got.jtjs, got.jtrs)
+    zeros = torch.zeros(b, dtype=torch.float64, device=got.points.device)
+    out.update(step=zeros.clone(), step_abs=zeros.clone())
+
+    def worst(key, err, where):
+        err = torch.where(where, torch.nan_to_num(err.double(), nan=math.inf), zeros)
+        out[key] = torch.maximum(out[key], err)
+
+    best, best_cost = got.points[:, 0], got.costs[:, 0]
+    jtj, jtr = got.jtjs[:, 0], got.jtrs[:, 0]
+    damping = torch.full((b,), damping0, dtype=torch.float32, device=best.device)
+    decisions = torch.zeros(b, dtype=torch.int64, device=best.device)
+    for j in range(1, n_lin):
+        trial, point = lm_cuda.damped_step(best, jtj, jtr, damping), got.points[:, j]
+        either = torch.isfinite(trial).all(-1) | torch.isfinite(point).all(-1)
+        d_pos = (point[:, :3] - trial[:, :3]).abs().amax(-1)
+        d_st = (point[:, 3:] - trial[:, 3:]).abs().amax(-1)
+        worst("step", torch.maximum(d_pos / LM_POSITION_TOL_MM, d_st / LM_STEREO_TOL), either)
+        worst("step_abs", torch.maximum(d_pos, d_st), either)
+        take = ((got.accepts >> (j - 1)) & 1).bool()
+        rule = (got.costs[:, j] < best_cost) & torch.isfinite(point).all(-1)
+        decisions += (take != rule).to(torch.int64)
+        best = torch.where(take[:, None], point, best)
+        best_cost = torch.where(take, got.costs[:, j], best_cost)
+        jtj = torch.where(take[:, None, None], got.jtjs[:, j], jtj)
+        jtr = torch.where(take[:, None], got.jtrs[:, j], jtr)
+        damping = lm_cuda.next_damping(damping, take)
+    out["decisions"] = decisions
+
+    def differ(x, y):
+        return (x.reshape(b, -1).view(torch.int32) != y.reshape(b, -1).view(torch.int32)).any(-1)
+
+    out["result"] = (differ(got.coeffs, best) | differ(got.cost, best_cost)
+                     | differ(got.jtj, jtj) | differ(got.jtr, jtr))
+    return out
+
+
+def lm_failures(replay: dict):
+    """The members a replay (:func:`lm_replay`) fails, [B] bool."""
+    return ((replay["jtj"] > 1) | (replay["jtr"] > 1) | (replay["cost"] > 1)
+            | (replay["step"] > 1) | (replay["decisions"] > 0) | replay["result"])
+
+
+def lm_sources(cam, cfg, device, frames):
+    """The inputs of the lm phase, by source: the plane step's second
+    room-orbit frame (the main path's frame, and the one timed); the low-texture
+    striped wall's second frame with lines on (live line rows); of the hard
+    scene's second and third frames (depth holes), the one with the most live
+    inverse-depth points.  {source: {name: (inputs, coeffs0, iterations,
+    damping0)}}; each source but the first fails unless its rows are live."""
+    wall = synthetic.StripeWallScene(cam, texture_scale=0.03, stripe_period_z=2400.0)
+    wall_frames = [wall.render(q, p) for q, p in synthetic.lateral_trajectory(2, speed_mm=4.0)]
+    hard_frames, _ = hard_orbit(cam, 3)
+
+    def live(calls, kind):
+        return sum(lm_cuda.lm_work(c[0], c[1], 1)["live"][kind] for c in calls.values())
+
+    sources = {
+        "plane": lm_call_sites(cam, cfg, device, frames[:2])[0],
+        "lines": lm_call_sites(cam, cfg, device, wall_frames, with_planes=False,
+                               with_lines=True)[0],
+        "points2d": max(lm_call_sites(cam, cfg, device, hard_frames),
+                        key=lambda calls: live(calls, 1)),
+    }
+    for source, kind in (("lines", 3), ("points2d", 1)):
+        if live(sources[source], kind) == 0:
+            raise RuntimeError(f"lm phase: no live {source} rows in its frames")
+    return sources
+
+
+def check_lm(cam, cfg, device, frames):
+    """Phase ``lm``: the LM kernel against its plain version on the inputs of
+    both ``lm_solve`` calls of three frames (:func:`lm_sources`).
+
+    (a) One linearization (``iterations=0``, ``details=True``: the best point
+    is the start, so JtJ, Jtr and the cost are the start's): each within
+    ``LM_LINEARIZATION_RTOL`` of the largest entry of the plain ``vmap(jvp)``
+    normal equations of its member.  (b) The full LM, held to the plain
+    version step by step (:func:`lm_replay`), and ``LM_REPEATS`` more
+    launches each equal to the first to the bit.  Then
+    the kernel's result beside the plain version's full LM from the same
+    start: a member whose cost differs by more than ``LM_COST_RTOL`` or whose
+    coefficients by more than ``LM_POSITION_TOL_MM`` and ``LM_STEREO_TOL`` is
+    printed with both accept sequences (bit i: iteration i + 1).  That
+    comparison gates nothing: a trial whose cost ties the best within rounding
+    is decided otherwise by two versions that sum in other orders, and from
+    there the two runs follow other paths (the plain version with its rows
+    reversed does so too).  Then, on the plane step's inputs, the times:
+    ``ms`` and ``plain_ms`` a call, ``device_us`` a launch replayed from a
+    CUDA graph, and the bound from ``lm_cuda.lm_work``.  No PyTorch call runs a
+    batched damped LM: ``library_ms`` is null.  Returns the kernel line's
+    fields, summed over the two calls of a frame, with each call's under
+    ``shapes``; ``max_abs_err`` is the largest |kernel trial - plain step| of
+    every replayed step (mm or stereographic)."""
+    shapes, max_step = {}, 0.0
+    for source, calls in lm_sources(cam, cfg, device, frames).items():
+        for name, (inputs, coeffs0, iterations, damping0) in calls.items():
+            lin = lm_cuda.lm_solve(inputs, coeffs0, 0, damping0, details=True)
+            torch.cuda.synchronize()
+            lin_err = {k: float(v.max()) for k, v in normal_equation_errors(
+                inputs, damping0, lin.points, lin.costs, lin.jtjs, lin.jtrs).items()}
+            if not all(lin_err[k] <= 1 for k in ("jtj", "jtr", "cost")):
+                raise RuntimeError(f"lm phase, {source} {name}: one linearization differs "
+                                   f"from the plain normal equations: {lin_err} (units of "
+                                   "the tolerance, and of the largest entry)")
+
+            got = lm_cuda.lm_solve(inputs, coeffs0, iterations, damping0, details=True)
+            repeat = all(_bit_equal(got, lm_cuda.lm_solve(inputs, coeffs0, iterations,
+                                                          damping0, details=True))
+                         for _ in range(LM_REPEATS))
+            replay = lm_replay(inputs, damping0, got)
+            failing = lm_failures(replay)
+            max_step = max(max_step, float(replay["step_abs"].max()))
+            want = lm_cuda.lm_solve_reference(inputs, coeffs0, iterations, damping0,
+                                              details=True)
+            d_pos = (got.coeffs[:, :3] - want.coeffs[:, :3]).abs().amax(-1)
+            d_st = (got.coeffs[:, 3:] - want.coeffs[:, 3:]).abs().amax(-1)
+            d_cost = (got.cost - want.cost) / want.cost.abs()
+            outside = ((d_pos > LM_POSITION_TOL_MM) | (d_st > LM_STEREO_TOL)
+                       | (d_cost.abs() > LM_COST_RTOL))
+            finite = bool(torch.isfinite(got.coeffs).all() and torch.isfinite(got.cost).all())
+            work = lm_cuda.lm_work(inputs, coeffs0, iterations + 1)
+            fields = dict(
+                batch=work["batch"], capacities=list(inputs.capacities),
+                iterations=iterations, live_features=work["live"], rows=work["rows"],
+                linearization_err=lin_err,
+                replay_worst_of_tolerance={k: float(replay[k].max())
+                                           for k in ("jtj", "jtr", "cost", "step")},
+                replay_worst_of_largest={k: float(replay[f"{k}_of_largest"].max())
+                                         for k in ("jtj", "jtr", "cost")},
+                replay_wrong_decisions=int(replay["decisions"].sum()),
+                replay_results_off_their_best=int(replay["result"].sum()),
+                replay_failing_members=int(failing.sum()),
+                max_step_abs_err=float(replay["step_abs"].max()),
+                repeat_bit_equal=repeat, all_finite=finite,
+                members_outside_tolerance=int(outside.sum()),
+                members_differing_accepts=int((got.accepts != want.accepts).sum()),
+                max_d_position_mm=float(d_pos.max()),
+                max_cost_above_plain_rel=float(d_cost.max()),
+                max_cost_below_plain_rel=float(-d_cost.min()))
+            if source == "plane":
+                bound_ms, bound_by = bound_of(work)
+                fields.update(
+                    mflop=work["flops"] / 1e6, kbytes=work["bytes"] / 1e3,
+                    ms=_median_ms(lambda: lm_cuda.lm_solve(inputs, coeffs0, iterations,
+                                                           damping0)),
+                    plain_ms=_median_ms(lambda: lm_cuda.lm_solve_reference(
+                        inputs, coeffs0, iterations, damping0), reps=5),
+                    device_us=graph_launch_us(
+                        lambda: lm_cuda.lm_solve(inputs, coeffs0, iterations, damping0)),
+                    bound_ms=bound_ms, bound_by=bound_by, flops=work["flops"],
+                    bytes=work["bytes"])
+                shapes[name] = fields
+            _say("lm", source=source, shape=name, **fields)
+            for m in torch.nonzero(outside | failing).flatten().tolist():
+                _say("lm", source=source, shape=name, member=m,
+                     kernel_accepts=f"{int(got.accepts[m]):0{iterations}b}",
+                     plain_accepts=f"{int(want.accepts[m]):0{iterations}b}",
+                     d_position_mm=float(d_pos[m]), d_stereo=float(d_st[m]),
+                     d_cost_rel=float(d_cost[m]), replay_fails=bool(failing[m]),
+                     **{f"replay_{k}": float(replay[k][m])
+                        for k in ("jtj", "jtr", "cost", "step", "decisions")})
+            if not (repeat and finite) or bool(failing.any()):
+                raise RuntimeError(
+                    f"lm phase, {source} {name}: repeat bit-equal {repeat}, finite {finite}, "
+                    f"{int(failing.sum())} members off the plain version's steps")
+    total = {k: sum(s[k] for s in shapes.values())
+             for k in ("ms", "plain_ms", "device_us", "flops", "bytes")}
+    bound_ms, bound_by = bound_of(total)
+    return dict(max_abs_err=max_step,
+                ms=total["ms"], plain_ms=total["plain_ms"], device_us=total["device_us"],
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shapes={name: {k: s[k] for k in ("batch", "iterations", "ms", "plain_ms",
+                                                 "device_us", "bound_ms", "bound_by")}
+                        for name, s in shapes.items()})
 
 
 def host_sync_sites(fn):
@@ -875,7 +1204,8 @@ def run_tum_cli(cam, frames, poses, gt):
         with open(report_path) as f:
             report = json.load(f)
     stats = report["stats"]
-    launches = {**report["lk_launches"], **report["components_launches"]}
+    launches = {**report["lk_launches"], **report["components_launches"],
+                **report["lm_launches"]}
     ate_file = ate_rmse(traj[:, 1:4], gt)
     vertices = sum(ln.startswith("v ") for ln in map_lines)
     features = sum(ln.startswith(("p ", "l ", "f ")) for ln in map_lines)
@@ -1060,11 +1390,12 @@ def main() -> int:
     _say("device", card=card, torch=torch.__version__, cuda=torch.version.cuda)
 
     # one nvcc a source, started together
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = {"csrc/lk.cu": pool.submit(lk_cuda.build),
-                  "csrc/components.cu": pool.submit(components_cuda.build)}
+                  "csrc/components.cu": pool.submit(components_cuda.build),
+                  "csrc/lm.cu": pool.submit(lm_cuda.build)}
         _say("build", **{src: f"{job.result():.1f} s" for src, job in builds.items()})
-    for log in (lk_cuda.BUILD_LOG, components_cuda.BUILD_LOG):
+    for log in (lk_cuda.BUILD_LOG, components_cuda.BUILD_LOG, lm_cuda.BUILD_LOG):
         for kernel, usage in ptxas_usage(log).items():
             _say("ptxas", kernel=kernel, **usage)
 
@@ -1075,6 +1406,7 @@ def main() -> int:
 
     poses = synthetic.orbit_trajectory(JAX_REFERENCE["planes"]["frames"], speed_mm=4.0)
     frames, gt = room_frames(cam, len(poses))
+    kernels["lm_solve"] = check_lm(cam, cfg, device, frames)
     run_graph_phase(cam, cfg, device, frames, card)
     cfg_fwd = dataclasses.replace(cfg, mapping=dataclasses.replace(
         cfg.mapping, max_tracked_points=FORWARD_ONLY_TRACKED))
@@ -1083,7 +1415,7 @@ def main() -> int:
     paths = [
         run_path("planes", cam, cfg, device, frames, gt, FUSED_ONLY, reference="planes"),
         run_path("forward_only", cam, cfg_fwd, device, frames[:n_fwd], gt[:n_fwd],
-                 {"lk_fwd_bwd": 0, "lk_pyramid": 2, "lk_level": 0, "components": 1},
+                 {**FUSED_ONLY, "lk_fwd_bwd": 0, "lk_pyramid": 2},
                  reference="forward_only"),
         run_path("points", cam, cfg, device, frames[:n_pts], gt[:n_pts], FUSED_ONLY,
                  with_planes=False, reference="points"),

@@ -2,9 +2,10 @@
 Monte-Carlo pose covariance (port of ``rgbd_slam_tpu/pose/optimizer.py``).
 
 The JAX package vmaps one LM over hypotheses and Monte-Carlo members; here the
-batch is a leading axis of every tensor.  Jacobians of the stacked residual with
-respect to the 6 pose coefficients come from forward-mode AD (``torch.func.jvp``
-vmapped over the 6 unit tangents), the counterpart of ``jax.linearize``.
+batch is a leading axis of every tensor.  The LM itself is ``ops/lm_cuda``: a
+CUDA kernel on the card that carries the six tangents of the stacked residual
+in registers, the counterpart of ``jax.linearize``, and on the CPU its plain
+version, forward-mode AD (``torch.func.jvp`` vmapped over the 6 unit tangents).
 
 Randomness: :class:`PoseDraws` holds every draw of one call.  Given, nothing is
 drawn (the tests pass the JAX package's draws); absent, the draws come from the
@@ -16,17 +17,16 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.func import jvp, vmap
 
 from ..config import CameraIntrinsics, EngineConfig, RansacConfig
 from ..geometry import pinhole, se3
+from ..ops import lm_cuda
 from ..ops.fast import top_k
 from ..ops.p3p import p3p
 from .features import (LINE_SCORE, PLANE_SCORE, POINT2D_SCORE, POINT_SCORE,
                        MatchedFeatures)
-from .linalg6 import solve6_spd
 from .residuals import (VariationNoise, inlier_masks_prepared, prepare_features,
-                        random_variation, residual_vector_prepared)
+                        random_variation)
 
 
 class PoseOptimizationResult(NamedTuple):
@@ -96,60 +96,14 @@ def lm_solve(coeffs0, feats: MatchedFeatures, cam: CameraIntrinsics, weights=Non
     over the leading axes of ``coeffs0`` [..., 6] (and of ``feats``).  ``weights``
     (unified index space) keeps only the features with a positive weight.
 
-    LM accept/reject with deferred evaluation: each iteration linearizes the
-    residual once at the pending trial point, folds the trial into the running
-    best if its cost decreased (damping /2 on accept, x4 on reject), and emits
-    the next trial from the best point's normal equations.  Returns (coeffs,
-    final_cost)."""
+    The features are prepared and packed once (``lm_cuda.pack``); CUDA tensors
+    run the LM kernel (``csrc/lm.cu``), CPU tensors its plain version,
+    ``lm_cuda.lm_solve_reference`` (forward-mode Jacobians by ``vmap(jvp)``).
+    Returns (coeffs, final_cost)."""
     if weights is not None:
         feats = feats.with_masks(*(w > 0 for w in feats.split_unified(weights)))
-    if coeffs0.dim() == 1:
-        # forward AD of python-scalar arithmetic on 0-dim tensors yields float64
-        # tangents, so a single pose runs as a batch of one
-        coeffs, cost = lm_solve(coeffs0[None], feats, cam, iterations=iterations,
-                                damping0=damping0)
-        return coeffs[0], cost[0]
-    dt = coeffs0.dtype
-    prep = prepare_features(feats, cam)
-    eye6 = torch.eye(6, dtype=dt, device=coeffs0.device)
-
-    def res_fn(c):
-        return residual_vector_prepared(c, prep, cam)
-
-    def res_and_jac(c):
-        tangents = eye6.reshape((6,) + (1,) * (c.dim() - 1) + (6,)).expand(
-            (6,) + c.shape)
-        r, jac = vmap(lambda t: jvp(res_fn, (c,), (t,)), out_dims=(0, -1))(tangents)
-        return r[0], jac                     # [..., R], [..., R, 6]
-
-    def normal_eq(r, jac):
-        jt = jac.transpose(-1, -2)
-        return jt @ jac, (jt @ r[..., None])[..., 0]
-
-    def trial_from(best_c, jtj, g, damping):
-        diag = torch.clamp_min(torch.diagonal(jtj, dim1=-2, dim2=-1), 1e-8)
-        a = jtj + damping[..., None, None] * torch.diag_embed(diag) + 1e-12 * eye6
-        return best_c + solve6_spd(a, -g)
-
-    r0, jac0 = res_and_jac(coeffs0)
-    best_c = coeffs0
-    best_cost = torch.sum(r0 * r0, dim=-1)
-    jtj, g = normal_eq(r0, jac0)
-    damping = torch.full(best_cost.shape, damping0, dtype=dt, device=coeffs0.device)
-    trial = trial_from(best_c, jtj, g, damping)
-    for _ in range(iterations):
-        r_t, jac_t = res_and_jac(trial)
-        cost_t = torch.sum(r_t * r_t, dim=-1)
-        accept = (cost_t < best_cost) & torch.isfinite(trial).all(dim=-1)
-        best_c = torch.where(accept[..., None], trial, best_c)
-        best_cost = torch.where(accept, cost_t, best_cost)
-        jtj_t, g_t = normal_eq(r_t, jac_t)
-        jtj = torch.where(accept[..., None, None], jtj_t, jtj)
-        g = torch.where(accept[..., None], g_t, g)
-        damping = torch.clamp(torch.where(accept, damping * 0.5, damping * 4.0),
-                              1e-9, 1e6)
-        trial = trial_from(best_c, jtj, g, damping)
-    return best_c, best_cost
+    inputs = lm_cuda.pack(prepare_features(feats, cam), cam)
+    return lm_cuda.lm_solve(inputs, coeffs0, iterations, damping0)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 Every function broadcasts a batch of poses against a batch of feature sets:
 ``coeffs`` [..., 6] and prepared features [..., N, k] (or unbatched [N, k]) give
-[..., R] residuals.  Jacobians come from ``torch.func`` forward mode in
-``optimizer.lm_solve``.
+[..., R] residuals.  Their Jacobians come from ``torch.func`` forward mode in
+``ops/lm_cuda.lm_solve_reference``, and from the LM kernel (``csrc/lm.cu``),
+which evaluates the same rows in forward mode on the card.
 """
 
 from __future__ import annotations

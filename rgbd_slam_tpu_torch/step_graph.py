@@ -39,12 +39,12 @@ import torch
 
 from . import engine
 from .config import CameraIntrinsics, SlamConfig
-from .ops import components_cuda, lk_cuda
+from .ops import components_cuda, lk_cuda, lm_cuda
 
 #: eager steps (on a copy of the state) before the step is recorded
 WARMUP_STEPS = 1
 #: the launch counts of the kernels a step can launch
-_COUNTERS = (lk_cuda.LAUNCHES, components_cuda.LAUNCHES)
+_COUNTERS = (lk_cuda.LAUNCHES, components_cuda.LAUNCHES, lm_cuda.LAUNCHES)
 
 
 def tree_map(fn, tree):

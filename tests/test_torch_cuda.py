@@ -11,9 +11,9 @@ import pytest
 import torch
 
 from rgbd_slam_tpu_torch import config, convert, engine, synthetic
-from rgbd_slam_tpu_torch.ops import fast, image, lk_cuda
+from rgbd_slam_tpu_torch.ops import fast, image, lk_cuda, lm_cuda
 from rgbd_slam_tpu_torch.pose.optimizer import PoseDraws
-from rgbd_slam_tpu_torch.pose.residuals import VariationNoise
+from rgbd_slam_tpu_torch.pose.residuals import VariationNoise, prepare_features
 
 #: 0.05 px: the kernel and the plain version sum the window's products in a
 #: different order, which can move one convergence test by one iteration, and
@@ -562,21 +562,24 @@ def test_step_graph_equals_the_eager_step(cuda, with_lines):
     eager = engine.init_state(cam, cfg, seed=0, device=cuda)
     graph = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=cuda), cam, cfg,
                                  with_lines=with_lines)
-    counts = [0, 0]
+    counts = [0, 0, 0]
     try:
         for i, (gray, depth) in enumerate(frames):
-            before = (lk_cuda.LAUNCHES["lk_fwd_bwd"], components_cuda.LAUNCHES["components"])
+            before = (lk_cuda.LAUNCHES["lk_fwd_bwd"], components_cuda.LAUNCHES["components"],
+                      lm_cuda.LAUNCHES["lm_solve"])
             g_state, g_out = graph.step(gray, depth)
             counts[0] += lk_cuda.LAUNCHES["lk_fwd_bwd"] - before[0]
             counts[1] += components_cuda.LAUNCHES["components"] - before[1]
+            counts[2] += lm_cuda.LAUNCHES["lm_solve"] - before[2]
             eager, e_out = engine.step(eager, gray, depth, cam, cfg, with_lines=with_lines)
             _assert_bit_equal(g_out, e_out, f"frame {i} output")
             _assert_bit_equal(g_state, eager, f"frame {i} state")
             assert torch.equal(g_state.generator.get_state(), eager.generator.get_state())
     finally:
         graph.close()
-    # one launch of each kernel a replay, and one in the warm-up step
-    assert graph.warmup_steps == 1 and counts == [11, 11], counts
+    # one launch of each kernel a replay (two of the LM kernel), and as many in
+    # the warm-up step
+    assert graph.warmup_steps == 1 and counts == [11, 11, 22], counts
 
 
 @pytest.mark.cuda
@@ -684,3 +687,126 @@ def test_a_warmed_step_reads_the_host_nowhere(cuda, path):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def _lm_case(name, device):
+    """(packed inputs, coeffs0 [B, 6], iterations) of an LM
+    case of ``torch_lm_cases`` on ``device``: the main path's two shapes, or
+    one of the CPU test's cases."""
+    import torch_lm_cases
+
+    if name.startswith("main_"):
+        feats, c0, iterations = torch_lm_cases.main_path_batches(11)[name[len("main_"):]]
+        weights = None
+    else:
+        feats, c0, weights, iterations = torch_lm_cases.cases()[name]
+    if weights is not None:
+        feats = feats.with_masks(*(w > 0 for w in feats.split_unified(weights)))
+    feats = type(feats)(*(t.to(device) for t in feats))
+    inputs = lm_cuda.pack(prepare_features(feats, torch_lm_cases.CAM), torch_lm_cases.CAM)
+    c0 = c0.to(device)
+    return inputs, (c0 if c0.dim() > 1 else c0[None]), iterations
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["main_hypotheses", "main_refit_mc", "hypotheses", "refit",
+                                  "unbatched_features", "single_pose", "weights",
+                                  "batched_weights", "edges", "planes_and_lines_empty"])
+def test_lm_kernel_matches_its_plain_version(cuda, name):
+    """The LM kernel against ``lm_solve_reference`` on the card: at the main
+    path's two shapes (32 hypotheses over 6/6/3/6 subsets, 10 iterations; 101
+    refit + Monte-Carlo members over 256/128/32/16 features, 6 iterations)
+    and on the CPU test's cases (a point behind the camera, a zero-length
+    inverse-depth segment and a degenerate line; empty plane and line blocks;
+    unbatched features, a single pose, weights).  One linearization, then the
+    full LM held to the plain version step by step (``chip_smoke.lm_replay``,
+    at ``chip_smoke``'s ``LM_*`` tolerances): every linearization, decision and
+    trial of the kernel's run, and its result the best point's."""
+    import chip_smoke
+
+    inputs, c0, iterations = _lm_case(name, cuda)
+    before = lm_cuda.LAUNCHES["lm_solve"]
+    lin = lm_cuda.lm_solve(inputs, c0, 0, 1e-3, details=True)
+    torch.cuda.synchronize()
+    assert lm_cuda.LAUNCHES["lm_solve"] == before + 1
+    assert torch.equal(lin.coeffs, c0) and torch.equal(lin.accepts, torch.zeros_like(lin.accepts))
+    lin_err = chip_smoke.normal_equation_errors(inputs, 1e-3, lin.points, lin.costs, lin.jtjs,
+                                                lin.jtrs)
+    assert all(float(lin_err[k].max()) <= 1 for k in ("jtj", "jtr", "cost")), lin_err
+
+    got = lm_cuda.lm_solve(inputs, c0, iterations, 1e-3, details=True)
+    assert torch.isfinite(got.coeffs).all() and torch.isfinite(got.cost).all()
+    assert got.points.shape == (c0.shape[0], iterations + 1, 6)
+    assert torch.equal(got.points[:, 0], c0)
+    replay = chip_smoke.lm_replay(inputs, 1e-3, got)
+    bad = chip_smoke.lm_failures(replay)
+    assert not bad.any(), {k: v[bad] for k, v in replay.items()}
+
+
+@pytest.mark.cuda
+def test_lm_kernel_repeats_bit_equal(cuda):
+    """A fixed-order block reduction and no atomics: two launches on the same
+    inputs give the same bits, at both main-path shapes."""
+    for name in ("main_hypotheses", "main_refit_mc"):
+        inputs, c0, iterations = _lm_case(name, cuda)
+        first = lm_cuda.lm_solve(inputs, c0, iterations, 1e-3, details=True)
+        second = lm_cuda.lm_solve(inputs, c0, iterations, 1e-3, details=True)
+        _assert_bit_equal(first, second, name)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_raises_and_never_falls_back(cuda, monkeypatch):
+    """On the card ``optimizer.lm_solve`` launches the kernel or raises: a
+    failed build and a failed launch raise, and the plain version is never
+    called."""
+    from rgbd_slam_tpu_torch.ops import nvcc
+    from rgbd_slam_tpu_torch.pose import optimizer
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain LM ran on the card")
+
+    monkeypatch.setattr(lm_cuda, "lm_solve_reference", refuse)
+    import torch_lm_cases
+
+    feats, c_cpu, _, _ = torch_lm_cases.cases()["single_pose"]
+    feats = type(feats)(*(t.to(cuda) for t in feats))
+    coeffs, cost = optimizer.lm_solve(c_cpu.to(cuda), feats, torch_lm_cases.CAM)
+    assert coeffs.device.type == "cuda" and torch.isfinite(cost)
+
+    class Refusing:
+        @staticmethod
+        def lm_solve_launch(*args):
+            return 1   # cudaErrorInvalidValue
+
+    monkeypatch.setattr(lm_cuda, "_lib", Refusing())
+    with pytest.raises(RuntimeError, match="LM kernel launch failed"):
+        optimizer.lm_solve(c_cpu.to(cuda), feats, torch_lm_cases.CAM)
+
+    def no_nvcc(*args, **kw):
+        raise RuntimeError("nvcc failed on lm.cu")
+
+    monkeypatch.setattr(lm_cuda, "_lib", None)
+    monkeypatch.setattr(nvcc, "load_library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        optimizer.lm_solve(c_cpu.to(cuda), feats, torch_lm_cases.CAM)
+
+
+@pytest.mark.cuda
+def test_graph_step_runs_the_lm_kernel_and_not_its_plain_version(cuda, monkeypatch):
+    """``run_frames`` on the card (the step as a CUDA graph) over 4 frames with
+    ``lm_solve_reference`` patched to raise: the plain LM is off the main path,
+    and the kernel runs twice a frame and twice in the warm-up step."""
+    from rgbd_slam_tpu_torch import runner
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain LM ran on the card")
+
+    monkeypatch.setattr(lm_cuda, "lm_solve_reference", refuse)
+    cam, cfg = config.TUM_FR1, config.SlamConfig()
+    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+    frames = [scene.render(q, p) for q, p in synthetic.orbit_trajectory(4, speed_mm=4.0)]
+    before = lm_cuda.LAUNCHES["lm_solve"]
+    _, traj, stats = runner.run_frames(frames, cam, cfg, device=cuda)
+    assert stats.warmup_steps == 1
+    assert lm_cuda.LAUNCHES["lm_solve"] - before == 2 * (4 + 1)
+    assert np.isfinite(traj.positions_array()).all()

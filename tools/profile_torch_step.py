@@ -15,7 +15,9 @@ and the keyframe / BA / pose-graph backend (``--ba-every``) on request.  The fra
 after a 5-frame warm-up are split in two: the first half is timed per stage
 (each stage's entry function gets a device sync on both sides and a host clock),
 the second half runs unstaged under ``torch.profiler`` for device time, kernel
-counts, device syncs and host reads per frame.  Eight more frames (one batch
+counts, device syncs and host reads per frame, and ``pose_opt``'s device time
+and kernels split into the hypotheses' LM, P3P, scoring and the refit with its
+Monte-Carlo covariance (``POSE_STAGES``).  Eight more frames (one batch
 of the runner's summary reads) run under ``torch.cuda.set_sync_debug_mode`` to
 name the package line of every host sync.  Each run segment is a ``run_frames``
 call of its own, so with ``--ba-every 8`` a refine fires only in a segment of
@@ -59,6 +61,7 @@ from rgbd_slam_tpu_torch.io import datasets  # noqa: E402
 from rgbd_slam_tpu_torch.ops import brief, fast, image, matching, optical_flow  # noqa: E402
 from rgbd_slam_tpu_torch.parallel.keyframes import KeyframeWindow  # noqa: E402
 from rgbd_slam_tpu_torch.parallel.pose_graph import PoseGraph  # noqa: E402
+from rgbd_slam_tpu_torch.pose import optimizer  # noqa: E402
 from rgbd_slam_tpu_torch.tracking import inverse_depth_tracking, kalman  # noqa: E402
 
 #: stage -> the (module or class, function name) pairs the step calls for it
@@ -84,6 +87,20 @@ STAGES = {
     "pose_graph": [(PoseGraph, "solve")],
 }
 
+
+#: the parts of ``pose_opt`` the profiled frames split it into: the LM of the
+#: RANSAC hypotheses (``lm_solve`` outside the refit), the P3P hypotheses, the
+#: hypotheses' and the final pose's scoring, and the refit with its
+#: Monte-Carlo covariance (one LM batch); the rest of ``pose_opt`` (subset
+#: draws, compaction, feature preparation) is ``pose_opt_other``
+POSE_STAGES = {
+    "lm_hypotheses": [(optimizer, "lm_solve")],
+    "p3p": [(optimizer, "p3p")],
+    "scoring": [(optimizer, "_score_pose")],
+    "refit_mc": [(optimizer, "refit_with_variance")],
+}
+#: prefix of the profiler ranges around the parts of ``pose_opt``
+POSE_PREFIX = "pose:"
 
 #: how the profiled runs step: eagerly, stage by stage
 EAGER = "eager: engine.step a frame (step_graph.EagerStep), not the CUDA graph run_frames " \
@@ -141,10 +158,14 @@ RANGE_PREFIX = "stage:"
 
 
 class StageRanges(StageTimer):
-    """Opens a ``torch.profiler.record_function`` range around the outermost
-    call of each stage function, with no sync and no clock: under
-    ``torch.profiler`` the kernels a stage launches are charged to it
-    (``device_breakdown``)."""
+    """Opens a ``torch.profiler.record_function`` range (named ``prefix`` +
+    the stage) around the outermost call of each stage function, with no sync
+    and no clock: under ``torch.profiler`` the kernels a stage launches are
+    charged to it (``device_breakdown``, ``range_breakdown``)."""
+
+    def __init__(self, stages=None, prefix=RANGE_PREFIX):
+        super().__init__(stages)
+        self.prefix = prefix
 
     def _wrap(self, stage, fn):
         def ranged(*args, **kw):
@@ -152,7 +173,7 @@ class StageRanges(StageTimer):
                 return fn(*args, **kw)
             self.active = True
             try:
-                with torch.profiler.record_function(RANGE_PREFIX + stage):
+                with torch.profiler.record_function(self.prefix + stage):
                     return fn(*args, **kw)
             finally:
                 self.active = False
@@ -184,6 +205,24 @@ def device_breakdown(prof, n_frames: int):
     per_frame = {k: v / n_frames for k, v in sorted(stages.items(), key=lambda kv: -kv[1])}
     per_frame["other"] = (total_us - sum(stages.values())) / n_frames
     return per_frame, total_us / n_frames, flops / n_frames, sorted(flop_ops)
+
+
+def _kernels_under(evt) -> int:
+    """Kernels launched by a profiler event and everything under it."""
+    return len(evt.kernels) + sum(_kernels_under(child) for child in evt.cpu_children)
+
+
+def range_breakdown(prof, n_frames: int, prefix: str) -> dict:
+    """Device µs and kernels a frame under each ``prefix`` range of a
+    ``torch.profiler`` run over ``n_frames`` frames (``StageRanges``)."""
+    parts = defaultdict(lambda: {"device_us": 0.0, "kernels": 0.0})
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA or not evt.name.startswith(prefix):
+            continue
+        part = parts[evt.name[len(prefix):]]
+        part["device_us"] += evt.device_time_total / n_frames
+        part["kernels"] += _kernels_under(evt) / n_frames
+    return dict(parts)
 
 
 def _card_line() -> str:
@@ -340,16 +379,32 @@ def main() -> int:
     timer.remove()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, _, _ = runner.run_frames(frames[warm + n_staged:args.frames], cam, cfg,
-                                        state=state, device=device, **run_kw)
-        torch.cuda.synchronize()
-        unstaged_ms = 1e3 * (time.perf_counter() - t0) / n_prof
+    ranges = [StageRanges({"pose_opt": STAGES["pose_opt"]}),
+              StageRanges(POSE_STAGES, prefix=POSE_PREFIX)]
+    for r in ranges:
+        r.install()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            state, _, _ = runner.run_frames(frames[warm + n_staged:args.frames], cam, cfg,
+                                            state=state, device=device, **run_kw)
+            torch.cuda.synchronize()
+            unstaged_ms = 1e3 * (time.perf_counter() - t0) / n_prof
+    finally:
+        for r in ranges:
+            r.remove()
+    pose = range_breakdown(prof, n_prof, RANGE_PREFIX).get(
+        "pose_opt", {"device_us": 0.0, "kernels": 0.0})
+    pose_parts = range_breakdown(prof, n_prof, POSE_PREFIX)
+    pose_parts["pose_opt_other"] = {
+        k: pose[k] - sum(p[k] for p in pose_parts.values()) for k in pose}
+    pose_parts["pose_opt"] = pose
     kernels, busy_us = 0, 0.0
     lk_us = defaultdict(list)
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        # a range also shows on the device's timeline: it is not a kernel
+        if evt.device_type == DeviceType.CUDA \
+                and not evt.name.startswith((RANGE_PREFIX, POSE_PREFIX)):
             kernels += 1
             us = evt.time_range.elapsed_us()
             busy_us += us
@@ -377,6 +432,7 @@ def main() -> int:
         "per_frame": {k: v / n_prof for k, v in counts.items()},
         "lk_kernel_us_per_launch": {k: float(np.mean(v)) for k, v in lk_us.items()},
         "lk_launches_per_frame": {k: len(v) / n_prof for k, v in lk_us.items()},
+        "pose_opt_per_frame": pose_parts,
         "sync_sites_per_frame": sync_sites,
     }))
     return 0
