@@ -346,7 +346,7 @@ def ptxas_usage(log: str):
     for name, body in re.findall(
             r"Function properties for (\w+)\n(.*?)(?=ptxas info\s*: Compiling|\Z)", log,
             flags=re.S):
-        kernel = re.search(r"(?:lk_\w+|components|lm_solve)_kernel", name)
+        kernel = re.search(r"(?:lk_\w+|components|lm_solve)_kernel(?:_warp)?", name)
         regs = re.search(r"Used (\d+) registers", body)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         if kernel and regs and spills:
@@ -522,37 +522,52 @@ def check_kernels(cam, cfg, device):
     return results
 
 
+def cell_graph(cam, cfg, depth, device):
+    """(edges, planar, gh, gw): the cell graph ``find_primitives`` builds from
+    a depth map, the components kernel's input."""
+    det = cfg.detection
+    gh, gw = cam.height // det.depth_patch_size_px, cam.width // det.depth_patch_size_px
+    cloud, valid = depth_to_cloud(torch.as_tensor(depth, device=device), cam)
+    grid = primitives.fit_cells(cloud, valid, det)
+    edges = primitives._edge_maps(grid, gh, gw,
+                                  math.cos(math.radians(det.max_plane_merge_angle_d)))
+    return edges.contiguous(), grid.planar.contiguous(), gh, gw
+
+
 def components_cases(cam, cfg, device):
     """(name, edges, planar, gh, gw) of the components kernel's checks: the
     cell graph ``find_primitives`` builds from a 640x480 RoomScene depth map
     (the main path's input), a serpentine one-cell-wide component through the
     same grid (the longest chain) and the grid in one component."""
-    det = cfg.detection
-    depth = torch.as_tensor(room_frames(cam, 1)[0][0][1], device=device)
-    gh, gw = cam.height // det.depth_patch_size_px, cam.width // det.depth_patch_size_px
-    cloud, valid = depth_to_cloud(depth, cam)
-    grid = primitives.fit_cells(cloud, valid, det)
-    edges = primitives._edge_maps(grid, gh, gw,
-                                  math.cos(math.radians(det.max_plane_merge_angle_d)))
+    edges, planar, gh, gw = cell_graph(cam, cfg, room_frames(cam, 1)[0][0][1], device)
     snake = np.zeros((4, gh, gw), bool)
     snake[0, :, 1:] = True
     for y in range(gh - 1):
         snake[2, y + 1, gw - 1 if y % 2 == 0 else 0] = True
     ones = torch.ones(gh * gw, dtype=torch.bool, device=device)
-    return [("room_frame", edges.contiguous(), grid.planar.contiguous(), gh, gw),
+    return [("room_frame", edges, planar, gh, gw),
             ("serpentine", torch.as_tensor(snake, device=device), ones, gh, gw),
             ("one_component", torch.ones((4, gh, gw), dtype=torch.bool, device=device), ones,
              gh, gw)]
 
 
-def check_components(cam, cfg, device):
+def check_components(cam, cfg, device, frames):
     """The components kernel against its plain version (labels must be equal)
     on each case; the main path's case is then timed as the LK kernels are.
     The bound counts bytes (edges and planar mask read once, int64 labels
     written once) over 3.35 TB/s and 12 integer operations a planar cell a
     round of the JAX loop, these inputs' rounds, over 67 T/s (the card's rate
     outside the tensor cores; the published table gives no int32 rate).  No
-    PyTorch call computes connected components: ``library_ms`` is null."""
+    PyTorch call computes connected components: ``library_ms`` is null.
+    Printed beside them: the JAX loop's rounds on the cell graph of each of
+    the plane path's ``frames``, and the card's floor for one graph node, the
+    device time of a kernel that reads the clock once and returns
+    (``torch.cuda._sleep(0)``) replayed from a graph of 50."""
+    rounds = [components_cuda.components_work(*cell_graph(cam, cfg, depth, device))["rounds"]
+              for _, depth in frames]
+    _say("components", frames=len(rounds), jax_loop_rounds_min=min(rounds),
+         jax_loop_rounds_median=statistics.median(rounds), jax_loop_rounds_max=max(rounds),
+         empty_kernel_graph_us=graph_launch_us(lambda: torch.cuda._sleep(0)))
     result = None
     for name, edges, planar, gh, gw in components_cases(cam, cfg, device):
         got = components_cuda.connected_components(edges, planar, gh, gw)
@@ -684,7 +699,8 @@ def lm_replay(inputs: lm_cuda.LMInputs, damping0: float, got: lm_cuda.LMResult) 
     1. each linearization (the start, then each finite trial) against the plain
        version's at the same point (:func:`normal_equation_errors`);
     2. each decision from the run's own costs: accept exactly when the trial's
-       cost is below the best point's and the trial is finite;
+       cost is below the best point's and the trial is finite (past the 63
+       accept bits, the decision the costs give is followed);
     3. each trial against ``lm_cuda.damped_step`` from the best point so far,
        its normal equations and the damping that the decisions give, within
        ``LM_POSITION_TOL_MM`` and ``LM_STEREO_TOL``;
@@ -715,8 +731,10 @@ def lm_replay(inputs: lm_cuda.LMInputs, damping0: float, got: lm_cuda.LMResult) 
         d_st = (point[:, 3:] - trial[:, 3:]).abs().amax(-1)
         worst("step", torch.maximum(d_pos / LM_POSITION_TOL_MM, d_st / LM_STEREO_TOL), either)
         worst("step_abs", torch.maximum(d_pos, d_st), either)
-        take = ((got.accepts >> (j - 1)) & 1).bool()
         rule = (got.costs[:, j] < best_cost) & torch.isfinite(point).all(-1)
+        # past the accept bits the rule stands in for the decision; the result
+        # check (4) then holds the run to it
+        take = ((got.accepts >> (j - 1)) & 1).bool() if j <= 63 else rule
         decisions += (take != rule).to(torch.int64)
         best = torch.where(take[:, None], point, best)
         best_cost = torch.where(take, got.costs[:, j], best_cost)
@@ -1401,11 +1419,10 @@ def main() -> int:
 
     cam = config.TUM_FR1
     cfg = config.SlamConfig()
-    kernels = check_kernels(cam, cfg, device)
-    kernels["components"] = check_components(cam, cfg, device)
-
     poses = synthetic.orbit_trajectory(JAX_REFERENCE["planes"]["frames"], speed_mm=4.0)
     frames, gt = room_frames(cam, len(poses))
+    kernels = check_kernels(cam, cfg, device)
+    kernels["components"] = check_components(cam, cfg, device, frames)
     kernels["lm_solve"] = check_lm(cam, cfg, device, frames)
     run_graph_phase(cam, cfg, device, frames, card)
     cfg_fwd = dataclasses.replace(cfg, mapping=dataclasses.replace(

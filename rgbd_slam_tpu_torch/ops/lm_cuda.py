@@ -7,8 +7,9 @@ which XLA compiles from an unrolled ``lax.scan`` over ``jax.linearize``) on a
 batch of poses.  ``inputs`` is an :class:`LMInputs`: the prepared features of
 ``pose/residuals.prepare_features`` as contiguous tensors, the masks as uint8,
 and the pinhole intrinsics.  For CUDA tensors it launches ``lm_solve_kernel``
-(``csrc/lm.cu``: one CTA a batch member, forward-mode tangents in registers, a
-fixed-order block reduction, the 6x6 solve on one thread) or raises; for CPU
+(``csrc/lm.cu``: one CTA a batch member over its live features, forward-mode
+tangents in registers, a transposing warp reduction in a fixed order, the LM
+state on six lanes of every warp) or raises; for CPU
 tensors it runs :func:`lm_solve_reference`, the ``vmap(jvp)`` linearization and
 ``linalg6.solve6_spd`` as tensor code.
 
@@ -59,6 +60,11 @@ FLOPS_POSE, FLOPS_SOLVE = 1037, 199
 #: floats of a row of the kernel's trace (``LM_TRACE`` in ``csrc/lm.cu``): the
 #: point, its cost, JtJ's upper triangle in row order, Jtr
 TRACE_ROW = 34
+#: most threads a CTA (``LM_MAX_THREADS`` in ``csrc/lm.cu``)
+MAX_THREADS = 128
+#: most features a member: the kernel lists a member's live features in shared
+#: memory, 4 bytes each, within ``LM_MAX_LIST_BYTES``
+MAX_FEATURES = 8192
 
 _lib = None
 
@@ -166,7 +172,8 @@ def build() -> float:
         return 0.0
     t0 = time.perf_counter()
     lib, BUILD_LOG = nvcc.load_library("lm.cu", "lm")
-    lib.lm_solve_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    lib.lm_solve_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
     lib.lm_solve_launch.restype = ctypes.c_int
     _lib = lib
     return time.perf_counter() - t0
@@ -294,6 +301,19 @@ def kernel_layout(inputs: LMInputs, coeffs0):
     return batch, coeffs, flat, strides
 
 
+def launch_shape(capacities) -> tuple[int, int]:
+    """(threads a CTA, dynamic shared-memory bytes) of a launch over members
+    with these feature ``capacities``: the features rounded up to whole warps,
+    32 to ``MAX_THREADS`` threads (32 runs the one-warp kernel, which has no
+    block barrier), and 4 bytes a feature for the list of a member's live
+    features.  Raises past ``MAX_FEATURES``."""
+    n = sum(capacities)
+    if n > MAX_FEATURES:
+        raise ValueError(f"the LM kernel takes at most {MAX_FEATURES} features a member, "
+                         f"got {n}")
+    return min(max(32 * -(-n // 32), 32), MAX_THREADS), 4 * n
+
+
 def check_inputs(inputs: LMInputs, coeffs0):
     """Raise on inputs the kernel does not take."""
     device = coeffs0.device
@@ -320,6 +340,7 @@ def lm_solve_cuda(inputs: LMInputs, coeffs0, iterations: int, damping0: float,
     check_inputs(inputs, coeffs0)
     if iterations < 0:
         raise ValueError(f"iterations must be >= 0, got {iterations}")
+    threads, list_bytes = launch_shape(inputs.capacities)
     batch, coeffs, flat, strides = kernel_layout(inputs, coeffs0)
     b = coeffs.shape[0]
     device = coeffs0.device
@@ -339,7 +360,7 @@ def lm_solve_cuda(inputs: LMInputs, coeffs0, iterations: int, damping0: float,
                      iterations, inputs.fx, inputs.fy, inputs.cx, inputs.cy, damping0,
                      (ctypes.c_float * 4)(*SCALES))
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _lib.lm_solve_launch(ctypes.byref(args), stream)
+        err = _lib.lm_solve_launch(ctypes.byref(args), threads, list_bytes, stream)
         if err != 0:
             raise RuntimeError(f"LM kernel launch failed: cudaError {err}")
         LAUNCHES["lm_solve"] += 1

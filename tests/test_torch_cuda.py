@@ -692,14 +692,14 @@ def test_a_warmed_step_reads_the_host_nowhere(cuda, path):
 def _lm_case(name, device):
     """(packed inputs, coeffs0 [B, 6], iterations) of an LM
     case of ``torch_lm_cases`` on ``device``: the main path's two shapes, or
-    one of the CPU test's cases."""
+    one of the CPU test's cases or of the kernel's edge cases."""
     import torch_lm_cases
 
     if name.startswith("main_"):
         feats, c0, iterations = torch_lm_cases.main_path_batches(11)[name[len("main_"):]]
         weights = None
     else:
-        feats, c0, weights, iterations = torch_lm_cases.cases()[name]
+        feats, c0, weights, iterations = torch_lm_cases.case(name)
     if weights is not None:
         feats = feats.with_masks(*(w > 0 for w in feats.split_unified(weights)))
     feats = type(feats)(*(t.to(device) for t in feats))
@@ -711,15 +711,20 @@ def _lm_case(name, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["main_hypotheses", "main_refit_mc", "hypotheses", "refit",
                                   "unbatched_features", "single_pose", "weights",
-                                  "batched_weights", "edges", "planes_and_lines_empty"])
+                                  "batched_weights", "edges", "planes_and_lines_empty",
+                                  "features_356", "features_45", "no_live_member_one_warp",
+                                  "no_live_member", "iterations_0", "iterations_64"])
 def test_lm_kernel_matches_its_plain_version(cuda, name):
     """The LM kernel against ``lm_solve_reference`` on the card: at the main
     path's two shapes (32 hypotheses over 6/6/3/6 subsets, 10 iterations; 101
     refit + Monte-Carlo members over 256/128/32/16 features, 6 iterations)
     and on the CPU test's cases (a point behind the camera, a zero-length
     inverse-depth segment and a degenerate line; empty plane and line blocks;
-    unbatched features, a single pose, weights).  One linearization, then the
-    full LM held to the plain version step by step (``chip_smoke.lm_replay``,
+    unbatched features, a single pose, weights), and at the kernel's edges:
+    356 and 45 feature slots (several features a thread; two warps), a member
+    with no live feature beside others (one warp and two; shared blocks and
+    per-member masks in one launch), 0 and 64 iterations.  One linearization,
+    then the full LM held to the plain version step by step (``chip_smoke.lm_replay``,
     at ``chip_smoke``'s ``LM_*`` tolerances): every linearization, decision and
     trial of the kernel's run, and its result the best point's."""
     import chip_smoke
@@ -741,6 +746,8 @@ def test_lm_kernel_matches_its_plain_version(cuda, name):
     replay = chip_smoke.lm_replay(inputs, 1e-3, got)
     bad = chip_smoke.lm_failures(replay)
     assert not bad.any(), {k: v[bad] for k, v in replay.items()}
+    if name.startswith("no_live_member"):   # the member with no live row: cost 0
+        assert float(got.cost[1 if name == "no_live_member" else 3]) == 0.0
 
 
 @pytest.mark.cuda

@@ -25,7 +25,7 @@ from rgbd_slam_tpu_torch.pose import optimizer
 from rgbd_slam_tpu_torch.pose.features import MatchedFeatures
 from rgbd_slam_tpu_torch.pose.linalg6 import solve6_spd
 from rgbd_slam_tpu_torch.pose.residuals import prepare_features, residual_vector_prepared
-from torch_lm_cases import CAM, CASE_NAMES, assert_bit_equal, cases
+from torch_lm_cases import CAM, CASE_NAMES, KERNEL_EDGE_NAMES, assert_bit_equal, case, cases
 
 torch.set_num_threads(2)
 
@@ -81,11 +81,11 @@ def _vmap_jvp_lm_solve(coeffs0, feats, cam, weights=None, iterations=8, damping0
     return best_c, best_cost
 
 
-@pytest.mark.parametrize("name", CASE_NAMES)
+@pytest.mark.parametrize("name", CASE_NAMES + KERNEL_EDGE_NAMES)
 def test_reference_equals_the_vmap_jvp_lm_to_the_bit(name):
     """``optimizer.lm_solve`` (pack, then ``lm_solve_reference`` on the CPU)
     equals the LM as it was before the kernel, to the bit."""
-    feats, c0, weights, iterations = cases()[name]
+    feats, c0, weights, iterations = case(name)
     before = lm_cuda.LAUNCHES["lm_solve"]
     got = optimizer.lm_solve(c0, feats, CAM, weights=weights, iterations=iterations)
     want = _vmap_jvp_lm_solve(c0, feats, CAM, weights=weights, iterations=iterations)
@@ -144,6 +144,47 @@ def test_kernel_layout_shares_the_blocks_without_a_batch_axis():
     _, coeffs, flat, strides = lm_cuda.kernel_layout(one, c0[0])
     assert strides[1] == 0 and flat[1].shape == (np_, 2) and coeffs.shape == (9, 6)
     assert torch.equal(coeffs, c0[:1].expand(9, 6))
+
+
+@pytest.mark.parametrize("capacities, shape", [
+    ((6, 6, 3, 6), (32, 84)),             # the hypotheses: the one-warp kernel
+    ((256, 128, 32, 16), (128, 1728)),    # the refit + Monte-Carlo members
+    ((0, 0, 0, 0), (32, 0)),
+    ((24, 8, 0, 0), (32, 128)),
+    ((24, 8, 4, 6), (64, 168)),
+    ((24, 8, 4, 9), (64, 180)),
+    ((300, 40, 7, 9), (128, 1424)),       # threads take several features
+    ((8192, 0, 0, 0), (128, 32768)),
+])
+def test_launch_shape_at_the_main_path_and_the_edges(capacities, shape):
+    """Threads a CTA (the slots in whole warps, 32 to 128) and the live list's
+    shared-memory bytes (4 a slot) that ``lm_solve_cuda`` launches with."""
+    assert lm_cuda.launch_shape(capacities) == shape
+
+
+def test_launch_shape_refuses_a_list_past_its_shared_memory():
+    with pytest.raises(ValueError, match="at most 8192 features"):
+        lm_cuda.launch_shape((8000, 100, 64, 29))
+
+
+def test_kernel_edge_cases_reach_the_edges():
+    """The kernel's edge cases are what their names say: the slots and live
+    features of a member, a member with no live feature, the iterations."""
+    counts = {}
+    for name in KERNEL_EDGE_NAMES:
+        inputs, c0, iterations = _flat_case(name)
+        live = lm_cuda.lm_work(inputs, c0, 1)["live"]
+        masks = [m.expand(c0.shape[:1] + m.shape[-1:]).sum(-1)
+                 for m in (inputs.point_mask, inputs.point2d_mask, inputs.plane_mask,
+                           inputs.line_mask)]
+        counts[name] = (sum(inputs.capacities), sum(live) // c0.shape[0],
+                        int(sum(masks).min()), iterations)
+    assert counts["features_356"][:2] == (356, 334)
+    assert counts["features_45"][0] == 45
+    assert counts["no_live_member_one_warp"][0] <= 32
+    assert counts["no_live_member_one_warp"][2] == 0 and counts["no_live_member"][2] == 0
+    assert counts["no_live_member"][0] > 32
+    assert counts["iterations_0"][3] == 0 and counts["iterations_64"][3] == 64
 
 
 def test_the_cpu_never_reaches_the_kernel():
@@ -264,16 +305,16 @@ def test_details_trace_every_linearization(name):
 
 
 def _flat_case(name):
-    """A case of ``cases()`` as ``chip_smoke.lm_replay`` takes it: packed
-    inputs and a batch of starts [B, 6]."""
-    feats, c0, weights, iterations = cases()[name]
+    """A case of ``torch_lm_cases`` as ``chip_smoke.lm_replay`` takes it:
+    packed inputs and a batch of starts [B, 6]."""
+    feats, c0, weights, iterations = case(name)
     if weights is not None:
         feats = feats.with_masks(*(w > 0 for w in feats.split_unified(weights)))
     inputs = lm_cuda.pack(prepare_features(feats, CAM), CAM)
     return inputs, (c0 if c0.dim() > 1 else c0[None]), iterations
 
 
-@pytest.mark.parametrize("name", CASE_NAMES)
+@pytest.mark.parametrize("name", CASE_NAMES + KERNEL_EDGE_NAMES)
 def test_replay_passes_the_plain_run(name):
     """The card's step-by-step check (``chip_smoke.lm_replay``) passes the
     plain version's own run: its trials are the plain steps to the bit, its

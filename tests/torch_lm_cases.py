@@ -1,8 +1,9 @@
 """Pose-optimization inputs for the LM solve's tests (``test_torch_lm_cuda.py`` on
 the CPU, ``test_torch_cuda.py`` on the card): seeded scenes with all four
 feature types, the RANSAC hypothesis batch and the refit + Monte-Carlo batch
-built from them as the pose optimizer builds them, and the edge cases.  Imports
-torch and the port only."""
+built from them as the pose optimizer builds them, the edge cases, and the
+LM kernel's own edges (:func:`kernel_edge_cases`).  Imports torch and the port
+only."""
 
 import functools
 
@@ -175,3 +176,48 @@ def cases():
     }
     assert tuple(found) == CASE_NAMES
     return found
+
+
+#: the cases of :func:`kernel_edge_cases`
+KERNEL_EDGE_NAMES = ("features_356", "features_45", "no_live_member_one_warp",
+                     "no_live_member", "iterations_0", "iterations_64")
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_edge_cases():
+    """The LM kernel's edges, as :func:`cases` gives them: 356 feature slots
+    (past 256, not a multiple of 32; 334 live, so each of 128 threads takes two
+    or three) and 45 (two warps) over a few poses; the hypotheses (one warp) and a scene (two
+    warps) with one member whose weights leave no live feature, the shared
+    feature blocks read beside per-member masks; the hypotheses with 0
+    iterations and with 64 (past the 63 accept bits)."""
+    rng = np.random.default_rng(12)
+
+    def starts(c0, n):
+        return (c0 + torch.as_tensor(rng.normal(0, [5, 5, 5, 0.005, 0.005, 0.005], (n, 6)),
+                                     dtype=torch.float32)).contiguous()
+
+    big, _, c0_big = scene(6, counts=(280, 40, 6, 8), caps=(300, 40, 7, 9))
+    mid, _, c0_mid = scene(7, counts=(20, 6, 3, 5), caps=(24, 8, 4, 9))
+    hyp, c0_hyp = hypothesis_batch(8)
+    feats, _, c0 = scene(3)
+    hyp_weights = torch.ones(hyp.point_mask.shape[0], sum(hyp.capacities))
+    hyp_weights[3] = -1.0
+    weights = torch.as_tensor(rng.uniform(-0.5, 1.0, (4, sum(feats.capacities))),
+                              dtype=torch.float32)
+    weights[1] = -1.0
+    found = {
+        "features_356": (big, starts(c0_big, 3), None, 6),
+        "features_45": (mid, starts(c0_mid, 5), None, 8),
+        "no_live_member_one_warp": (hyp, c0_hyp, hyp_weights, 10),
+        "no_live_member": (feats, starts(c0, 4), weights, 8),
+        "iterations_0": (hyp, c0_hyp, None, 0),
+        "iterations_64": (hyp, c0_hyp, None, 64),
+    }
+    assert tuple(found) == KERNEL_EDGE_NAMES
+    return found
+
+
+def case(name):
+    """A case of :func:`cases` or of :func:`kernel_edge_cases`, by name."""
+    return (kernel_edge_cases() if name in KERNEL_EDGE_NAMES else cases())[name]

@@ -17,7 +17,9 @@ after a 5-frame warm-up are split in two: the first half is timed per stage
 the second half runs unstaged under ``torch.profiler`` for device time, kernel
 counts, device syncs and host reads per frame, and ``pose_opt``'s device time
 and kernels split into the hypotheses' LM, P3P, scoring and the refit with its
-Monte-Carlo covariance (``POSE_STAGES``).  Eight more frames (one batch
+Monte-Carlo covariance (``POSE_STAGES``; the two LM ranges hold the LM's
+preparation and packing, and the LM kernels themselves, which the profiler
+charges to no range, are ``lm_kernels``: ``OWN_KERNELS``).  Eight more frames (one batch
 of the runner's summary reads) run under ``torch.cuda.set_sync_debug_mode`` to
 name the package line of every host sync.  Each run segment is a ``run_frames``
 call of its own, so with ``--ba-every 8`` a refine fires only in a segment of
@@ -155,6 +157,17 @@ class StageTimer:
 
 #: prefix of the profiler ranges that ``StageRanges`` opens around a stage
 RANGE_PREFIX = "stage:"
+#: the port's own kernels by name prefix, and the stage that launches each.
+#: They are launched through ctypes, outside every PyTorch op, so the profiler
+#: charges them to no range: they are charged to their stage by name.
+OWN_KERNELS = {"lk_": "optical_flow", "components_kernel": "plane_extract",
+               "lm_solve_kernel": "pose_opt"}
+
+
+def own_stage(name: str):
+    """The stage of one of the port's own kernels (``OWN_KERNELS``), or None."""
+    return next((stage for prefix, stage in OWN_KERNELS.items() if name.startswith(prefix)),
+                None)
 
 
 class StageRanges(StageTimer):
@@ -194,6 +207,9 @@ def device_breakdown(prof, n_frames: int):
             # a range also shows on the device's timeline: it is not a kernel
             if not evt.name.startswith(RANGE_PREFIX):
                 total_us += evt.time_range.elapsed_us()
+                stage = own_stage(evt.name)
+                if stage is not None:
+                    stages[stage] += evt.time_range.elapsed_us()
             continue
         if evt.name.startswith(RANGE_PREFIX):
             under = getattr(evt, "device_time_total", None)
@@ -398,9 +414,8 @@ def main() -> int:
     pose_parts = range_breakdown(prof, n_prof, POSE_PREFIX)
     pose_parts["pose_opt_other"] = {
         k: pose[k] - sum(p[k] for p in pose_parts.values()) for k in pose}
-    pose_parts["pose_opt"] = pose
     kernels, busy_us = 0, 0.0
-    lk_us = defaultdict(list)
+    own_us = defaultdict(list)
     for evt in prof.events():
         # a range also shows on the device's timeline: it is not a kernel
         if evt.device_type == DeviceType.CUDA \
@@ -408,8 +423,13 @@ def main() -> int:
             kernels += 1
             us = evt.time_range.elapsed_us()
             busy_us += us
-            if evt.name.startswith("lk_"):
-                lk_us[evt.name.split("(")[0]].append(us)
+            if own_stage(evt.name) is not None:
+                own_us[evt.name.split("(")[0]].append(us)
+    # the LM's launches, which no range sees (OWN_KERNELS), added to pose_opt
+    lm = [us for name, v in own_us.items() if own_stage(name) == "pose_opt" for us in v]
+    pose_parts["lm_kernels"] = {"device_us": sum(lm) / n_prof, "kernels": len(lm) / n_prof}
+    pose_parts["pose_opt"] = {"device_us": pose["device_us"] + sum(lm) / n_prof,
+                              "kernels": pose["kernels"]}
     counts = defaultdict(int)
     for avg in prof.key_averages():
         if avg.key in ("cudaStreamSynchronize", "aten::item", "aten::_local_scalar_dense",
@@ -430,8 +450,8 @@ def main() -> int:
         "device_busy_ms_per_frame": busy_us / 1e3 / n_prof,
         "device_idle_share": 1.0 - busy_us / 1e3 / n_prof / unstaged_ms,
         "per_frame": {k: v / n_prof for k, v in counts.items()},
-        "lk_kernel_us_per_launch": {k: float(np.mean(v)) for k, v in lk_us.items()},
-        "lk_launches_per_frame": {k: len(v) / n_prof for k, v in lk_us.items()},
+        "own_kernel_us_per_launch": {k: float(np.mean(v)) for k, v in own_us.items()},
+        "own_launches_per_frame": {k: len(v) / n_prof for k, v in own_us.items()},
         "pose_opt_per_frame": pose_parts,
         "sync_sites_per_frame": sync_sites,
     }))
