@@ -28,7 +28,9 @@ Legs (``bench.py``'s, in its order):
    FLOPs come from (the profiler counts matrix products, convolutions and a few
    elementwise ops, nothing else).
 3. accuracy: ``runner.run_frames`` over the same frames with ``ba_every=8`` and
-   without the backend: ATE-RMSE of each, the backend's counts; the median and
+   without the backend: ATE-RMSE of each, the backend's counts and its ms
+   (``RunStats.backend_ms``: the first refine and graph solve, which record
+   their CUDA graphs, and the mean of the later ones); the median and
    p80 of the step's batch means (the runner reads summaries in batches of 8)
    from frame 10 of the run without the backend.
 4. hard scene: ``HardRoomScene`` on the orbit, ``ba_every=8``, seeds 0, 1, 2,
@@ -250,7 +252,7 @@ def main() -> int:
          ba_runs=stats.ba_runs, ba_accepted=stats.ba_accepted,
          failed=stats.frame_count - stats.success_count, lost=stats.lost_count,
          failed_ba_off=stats_off.frame_count - stats_off.success_count,
-         leg_s=time.perf_counter() - t0)
+         **stats.backend_ms(), leg_s=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     hard_np, hard_gt = hard_orbit(cam, n_hard)
@@ -355,6 +357,7 @@ def main() -> int:
         "ba_iters_per_s": stats.ba_iters_per_s,
         "ba_runs": stats.ba_runs,
         "ba_accepted": stats.ba_accepted,
+        **stats.backend_ms(),
         "lk_launches": dict(lk_cuda.LAUNCHES),
         "components_launches": dict(components_cuda.LAUNCHES),
         "lm_launches": dict(lm_cuda.LAUNCHES),

@@ -54,6 +54,14 @@ Phases, one line of output each (any failure raises, so the last line, the
    and device time a frame; the launch counts must be what the profiler
    saw), and ``run_frames`` over the frames under ``set_sync_debug_mode``:
    every host sync must be the runner's summary read (``run_graph_phase``).
+   backend_graph: the windowed BA's packed solve at full count (8 keyframes x
+   512 landmarks x 8 observations, every slot valid: ``full_window``) and the
+   pose graph's (64 nodes, 256 edges: ``full_pose_graph``), each on two
+   problems through the one ``solve_graph.SolveGraph`` that
+   ``KeyframeWindow.refine`` / ``PoseGraph.solve`` replay, against the eager
+   solve on the card: every output equal to the bit; ms a call of both (host
+   clock, with the read back), kernels and device µs a call of both under the
+   profiler, and the warm-up and capture seconds.
 4. plane path: ``runner.run_frames`` over 60 RoomScene orbit frames at 640x480,
    default ``SlamConfig``, planes on (the default step), seed 0; checks one
    fused-kernel launch per frame, no more failed or lost frames than the JAX
@@ -75,7 +83,11 @@ Phases, one line of output each (any failure raises, so the last line, the
    keyframes, refines and accepted refines as the least JAX seed, every pose
    finite, one copy to the device and one read back per refine and per graph
    solve; prints ms per refine and per graph solve past the first; then the
-   first 30 frames twice, which must give the same ATE to the last bit.
+   first 30 frames twice, which must give the same ATE to the last bit.  The
+   refines and graph solves replay CUDA graphs (``solve_graph.SolveGraph``):
+   every path with the backend checks that ``ba.ba_solve`` and
+   ``pose_graph.solve_pose_graph`` ran in Python twice a run each, to warm up
+   and to be captured, and never for a replay (``traced_solves``).
 10. the paths that only ``bench.py`` ran before, each over the first 30 frames
     of its leg (``bench_torch.py``'s frame makers), planes on: ``hard``
     (``HardRoomScene`` with depth noise on the orbit: depth holes, a noise burst
@@ -101,7 +113,8 @@ Phases, one line of output each (any failure raises, so the last line, the
     ``load_state`` into a fresh template, 15 more; both with
     ``torch.use_deterministic_algorithms(True)``; trajectories and final states
     equal to the last bit.
-13. ``sharded_ba``: ``dryrun.dryrun_multichip(4)``: four ``gloo`` processes that
+13. ``sharded_ba`` (the sharded solve stays eager: a CUDA graph cannot hold
+    its ``gloo`` collectives): ``dryrun.dryrun_multichip(4)``: four ``gloo`` processes that
     share the card, ``dense`` and ``pcg`` against the single-device solve;
     ``dryrun.nccl_single_rank()``; then the backend path over the 30 frames with
     the refines sharded over 2 ranks: the same keyframes, refines and accepted
@@ -134,7 +147,9 @@ is held to 1.5 x the worst JAX seed.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import gc
 import inspect
 import json
@@ -159,12 +174,15 @@ import torch
 import torch.distributed as dist
 
 from bench_torch import hard_orbit, room_roll, tunnel_flight
-from rgbd_slam_tpu_torch import config, dryrun, engine, runner, step_graph, synthetic
+from rgbd_slam_tpu_torch import (config, dryrun, engine, runner, solve_graph, step_graph,
+                                 synthetic)
 from rgbd_slam_tpu_torch.features import primitives
+from rgbd_slam_tpu_torch.geometry import pinhole, se3
 from rgbd_slam_tpu_torch.io import checkpoint
 from rgbd_slam_tpu_torch.io.trajectory import ate_rmse
 from rgbd_slam_tpu_torch.ops import components_cuda, fast, image, lk_cuda, lm_cuda
 from rgbd_slam_tpu_torch.ops.depth_cloud import depth_to_cloud
+from rgbd_slam_tpu_torch.parallel import ba, keyframes, pose_graph
 from rgbd_slam_tpu_torch.parallel.pose_graph import _np_quat_rotate
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -270,6 +288,11 @@ LM_REPEATS = 32
 #: replays it profiles
 GRAPH_FRAMES = 30
 PROFILED_REPLAYS = 4
+#: the runner's default BA and pose-graph iterations, which the backend_graph
+#: phase solves with, and the calls it times each way
+BA_ITERATIONS = 8
+GRAPH_ITERATIONS = 10
+BACKEND_REPS = 6
 
 
 def _say(phase: str, **fields):
@@ -1026,6 +1049,175 @@ def run_graph_phase(cam, cfg, device, frames, card):
     return 1e3 / eager_ms, 1e3 / graph_ms
 
 
+def full_window(cam, seed: int, device) -> keyframes.KeyframeWindow:
+    """A keyframe window at the runner's capacities, filled to full count: 8
+    keyframes of a lateral run with a slow yaw, each observing the same 512
+    landmarks (8 x 512 x 8 observations, every slot valid), 0.3 px of pixel
+    noise, 80% of the depths measured, and map positions 15 mm off."""
+    rng = np.random.default_rng(seed)
+    window = keyframes.KeyframeWindow(device=device)
+    k, l = window.max_keyframes, window.max_landmarks
+    kfs = []
+    for i in range(k):
+        quat = se3.quat_from_axis_angle(torch.tensor([0.0, 0.0, 1.0]),
+                                        torch.tensor(0.004 * i + 0.001 * seed))
+        kfs.append((quat, torch.tensor([20.0 * i, 30.0 * i, 5.0 * i])))
+    world = np.concatenate([rng.uniform(2000, 4000, (2 * l, 1)),
+                            rng.uniform(-900, 900, (2 * l, 2))], 1).astype(np.float32)
+    screens = []
+    for quat, pos in kfs:
+        screen, ok = pinhole.world_to_screen(torch.from_numpy(world),
+                                             se3.world_to_camera(quat, pos), cam)
+        screens.append((screen.numpy(), ok.numpy()))
+    seen = np.nonzero(np.all([ok for _, ok in screens], axis=0))[0][:l]
+    if len(seen) < l:
+        raise RuntimeError(f"backend_graph: {len(seen)} landmarks seen in every keyframe")
+    fids = np.arange(l, dtype=np.int32)
+    for i, ((quat, pos), (screen, _)) in enumerate(zip(kfs, screens)):
+        uv = screen[seen, :2] + rng.normal(0, 0.3, (l, 2))
+        z = np.where(rng.uniform(size=l) < 0.8, screen[seen, 2], 0.0)
+        lm = world[seen] + rng.normal(0, 15.0, (l, 3))
+        fobs = np.concatenate([np.ones((l, 1)), uv, z[:, None], lm], 1).astype(np.float32)
+        window.add_keyframe_packed(quat.numpy(), pos.numpy(), fobs, fids, frame_id=8 * i)
+    return window
+
+
+def full_pose_graph(seed: int, device) -> pose_graph.PoseGraph:
+    """A pose graph at the runner's capacities, filled to full count: 64
+    keyframe nodes on a drifting odometry chain (63 odometry edges) and
+    near-true relative poses between nodes 1 to 13 apart, as BA windows give
+    them, of which the newest make the 256 edges."""
+    rng = np.random.default_rng(seed)
+    graph = pose_graph.PoseGraph(device=device)
+    n = graph.max_nodes
+    quats, positions = [np.array([1.0, 0.0, 0.0, 0.0])], [np.zeros(3)]
+    for _ in range(n - 1):
+        ang = 0.02 * (1 + 0.3 * rng.standard_normal())
+        dq = np.array([np.cos(ang / 2), 0.0, 0.0, np.sin(ang / 2)])
+        q, p = pose_graph.np_compose(quats[-1], positions[-1], dq,
+                          np.array([25.0, 7.5, 0.0]) + rng.standard_normal(3) * 2.0)
+        quats.append(q / np.linalg.norm(q))
+        positions.append(p)
+    odo_q, odo_p = [quats[0]], [positions[0]]
+    for i in range(1, n):
+        q_rel, p_rel = pose_graph.np_relative(quats[i - 1], positions[i - 1], quats[i],
+                                              positions[i])
+        q, p = pose_graph.np_compose(odo_q[-1], odo_p[-1], q_rel,
+                          p_rel + np.array([1.2, 0.8, 0.3]) + rng.standard_normal(3) * 0.5)
+        odo_q.append(q)
+        odo_p.append(p)
+    for i in range(n):
+        graph.add_keyframe(5 * i, odo_q[i], odo_p[i])
+    for stride in range(1, 14):
+        nodes = range(0, n, stride)
+        graph.add_ba_window([5 * i for i in nodes],
+                            [(quats[i], positions[i] + rng.standard_normal(3) * 0.2)
+                             for i in nodes])
+    return graph
+
+
+@contextlib.contextmanager
+def traced_solves():
+    """Counts the calls of ``ba.ba_solve`` and ``pose_graph.solve_pose_graph``
+    in the block, by name (``ba``, ``pose_graph``): Python runs them only when a
+    solve runs eagerly or is captured, never for a replay."""
+    calls = {"ba": 0, "pose_graph": 0}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    real = ba.ba_solve, pose_graph.solve_pose_graph
+    ba.ba_solve = counted("ba", real[0])
+    pose_graph.solve_pose_graph = counted("pose_graph", real[1])
+    try:
+        yield calls
+    finally:
+        ba.ba_solve, pose_graph.solve_pose_graph = real
+
+
+def _ms_a_call(fn, args, reps: int = BACKEND_REPS) -> float:
+    """Median host ms of ``fn(args[r % len(args)])`` and its read back."""
+    times = []
+    for r in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_graph.tensor_leaves(fn(args[r % len(args)]))[0].cpu()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def profile_solves(fn, args):
+    """Kernels and device µs a call of ``fn`` over ``args`` under
+    ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for a in args:
+            fn(a)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return dict(kernels=len(on_card) / len(args),
+                device_us=sum(e.time_range.elapsed_us() for e in on_card) / len(args))
+
+
+def check_backend_solve(what, graph, eager, bufs, card):
+    """One backend solve's graph (``SolveGraph``) against its eager solve on
+    the card: every output equal to the bit on each buffer, all through the
+    one graph; ms a call of both (host clock, with the read back), kernels and
+    device µs a call of both, and the warm-up and capture seconds."""
+    if not isinstance(graph, solve_graph.SolveGraph):
+        raise RuntimeError(f"backend_graph, {what}: the solver is {type(graph).__name__}, "
+                           "not a CUDA graph")
+    equal = []
+    for buf in bufs:
+        want = eager(buf)
+        got = graph(buf)
+        equal.append(_bit_equal(got, want))
+        if not all(torch.isfinite(step_graph.tensor_leaves(t)[0]).all() for t in (got, want)):
+            raise RuntimeError(f"backend_graph, {what}: a result is not finite")
+    record_s = graph.record_s
+    graph_ms, eager_ms = _ms_a_call(graph, bufs), _ms_a_call(eager, bufs)
+    replays, eagerly = profile_solves(graph, bufs), profile_solves(eager, bufs)
+    _say("backend_graph", what=what, card=card, equal_to_the_bit=equal,
+         warmup_and_capture_s=record_s, eager_ms=eager_ms, graph_ms=graph_ms,
+         replay_kernels=replays["kernels"], replay_device_us=replays["device_us"],
+         eager_kernels=eagerly["kernels"], eager_device_us=eagerly["device_us"])
+    if not all(equal):
+        raise RuntimeError(f"backend_graph, {what}: the replay differs from the eager solve "
+                           f"({equal})")
+
+
+def run_backend_graph_phase(cam, device, card):
+    """The windowed BA refine and the pose-graph solve at full count, each
+    as the CUDA graph ``refine`` and ``PoseGraph.solve`` replay, against the
+    eager solve on the same card, on two problems through one graph."""
+    windows = [full_window(cam, seed, device) for seed in (0, 1)]
+    bufs = [torch.from_numpy(keyframes._pack_problem(w.build_problem())) for w in windows]
+    solve = windows[0]._get_solver(cam, BA_ITERATIONS, None)
+    try:
+        check_backend_solve("ba 8x512x8", solve, solve_graph.EagerSolve(
+            functools.partial(windows[0]._solve, cam=cam, iterations=BA_ITERATIONS), device),
+            bufs, card)
+    finally:
+        windows[0].close()
+    graphs = [full_pose_graph(seed, device) for seed in (0, 1)]
+    bufs = [torch.from_numpy(g._pack()) for g in graphs]
+    if graphs[0].dropped_edges == 0 or len(graphs[0].frame_ids) != graphs[0].max_nodes:
+        raise RuntimeError("backend_graph: the pose graph is not full")
+    solve = graphs[0]._get_solver(GRAPH_ITERATIONS)
+    try:
+        check_backend_solve("pose_graph 64x256", solve, solve_graph.EagerSolve(
+            functools.partial(pose_graph._solve_packed, max_nodes=graphs[0].max_nodes,
+                              max_edges=graphs[0].max_edges, iterations=GRAPH_ITERATIONS),
+            device), bufs, card)
+    finally:
+        graphs[0].close()
+
+
 def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=True,
              with_lines=False, ba_every=None, reference=None):
     """Drive ``runner.run_frames`` over ``frames`` with the launch counts set to 0
@@ -1045,9 +1237,10 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
 
     reset_launches()
     primitives.FIXPOINT_READS["components"] = 0
-    state, traj, stats = runner.run_frames(
-        frames, cam, cfg, with_planes=with_planes, with_lines=with_lines,
-        ba_every=ba_every, seed=SEED, device=device, on_frame=on_frame)
+    with traced_solves() as traced:
+        state, traj, stats = runner.run_frames(
+            frames, cam, cfg, with_planes=with_planes, with_lines=with_lines,
+            ba_every=ba_every, seed=SEED, device=device, on_frame=on_frame)
     launches = launch_counts()
     fixpoint_reads = primitives.FIXPOINT_READS["components"]
 
@@ -1073,15 +1266,10 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
         fields.update(lines_alive=lines_alive,
                       frames_with_line_matches=frames_with_line_matches)
     if ba_every:
-        later_refines = max(stats.ba_runs - 1, 1)
-        later_solves = max(stats.graph_solves - 1, 1)
         fields.update(
             keyframes=stats.keyframe_count, ba_runs=stats.ba_runs,
             ba_accepted=stats.ba_accepted, graph_solves=stats.graph_solves,
-            first_refine_ms=1e3 * stats.ba_compile_s,
-            refine_ms=1e3 * (stats.ba_total_s - stats.ba_compile_s) / later_refines,
-            first_graph_solve_ms=1e3 * stats.graph_first_s,
-            graph_solve_ms=1e3 * (stats.graph_total_s - stats.graph_first_s) / later_solves,
+            **stats.backend_ms(), solves_traced=traced,
             ba_dropped_landmarks=stats.ba_dropped_landmarks,
             ba_dropped_obs=stats.ba_dropped_obs, backend_uploads=stats.backend_uploads,
             backend_readbacks=stats.backend_readbacks)
@@ -1118,6 +1306,12 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
         if (stats.backend_uploads, stats.backend_readbacks) != (solves, solves):
             problems.append(f"{stats.backend_uploads} copies to the device and "
                             f"{stats.backend_readbacks} reads back for {solves} solves")
+        # each solver runs its solve twice, to warm up and to be captured, and
+        # replays it for every refine or graph solve
+        recorded = {"ba": 2 * (stats.ba_runs > 0), "pose_graph": 2 * (stats.graph_solves > 0)}
+        if traced != recorded:
+            problems.append(f"solves traced {traced}, expected {recorded} for "
+                            f"{stats.ba_runs} refines and {stats.graph_solves} graph solves")
     if ba_every and ref is not None:
         for key, got in (("keyframes", stats.keyframe_count), ("ba_runs", stats.ba_runs),
                          ("ba_accepted", stats.ba_accepted)):
@@ -1425,6 +1619,7 @@ def main() -> int:
     kernels["components"] = check_components(cam, cfg, device, frames)
     kernels["lm_solve"] = check_lm(cam, cfg, device, frames)
     run_graph_phase(cam, cfg, device, frames, card)
+    run_backend_graph_phase(cam, device, card)
     cfg_fwd = dataclasses.replace(cfg, mapping=dataclasses.replace(
         cfg.mapping, max_tracked_points=FORWARD_ONLY_TRACKED))
     n_fwd = JAX_REFERENCE["forward_only"]["frames"]

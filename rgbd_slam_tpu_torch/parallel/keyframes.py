@@ -13,22 +13,31 @@ their bit patterns) and reads the result back in one; the refined landmarks,
 their slots, validity and feature ids stay on the device for the map scatter.
 ``transfers`` counts both.
 
+On a card the packed solve runs as a CUDA graph (``solve_graph.SolveGraph``),
+one per static key, recorded at the window's first refine with that key and
+replayed at every later one, as the JAX package compiles one program per
+window; on the CPU it runs eagerly.  :meth:`KeyframeWindow.close` frees the
+graphs.
+
 With a process group (``refine(mesh=group)``) the solve is sharded by landmarks
 over the group's ranks.  Rank 0 owns the window: it broadcasts a header and the
 same packed buffer, every rank solves its shard of the landmarks
 (``ba.make_sharded_ba``), and the refined shards are gathered.  The other ranks
 run :func:`serve_refines`, which waits for those broadcasts and ends on the
-header that :func:`stop_serving` sends.
+header that :func:`stop_serving` sends.  The sharded solve stays eager: its
+``gloo`` collectives cannot be held by a CUDA graph.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import solve_graph
 from ..config import CameraIntrinsics
 from ..device import resolve_device
 from ..geometry import se3
@@ -82,6 +91,8 @@ class KeyframeWindow:
         if self.max_obs_per_landmark <= 0:
             self.max_obs_per_landmark = self.max_keyframes
         self._lm_host = None
+        # the local solvers by static key (see _get_solver)
+        self._solvers = {}
 
     def add_keyframe(self, quat, position, output, point_positions, timestamp=0.0,
                      frame_id=None):
@@ -205,6 +216,26 @@ class KeyframeWindow:
                          new_lm.reshape(-1)])
         return out, new_lm, slots, lm_valid, fids_dev
 
+    def _get_solver(self, cam: CameraIntrinsics, iterations: int, mesh):
+        """The packed solve of :meth:`_solve` that :meth:`refine` calls on its
+        buffer.  Without ``mesh``: one ``solve_graph.solver`` per static key
+        (``cam``, ``iterations``, the anchor weights, K, L, C and the device),
+        kept for the window's life, as ``jax.jit`` keeps one program per static
+        key: on a card a ``SolveGraph`` recorded at its first call, on the CPU
+        the eager solve.  With ``mesh``: this rank's part of the sharded solve,
+        eagerly (a CUDA graph cannot hold its ``gloo`` collectives)."""
+        device = resolve_device(self.device)
+        if mesh is not None:
+            return solve_graph.EagerSolve(
+                functools.partial(self._solve, cam=cam, iterations=iterations, mesh=mesh),
+                device)
+        key = (cam, iterations, self.anchor_weights, self.max_keyframes, self.max_landmarks,
+               self.max_obs_per_landmark, device)
+        if key not in self._solvers:
+            self._solvers[key] = solve_graph.solver(
+                functools.partial(self._solve, cam=cam, iterations=iterations), device)
+        return self._solvers[key]
+
     def refine(self, cam: CameraIntrinsics, iterations: int = 8, mesh=None):
         """Run windowed BA.
 
@@ -212,7 +243,10 @@ class KeyframeWindow:
         position) host arrays of the live keyframes; ``device_lm = (fids [L]
         host, slots [L], new_lm [L, 3], lm_valid [L], fids [L])``, the last four
         on the device for the map scatter; ``costs`` the cost before each
-        iteration, host.  None when under-constrained.
+        iteration, host.  None when under-constrained.  Where the solve
+        overwrites its outputs at the next call (a CUDA graph), the four
+        device tensors are copies, taken on the device, so that they outlive
+        the next refine.
 
         ``mesh``: a process group over which the solve is sharded by
         landmarks; this is rank 0's side, the other ranks are in
@@ -220,22 +254,22 @@ class KeyframeWindow:
         problem = self.build_problem()
         if problem is None:
             return None
-        poses, landmarks, obs_kf, obs_uv, obs_z, obs_mask, fids, slots, lm_valid = problem
-        floats = np.concatenate([poses.reshape(-1), landmarks.reshape(-1),
-                                 obs_uv.reshape(-1), obs_z.reshape(-1)])
-        buf = np.concatenate([floats.view(np.int32), obs_kf.reshape(-1),
-                              obs_mask.reshape(-1).astype(np.int32), slots,
-                              lm_valid.astype(np.int32), fids.astype(np.int32)])
-        dev_buf = torch.from_numpy(buf).to(resolve_device(self.device))
-        self.transfers["uploads"] += 1
+        fids, lm_valid = problem[6], problem[8]
+        buf = torch.from_numpy(_pack_problem(problem))
+        solve = self._get_solver(cam, iterations, mesh)
         if mesh is not None:
-            _broadcast_header(mesh, dev_buf.device, _REFINE, iterations, self.max_keyframes,
+            buf = buf.to(resolve_device(self.device))
+            _broadcast_header(mesh, buf.device, _REFINE, iterations, self.max_keyframes,
                               self.max_landmarks, self.max_obs_per_landmark)
-            dist.broadcast(dev_buf, src=dist.get_global_rank(mesh, 0), group=mesh)
-        out, new_lm, slots_dev, lm_valid_dev, fids_dev = self._solve(dev_buf, cam, iterations,
-                                                                     mesh=mesh)
+            dist.broadcast(buf, src=dist.get_global_rank(mesh, 0), group=mesh)
+        # the solver moves a host buffer to its device in the one copy
+        out, *device_lm = solve(buf)
+        self.transfers["uploads"] += 1
         out = out.cpu().numpy()
         self.transfers["readbacks"] += 1
+        if solve.reuses_outputs:
+            device_lm = [t.clone() for t in device_lm]
+        new_lm, slots_dev, lm_valid_dev, fids_dev = device_lm
         k, l = self.max_keyframes, self.max_landmarks
         quats = out[: k * 4].reshape(k, 4)
         positions = out[k * 4: k * 7].reshape(k, 3)
@@ -243,6 +277,13 @@ class KeyframeWindow:
         self._lm_host = (fids, out[k * 7 + iterations:].reshape(l, 3), lm_valid)
         refined = [(quats[i], positions[i]) for i in range(self.n_keyframes)]
         return refined, (fids, slots_dev, new_lm, lm_valid_dev, fids_dev), costs
+
+    def close(self):
+        """Free the solvers' CUDA graphs and their memory; a later refine
+        records anew."""
+        for solve in self._solvers.values():
+            solve.close()
+        self._solvers.clear()
 
     def apply_refinement(self, refined, device_lm=None):
         """Write refined poses back into the window, so that the next refine
@@ -261,6 +302,19 @@ class KeyframeWindow:
             for i in range(len(fids)):
                 if valid_host[i] and int(fids[i]) in self.landmark_pos:
                     self.landmark_pos[int(fids[i])] = lm_host[i]
+
+
+def _pack_problem(problem) -> np.ndarray:
+    """The one int32 buffer of :meth:`KeyframeWindow.build_problem`'s arrays
+    that a refine moves to the device: the float arrays as their bit patterns,
+    then the integer and boolean ones (:func:`_unpack_problem` takes it
+    apart)."""
+    poses, landmarks, obs_kf, obs_uv, obs_z, obs_mask, fids, slots, lm_valid = problem
+    floats = np.concatenate([poses.reshape(-1), landmarks.reshape(-1),
+                             obs_uv.reshape(-1), obs_z.reshape(-1)])
+    return np.concatenate([floats.view(np.int32), obs_kf.reshape(-1),
+                           obs_mask.reshape(-1).astype(np.int32), slots,
+                           lm_valid.astype(np.int32), fids.astype(np.int32)])
 
 
 def _unpack_problem(buf, k: int, l: int, c: int):

@@ -17,11 +17,17 @@ and the BA.
 The bookkeeping (node list, edge dict, relative-pose measurements) is
 per-keyframe quaternion algebra in numpy on the host; only the packed solve runs
 on the device: one copy there (one float32 buffer; the edge indices travel as
-their bit patterns), one read back.  ``PoseGraph.transfers`` counts both.
+their bit patterns), one read back.  ``PoseGraph.transfers`` counts both.  On a
+card the packed solve runs as a CUDA graph (``solve_graph.SolveGraph``), one
+per (max_nodes, max_edges, iterations), recorded at the first solve and
+replayed at every later one, as the JAX package compiles ``_solve_packed`` once
+per static key; on the CPU it runs eagerly.  :meth:`PoseGraph.close` frees the
+graphs.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -29,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import jvp, vmap
 
+from .. import solve_graph
 from ..device import resolve_device
 from ..geometry import se3
 
@@ -214,6 +221,8 @@ class PoseGraph:
 
     def __post_init__(self):
         self._last_raw = None  # (quat, pos) of the last keyframe in the engine frame
+        # the packed solvers by static key (see _get_solver)
+        self._solvers = {}
 
     def add_keyframe(self, frame_id: int, quat, position):
         """Add a keyframe node from the engine's raw pose estimate; chains an
@@ -253,11 +262,32 @@ class PoseGraph:
                                        np.asarray(qb, np.float64), np.asarray(pb, np.float64))
             self.edges[(fa, fb, "ba")] = (_np_rel_coeffs(q_rel, p_rel), self.ba_weight)
 
-    def solve(self, iterations: int = 10):
-        """Solve the graph on the device; returns (frame_ids list, quats [n, 4],
-        positions [n, 3]) numpy, or None if the graph is under-constrained or
-        the solve is not finite.  Refined poses are written back into the node
-        state, so that later odometry chains from them."""
+    def _get_solver(self, iterations: int):
+        """:func:`_solve_packed` as ``solve_graph.solver`` gives it, one per
+        static key (max_nodes, max_edges, iterations), kept for the graph's
+        life: on a card a ``SolveGraph`` recorded at its first call, on the CPU
+        the eager solve."""
+        key = (self.max_nodes, self.max_edges, iterations)
+        if key not in self._solvers:
+            self._solvers[key] = solve_graph.solver(
+                functools.partial(_solve_packed, max_nodes=self.max_nodes,
+                                  max_edges=self.max_edges, iterations=iterations),
+                resolve_device(self.device))
+        return self._solvers[key]
+
+    def close(self):
+        """Free the solvers' CUDA graphs and their memory; a later solve
+        records anew."""
+        for solve in self._solvers.values():
+            solve.close()
+        self._solvers.clear()
+
+    def _pack(self):
+        """The one float32 buffer that :meth:`solve` moves to the device
+        (quaternions, positions, measurements, weights, then the two edge
+        index arrays as int32 bit patterns; :func:`_solve_packed` takes it
+        apart), or None when the graph is under-constrained.  The newest
+        ``max_edges`` edges are kept and the rest counted."""
         n = len(self.frame_ids)
         if n < 3 or not self.edges:
             return None
@@ -281,13 +311,22 @@ class PoseGraph:
         w = np.zeros((self.max_edges,), np.float32)
         for k, (a, b, m, ww) in enumerate(packed):
             ei[k], ej[k], meas[k], w[k] = a, b, m, ww
-
-        fbuf = np.concatenate([quats.reshape(-1), positions.reshape(-1), meas.reshape(-1),
+        return np.concatenate([quats.reshape(-1), positions.reshape(-1), meas.reshape(-1),
                                w, ei.view(np.float32), ej.view(np.float32)])
-        dev_buf = torch.from_numpy(fbuf).to(resolve_device(self.device))
+
+    def solve(self, iterations: int = 10):
+        """Solve the graph on the device; returns (frame_ids list, quats [n, 4],
+        positions [n, 3]) numpy, or None if the graph is under-constrained or
+        the solve is not finite.  Refined poses are written back into the node
+        state, so that later odometry chains from them."""
+        fbuf = self._pack()
+        if fbuf is None:
+            return None
+        n = len(self.frame_ids)
+        # the solver moves the host buffer to its device in the one copy
+        out = self._get_solver(iterations)(torch.from_numpy(fbuf))
         self.transfers["uploads"] += 1
-        out = _solve_packed(dev_buf, self.max_nodes, self.max_edges,
-                            iterations=iterations).cpu().numpy()
+        out = out.cpu().numpy()
         self.transfers["readbacks"] += 1
         nn = self.max_nodes
         rq = out[: nn * 4].reshape(nn, 4)

@@ -33,8 +33,11 @@ class RunStats:
     graph (``step_graph.StepGraph``, the counterpart of the JAX step's compile)
     and the first replay; on the CPU the first eager step.  ``warmup_steps``
     counts the eager steps the warm-up ran (their kernel launches are counted
-    with the frames').  ``ba_compile_s`` is the first refine's, which includes
-    the solver's warm-up."""
+    with the frames').  ``ba_compile_s`` and ``graph_first_s`` are the first
+    refine's and the first graph solve's time: on a card the solver's warm-up,
+    the capture of its CUDA graph (``solve_graph.SolveGraph``, the counterpart
+    of the JAX solvers' compile) and the first replay, as ``compile_s`` is the
+    step's; on the CPU the first eager solve."""
     frame_count: int = 0
     warmup_steps: int = 0
     success_count: int = 0
@@ -72,6 +75,16 @@ class RunStats:
             return 0.0
         iters_per_run = self.ba_total_iters / max(self.ba_runs, 1)
         return iters_per_run * runs / t
+
+    def backend_ms(self) -> dict:
+        """ms of the first refine and the first graph solve, and the mean ms of
+        a refine and of a graph solve past the first."""
+        return dict(
+            first_refine_ms=1e3 * self.ba_compile_s,
+            refine_ms=1e3 * (self.ba_total_s - self.ba_compile_s) / max(self.ba_runs - 1, 1),
+            first_graph_solve_ms=1e3 * self.graph_first_s,
+            graph_solve_ms=1e3 * (self.graph_total_s - self.graph_first_s)
+            / max(self.graph_solves - 1, 1))
 
     @property
     def mean_step_ms(self):
@@ -238,10 +251,12 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
     or tensors), on ``device`` (``None``: the card, see ``resolve_device``).
 
     On a card the step runs as one CUDA graph (``step_graph.StepGraph``),
-    recorded at the first frame and freed at the end; on the CPU it runs
-    eagerly.  What the loop keeps of a frame past the next one (its summary,
-    a keyframe's observation record, and for ``on_frame`` or the map export its
-    state and outputs) is copied out of the graph's buffers on the device.
+    recorded at the first frame and freed at the end, and so do the backend's
+    refine and graph solve (``solve_graph.SolveGraph``), each recorded at its
+    first call; on the CPU all run eagerly.  What the loop keeps of a frame
+    past the next one (its summary, a keyframe's observation record, and for
+    ``on_frame`` or the map export its state and outputs) is copied out of the
+    graph's buffers on the device.
 
     The loop reads a frame's summary from the device in batches of
     ``SUMMARY_BATCH`` frames (frame 0 alone), so ``on_frame(i, state, out, dt)``
@@ -441,6 +456,10 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                                                            only_local=True)
     finally:
         stepper.close()
+        if window is not None:
+            window.close()
+        if graph is not None:
+            graph.close()
         if map_writer is not None:
             map_writer.close()
     return stepper.state, traj, stats

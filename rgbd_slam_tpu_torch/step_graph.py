@@ -71,6 +71,29 @@ def clone_tree(tree):
     return tree_map(torch.clone, tree)
 
 
+def capture(graph: torch.cuda.CUDAGraph, fn):
+    """``fn()`` captured into ``graph``.  A kernel wrapper counts its launches
+    when Python calls it, which a replay does not: the counts the capture added
+    are taken back and returned, for :func:`add_launches` to add at every
+    replay.  Returns (``fn``'s result, the added counts by counter)."""
+    before = [dict(counter) for counter in _COUNTERS]
+    with torch.cuda.graph(graph):
+        out = fn()
+    added = [{name: counter[name] - b[name] for name in counter}
+             for counter, b in zip(_COUNTERS, before)]
+    for counter, b in zip(_COUNTERS, before):
+        counter.update(b)
+    return out, added
+
+
+def add_launches(added):
+    """Add the launch counts a capture took back (:func:`capture`): one
+    replay's."""
+    for counter, counts in zip(_COUNTERS, added):
+        for name, n in counts.items():
+            counter[name] += n
+
+
 class EagerStep:
     """``engine.step`` frame by frame, on any device: what the CPU runs."""
 
@@ -157,9 +180,7 @@ class StepGraph:
         self._frame[0].copy_(gray)
         self._frame[1].copy_(depth)
         self._graph.replay()
-        for counter, added in zip(_COUNTERS, self._launches):
-            for name, n in added.items():
-                counter[name] += n
+        add_launches(self._launches)
         return self._state, self._out
 
     def close(self):
@@ -187,17 +208,10 @@ class StepGraph:
         self._frame = tuple(torch.empty(t.shape, dtype=t.dtype, device=device)
                             for t in (gray, depth))
         self._draws = tree_map(torch.empty_like, draws)
-        before = [dict(counter) for counter in _COUNTERS]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            new_state, out = engine.step(self._state, *self._frame, cam, cfg,
-                                         with_planes=with_planes, with_lines=with_lines,
-                                         draws=self._draws)
-            self._out = self._commit(new_state, out)
-        self._launches = [{name: counter[name] - b[name] for name in counter}
-                          for counter, b in zip(_COUNTERS, before)]
-        for counter, b in zip(_COUNTERS, before):
-            counter.update(b)
+        self._out, self._launches = capture(graph, lambda: self._commit(*engine.step(
+            self._state, *self._frame, cam, cfg, with_planes=with_planes,
+            with_lines=with_lines, draws=self._draws)))
         self._graph = graph
         self.record_s = time.perf_counter() - t0
 

@@ -337,13 +337,9 @@ def test_detect_lines_on_the_card_matches_the_cpu(cuda, min_tiles):
     np.testing.assert_allclose(p1.numpy(), cpu.p1.numpy(), atol=1e-2)
 
 
-@pytest.mark.cuda
-def test_backend_on_the_card_runs_and_repeats_bit_equal(cuda):
-    """run_frames with lines, BA and the pose graph on the card at a small size,
-    twice: refines are accepted, one copy each way per solve, and the two
-    trajectories are equal to the last bit."""
-    from rgbd_slam_tpu_torch import runner
-
+def _small_backend_setup():
+    """A 160x120 camera and a configuration cut to its size, for runs of the
+    backend on the card."""
     cam = config.CameraIntrinsics(width=160, height=120, fx=130.0, fy=130.0,
                                   cx=80.0, cy=60.0)
     cfg = config.SlamConfig(
@@ -353,6 +349,17 @@ def test_backend_on_the_card_runs_and_repeats_bit_equal(cuda):
                                      max_lines=4, max_tracked_points=64),
         engine=config.EngineConfig(pose_covariance_mc_iterations=16,
                                    ransac_hypothesis_batch=16, p3p_hypothesis_batch=8))
+    return cam, cfg
+
+
+@pytest.mark.cuda
+def test_backend_on_the_card_runs_and_repeats_bit_equal(cuda):
+    """run_frames with lines, BA and the pose graph on the card at a small size,
+    twice: refines are accepted, one copy each way per solve, and the two
+    trajectories are equal to the last bit."""
+    from rgbd_slam_tpu_torch import runner
+
+    cam, cfg = _small_backend_setup()
     scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
     frames = [scene.render(q, p) for q, p in synthetic.orbit_trajectory(24, speed_mm=8.0)]
     runs = []
@@ -817,3 +824,102 @@ def test_graph_step_runs_the_lm_kernel_and_not_its_plain_version(cuda, monkeypat
     assert stats.warmup_steps == 1
     assert lm_cuda.LAUNCHES["lm_solve"] - before == 2 * (4 + 1)
     assert np.isfinite(traj.positions_array()).all()
+
+
+@pytest.mark.cuda
+def test_backend_graphs_equal_the_eager_solves_at_full_width(cuda):
+    """The windowed BA's packed solve at 8 keyframes x 512 landmarks x 8
+    observations and the pose graph's at 64 nodes and 256 edges, each on two
+    problems through the one ``SolveGraph`` that ``refine`` and
+    ``PoseGraph.solve`` replay: every output equal to the eager solve on the
+    card to the bit."""
+    import functools
+
+    import chip_smoke
+    from rgbd_slam_tpu_torch import solve_graph
+    from rgbd_slam_tpu_torch.parallel import keyframes, pose_graph
+
+    cam = config.TUM_FR1
+    windows = [chip_smoke.full_window(cam, seed, cuda) for seed in (0, 1)]
+    graphs = [chip_smoke.full_pose_graph(seed, cuda) for seed in (0, 1)]
+    solvers = [
+        (windows[0]._get_solver(cam, 8, None),
+         functools.partial(windows[0]._solve, cam=cam, iterations=8),
+         [keyframes._pack_problem(w.build_problem()) for w in windows]),
+        (graphs[0]._get_solver(10),
+         functools.partial(pose_graph._solve_packed, max_nodes=64, max_edges=256,
+                           iterations=10),
+         [g._pack() for g in graphs])]
+    try:
+        for solve, fn, bufs in solvers:
+            assert isinstance(solve, solve_graph.SolveGraph)
+            eager = solve_graph.EagerSolve(fn, cuda)
+            for buf in bufs:
+                buf = torch.from_numpy(buf)
+                _assert_bit_equal(solve(buf), eager(buf), fn)
+    finally:
+        windows[0].close()
+        graphs[0].close()
+
+
+@pytest.mark.cuda
+def test_one_backend_graph_per_key_and_no_eager_solve_on_the_card(cuda, monkeypatch):
+    """``run_frames`` with the backend on the card records one graph for the
+    refine and one for the graph solve, and replays them: ``ba.ba_solve`` and
+    ``solve_pose_graph`` run in Python only to warm up and to be captured.  A
+    window asked for another iteration count records a second graph, as
+    ``jax.jit`` retraces on a new static argument."""
+    import chip_smoke
+    from rgbd_slam_tpu_torch import runner, solve_graph
+    from rgbd_slam_tpu_torch.parallel import ba, pose_graph
+
+    records = []
+    real_record = solve_graph.SolveGraph._record
+
+    def counted(self, inputs):
+        records.append(self)
+        return real_record(self, inputs)
+
+    monkeypatch.setattr(solve_graph.SolveGraph, "_record", counted)
+    cam, cfg = _small_backend_setup()
+    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+    frames = [scene.render(q, p) for q, p in synthetic.orbit_trajectory(16, speed_mm=8.0)]
+    with chip_smoke.traced_solves() as traced:
+        _, traj, stats = runner.run_frames(frames, cam, cfg, ba_every=4, kf_min_trans_mm=5.0,
+                                           device=cuda)
+    assert stats.ba_runs >= 3 and stats.graph_solves >= 2, stats
+    assert traced == {"ba": 2, "pose_graph": 2} and len(records) == 2
+    assert np.isfinite(traj.positions_array()).all()
+
+    records.clear()
+    window = chip_smoke.full_window(config.TUM_FR1, 0, cuda)
+    try:
+        with chip_smoke.traced_solves() as traced:
+            costs = [window.refine(config.TUM_FR1, iterations=it)[2] for it in (8, 8, 4, 8)]
+        assert len(window._solvers) == 2 and len(records) == 2
+        assert traced == {"ba": 4, "pose_graph": 0}
+        assert [len(c) for c in costs] == [8, 8, 4, 8]
+        np.testing.assert_array_equal(costs[0], costs[1])
+        np.testing.assert_array_equal(costs[0], costs[3])
+        assert window.transfers == {"uploads": 4, "readbacks": 4}
+    finally:
+        window.close()
+
+
+@pytest.mark.cuda
+def test_singular_window_is_refused_on_the_card(cuda):
+    """A full-width window whose reduced system is indefinite (a negative
+    position anchor) through the refine's graph: the first cost is finite and
+    the rest NaN, so the runner's accept test refuses it."""
+    import chip_smoke
+    from rgbd_slam_tpu_torch import solve_graph
+
+    window = chip_smoke.full_window(config.TUM_FR1, 0, cuda)
+    window.anchor_weights = (1e-3, -1e6, 1e-3)
+    try:
+        _, _, costs = window.refine(config.TUM_FR1, iterations=3)
+        assert isinstance(next(iter(window._solvers.values())), solve_graph.SolveGraph)
+    finally:
+        window.close()
+    assert np.isfinite(costs[0]) and np.isnan(costs[1:]).all()
+    assert not (np.isfinite(costs).all() and costs[-1] < costs[0])
