@@ -66,7 +66,8 @@ import numpy as np
 import torch
 
 from rgbd_slam_tpu_torch import config, engine, runner, step_graph, synthetic
-from rgbd_slam_tpu_torch.ops import components_cuda, lk_cuda, lm_cuda
+from rgbd_slam_tpu_torch.ops import (cells_cuda, components_cuda, cylinders_cuda, lk_cuda,
+                                     lm_cuda)
 from rgbd_slam_tpu_torch.synthetic import _quat_from_euler
 
 #: (ate_frames, hard_frames, lines_frames, tunnel_frames): the default, and
@@ -226,6 +227,8 @@ def main() -> int:
         cfg.engine, use_motion_model_prediction=True))
     lk_cuda.reset_launches()
     components_cuda.reset_launches()
+    cells_cuda.reset_launches()
+    cylinders_cuda.reset_launches()
     lm_cuda.reset_launches()
     t_start = time.perf_counter()
 
@@ -360,6 +363,8 @@ def main() -> int:
         **stats.backend_ms(),
         "lk_launches": dict(lk_cuda.LAUNCHES),
         "components_launches": dict(components_cuda.LAUNCHES),
+        "cells_launches": dict(cells_cuda.LAUNCHES),
+        "cylinders_launches": dict(cylinders_cuda.LAUNCHES),
         "lm_launches": dict(lm_cuda.LAUNCHES),
         "card": card,
         "torch": torch.__version__,

@@ -8,10 +8,11 @@ Phases, one line of output each (any failure raises, so the last line, the
 1. device: a CUDA card must be present (no CPU run); prints
    ``nvidia-smi --query-gpu=name,power.limit``.
 2. build: compiles the LK kernels (``rgbd_slam_tpu_torch/csrc/lk.cu``), the
-   components kernel (``csrc/components.cu``) and the LM kernel
-   (``csrc/lm.cu``) with nvcc from the sources in this checkout, one ``nvcc``
-   a source, started together; prints the seconds and what ptxas says of each
-   kernel's registers and spills.
+   components kernel (``csrc/components.cu``), the plane extraction's cells
+   and cylinders kernels (``csrc/cells.cu``, ``csrc/cylinders.cu``) and the
+   LM kernel (``csrc/lm.cu``) with nvcc from the sources in this checkout, one
+   ``nvcc`` a source, started together; prints the seconds and what ptxas says
+   of each kernel's registers and spills.
 3. kernels, each against its plain PyTorch version on the card, on a 640x480
    RoomScene frame pair with the default windows and levels:
    * fused forward-backward LK, 128 FAST points;
@@ -36,6 +37,25 @@ Phases, one line of output each (any failure raises, so the last line, the
    against its plain version on the cell graph of a 640x480 RoomScene depth
    map, a serpentine one-cell-wide component and the grid in one component:
    labels equal; timed on the first (see ``check_components``).
+   cells: the per-cell pass's kernel pair (``csrc/cells.cu``: the cloud, cell
+   fits, edges, normal bins and cell centres of a depth map) against its
+   plain version on the depth of every plane-path frame and of the tunnel
+   leg's 30 frames: continuous fields within tolerances that follow float32's
+   error and the closed-form eig3's conditioning, discrete fields (planar,
+   edges, bins) equal or flipped only where the plain version's margin to the
+   gate lies inside those tolerances, each flip printed with its margin
+   (``check_cells_frame``, ``CELL_*``); timed on the first room frame.
+   cylinders: the cylinder stage's kernel (``csrc/cylinders.cu``: the axis
+   gate of the 20 candidate regions, the selection of at most 4, the 3-round
+   sub-segment MSAC and the routing back) against its plain version on the
+   inputs ``find_primitives`` gives it on the same frames: the axis gate and
+   the selection equal (or flipped within the score's tolerance), each live
+   region's sub-segments against the plain MSAC run from the kernel's own
+   axis, a differing round only where the plain version's own float32 error
+   could take the kernel's decision (``subsegment_flip``), the fill values of
+   the regions without a slot (``check_cylinder_stage``, ``CYL_*``); timed on
+   the tunnel frame with the most live regions (the JSON line's) and on the
+   room frame with the most.
    lm: the LM kernel (the pose optimizer's ``lm_solve``, no Pallas port)
    against its plain version on the inputs of both ``lm_solve`` calls (the
    32 RANSAC hypotheses over 6/6/3/6-feature subsets, 10 iterations; the
@@ -122,8 +142,9 @@ Phases, one line of output each (any failure raises, so the last line, the
     share one card take turns on it, so the times printed beside the
     single-device ones measure what the collectives cost, not a speed-up.
 14. the kernels' JSON line (launches summed over all paths; every path
-    expects two LM launches a frame), the card line again, and the result
-    line.
+    expects two LM launches a frame, and one components, one cells and one
+    cylinders launch a frame with planes on), the card line again, and the
+    result line.
 
 Every path runs through ``runner.run_frames``, which on the card records the
 step as one CUDA graph at its first frame (one eager warm-up step, whose
@@ -180,7 +201,8 @@ from rgbd_slam_tpu_torch.features import primitives
 from rgbd_slam_tpu_torch.geometry import pinhole, se3
 from rgbd_slam_tpu_torch.io import checkpoint
 from rgbd_slam_tpu_torch.io.trajectory import ate_rmse
-from rgbd_slam_tpu_torch.ops import components_cuda, fast, image, lk_cuda, lm_cuda
+from rgbd_slam_tpu_torch.ops import (cells_cuda, components_cuda, cylinders_cuda, fast, image,
+                                     lk_cuda, lm_cuda)
 from rgbd_slam_tpu_torch.ops.depth_cloud import depth_to_cloud
 from rgbd_slam_tpu_torch.parallel import ba, keyframes, pose_graph
 from rgbd_slam_tpu_torch.parallel.pose_graph import _np_quat_rotate
@@ -245,21 +267,33 @@ SHORT_RUN_FRAMES = 30
 #: the ``tum_cli`` rig: the depth camera sits this far along the RGB camera's x
 RIG_BASELINE_MM = 25.0
 #: one fused forward-backward launch a frame (every path but the forward-only
-#: one), one components launch a frame with planes on, and two LM launches a
-#: frame (the hypothesis batch and the refit + Monte-Carlo batch)
+#: one), one components, one cells and one cylinders launch a frame with
+#: planes on, and two LM launches a frame (the hypothesis batch and the refit
+#: + Monte-Carlo batch)
 FUSED_ONLY = {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0, "components": 1,
-              "lm_solve": 2}
-#: the Pallas kernel each CUDA kernel replaces; the components and LM kernels
-#: replace XLA code of the JAX step, no Pallas kernel
+              "cells": 1, "cylinders": 1, "lm_solve": 2}
+#: the kernel whose launch the profiler sees for one count of a wrapper that
+#: launches more than one (default: the count's name + "_kernel")
+LAUNCH_MARKS = {"cells": "cells_fit_kernel"}
+#: the kernels a step launches only with planes on
+PLANE_KERNELS = ("components", "cells", "cylinders")
+#: the Pallas kernel each CUDA kernel replaces; the components, cells,
+#: cylinders and LM kernels replace XLA code of the JAX step, no Pallas kernel
 REPLACES = {"lk_fwd_bwd": "rgbd_slam_tpu/ops/pallas_lk.py:408",
             "lk_pyramid": "rgbd_slam_tpu/ops/pallas_lk.py:472",
             "lk_level": "rgbd_slam_tpu/ops/pallas_lk.py:514",
             "components": "rgbd_slam_tpu/features/primitives.py:267",
+            "cells": "rgbd_slam_tpu/ops/depth_cloud.py:21, rgbd_slam_tpu/features/primitives.py:"
+                     "87, :111, :197, :271 (XLA: the jitted find_primitives, :441)",
+            "cylinders": "rgbd_slam_tpu/features/primitives.py:301, :319, :496-525 (XLA: the "
+                         "jitted find_primitives, :441)",
             "lm_solve": "rgbd_slam_tpu/pose/optimizer.py:50 (XLA: lax.scan over jax.linearize)"}
 SOURCES = {"lk_fwd_bwd": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "lk_pyramid": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "lk_level": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "components": "rgbd_slam_tpu_torch/csrc/components.cu",
+           "cells": "rgbd_slam_tpu_torch/csrc/cells.cu",
+           "cylinders": "rgbd_slam_tpu_torch/csrc/cylinders.cu",
            "lm_solve": "rgbd_slam_tpu_torch/csrc/lm.cu"}
 #: the two lm_solve calls of a plane step, in their order
 LM_CALLS = ("hypotheses", "refit_mc")
@@ -369,7 +403,8 @@ def ptxas_usage(log: str):
     for name, body in re.findall(
             r"Function properties for (\w+)\n(.*?)(?=ptxas info\s*: Compiling|\Z)", log,
             flags=re.S):
-        kernel = re.search(r"(?:lk_\w+|components|lm_solve)_kernel(?:_warp)?", name)
+        kernel = re.search(r"(?:lk_\w+|components|cells_\w+|cylinders|lm_solve)_kernel"
+                           r"(?:_warp)?", name)
         regs = re.search(r"Used (\d+) registers", body)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         if kernel and regs and spills:
@@ -382,11 +417,14 @@ def ptxas_usage(log: str):
 def reset_launches():
     lk_cuda.reset_launches()
     components_cuda.reset_launches()
+    cells_cuda.reset_launches()
+    cylinders_cuda.reset_launches()
     lm_cuda.reset_launches()
 
 
 def launch_counts() -> dict:
-    return {**lk_cuda.LAUNCHES, **components_cuda.LAUNCHES, **lm_cuda.LAUNCHES}
+    return {**lk_cuda.LAUNCHES, **components_cuda.LAUNCHES, **cells_cuda.LAUNCHES,
+            **cylinders_cuda.LAUNCHES, **lm_cuda.LAUNCHES}
 
 
 def _room_pair(cam, device):
@@ -621,6 +659,490 @@ def check_components(cam, cfg, device, frames):
                           **{k: result[k] for k in ("ms", "plain_ms", "device_us", "bound_ms",
                                                     "bound_by")})
         _say("kernel", **fields)
+    return result
+
+
+#: the cells phase's tolerances, float32 on both sides.  The kernel sums a
+#: cell's 400 points in another order than the plain version: a sum of n
+#: terms in two orders differs by at most n ulps of their magnitudes, 400 x
+#: 6e-8 = 2.4e-5 (CELL_SUM_RTOL: the means, of the cell's largest |mean|; the
+#: second moments, of the cell's largest diagonal entry, CELL_M2_RTOL).  The
+#: closed-form eig3 takes its angle from acos(r), r = det((A - qI) / p) / 2,
+#: which a change dr moves by dr / sqrt(1 - r^2), or sqrt(2 dr) near r = +-1
+#: (two equal eigenvalues, as a square plane patch has): an eigenvalue may
+#: then move by 2 p / 3 times that.  dr is CELL_R_ULPS ulps (r is some 30
+#: roundings from A) plus what the two versions' moment difference moves it,
+#: 3 max|dA| / p.  So the eigenvalues (mse x count and score x the smallest)
+#: are held to CELL_EIG_RTOL of the largest plus that swing; on cells planar
+#: in both, the normal to CELL_NORMAL_TOL plus the smallest eigenvalue's
+#: tolerance over its gap to the next (sign included), and d to CELL_D_RTOL
+#: |d| + CELL_D_ATOL_MM plus the normal's tolerance times |mean|.  A discrete
+#: output may differ only where the plain version's margin to its gate is
+#: inside what those errors move: planar (mse against the squared depth
+#: quantization) within the mse's tolerance; a normal bin where the plain
+#: bin coordinate lies within CELL_BIN_TOL plus what the normal's tolerance
+#: moves it of a bin edge; an edge where planar flipped at either end, or its
+#: cos within CELL_COS_TOL plus both normals' tolerances of the threshold, or
+#: its distance within what the normal, d and mean tolerances move it of the
+#: cell's distance tolerance.
+CELL_SUM_RTOL = 3e-5
+CELL_M2_RTOL = 1e-4
+CELL_R_ULPS = 32
+CELL_EIG_RTOL = 1e-4
+CELL_NORMAL_TOL = 1e-4
+CELL_D_RTOL = 1e-4
+CELL_D_ATOL_MM = 1e-2
+CELL_BIN_TOL = 1e-3
+CELL_COS_TOL = 2e-4
+#: the cylinders phase's tolerances.  The axis gate's score (the largest
+#: over the smallest eigenvalue of a region's normal outer products) to
+#: CYL_SCORE_RTOL of the threshold.  The axis of a region that holds a slot
+#: (sign included) to CYL_AXIS_TOL plus the smallest eigenvalue's closed-form
+#: tolerance (``eig3_tolerance``, the outer products summed in two orders:
+#: count^2 ulps) over its gap to the next, or its opposite where the plain
+#: eig3's row choice sits within CYL_SCORE_RTOL of a tie.  A region of two
+#: or three planes has nearly equal small eigenvalues, and there the axes of
+#: the two versions part: so each sub-segment is held to the plain MSAC
+#: (``_fit_cylinder``) run from the kernel's own axis.  Its centre and radius
+#: to CYL_ATOL_MM + CYL_RTOL x radius / |a|, a = 1 - |sum n|^2 / k^2 the LLS
+#: fit's denominator (sums of up to 768 cells in two orders: 768 x 6e-8 =
+#: 4.6e-5 of the sums, which the division by a scales up:
+#: ``lls_length_tolerance``), and its MSE to what moving the centre and the
+#: radius that far moves it.  A round whose valid flag or inliers differ must
+#: be one the plain version's float32 error could take (``subsegment_flip``):
+#: each distance of its expanded form carries CYL_D2_ULPS ulps of its six
+#: terms' magnitudes over r^2, and a score the sum of those; some hypothesis
+#: that gives the kernel's inliers (but for cells within their bound of the
+#: threshold) must score within the two bounds of the best.  The later rounds
+#: of that region start from other cells: printed, not compared.
+CYL_SCORE_RTOL = 1e-3
+CYL_AXIS_TOL = 1e-4
+CYL_ATOL_MM = 1e-2
+CYL_RTOL = 5e-5
+CYL_D2_ULPS = 16
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def _tunnel_depths(cam, n):
+    """Depth maps of the tunnel leg's first ``n`` frames, where cylinders live."""
+    frames, _ = tunnel_flight(cam, n)
+    return [depth for _, depth in frames]
+
+
+def eig3_tolerance(a, da):
+    """How far the float32 closed-form eig3 may move the eigenvalues of the
+    symmetric [..., 3, 3] float64 matrices ``a`` whose two versions differ by
+    ``da`` (max |entry| a matrix): ``CELL_EIG_RTOL`` of the largest plus the
+    acos swing of ``CELL_R_ULPS`` ulps and 3 da / p in r (see ``CELL_*``)."""
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    q = a.diagonal(dim1=-2, dim2=-1).sum(-1) / 3.0
+    centred = a - q[..., None, None] * eye
+    p = torch.sqrt((centred * centred).sum((-2, -1)) / 6.0).clamp_min(1e-30)
+    r = (torch.linalg.det(centred / p[..., None, None]) / 2.0).clamp(-1.0, 1.0)
+    dr = CELL_R_ULPS * F32_EPS + 3.0 * da / p
+    dphi = torch.minimum(dr / torch.sqrt((1.0 - r * r).clamp_min(1e-300)),
+                         torch.sqrt(2.0 * dr)) / 3.0
+    lam = torch.linalg.eigvalsh(a)
+    return CELL_EIG_RTOL * lam.abs().amax(-1) + 2.0 * p * dphi + 1e-9, lam
+
+
+def check_cells_frame(depth, cam, det, name="frame"):
+    """The cells kernel against its plain version on one depth map: every
+    continuous field within its tolerance, every discrete one equal or
+    flipped inside its gate's margin (``CELL_*``).  Returns (max errors,
+    flips: one dict each, printed by the caller); raises on anything else."""
+    got = cells_cuda.cell_pass(depth, cam, det)
+    want = cells_cuda.cells_reference(depth, cam, det)
+    torch.cuda.synchronize()
+    gh, gw = cells_cuda.grid_shape(depth, det)
+    problems, flips, err = [], [], {}
+    g = {k: v.double() if v.dtype == torch.float32 else v for k, v in got._asdict().items()}
+    w = {k: v.double() if v.dtype == torch.float32 else v for k, v in want._asdict().items()}
+
+    def held(field, diff, tol, where=None):
+        if where is not None:
+            diff = diff[where]
+            tol = tol[where] if torch.is_tensor(tol) and tol.dim() else tol
+        err[field] = float(diff.max()) if diff.numel() else 0.0
+        bad = ~(diff <= tol)
+        if bool(bad.any()):
+            problems.append(f"{field}: {int(bad.sum())} entries out of tolerance, max "
+                            f"{err[field]}")
+
+    for field in ("count", "centers_valid"):
+        if not torch.equal(got._asdict()[field], want._asdict()[field]):
+            problems.append(f"{field} differs")
+    held("centers", (g["centers"] - w["centers"]).abs(), 1e-6 * w["centers"].abs() + 1e-4)
+    d_mean = (g["mean"] - w["mean"]).abs().amax(-1)
+    held("mean", d_mean, CELL_SUM_RTOL * w["mean"].abs().amax(-1) + 1e-4)
+    diag = w["m2"].diagonal(dim1=-2, dim2=-1).abs().amax(-1)
+    d_m2 = (g["m2"] - w["m2"]).abs().amax((-2, -1))
+    held("m2", d_m2, CELL_M2_RTOL * diag + 1e-6)
+    tol_lam, lam = eig3_tolerance(0.5 * (w["m2"] + w["m2"].transpose(-1, -2)), d_m2)
+    safe = w["count"].clamp_min(1.0)
+    held("mse", (g["mse"] - w["mse"]).abs(), tol_lam / safe)
+    lam1 = [x["score"] * (x["mse"] * safe).clamp_min(1e-6) for x in (g, w)]
+    held("eigenvalue_1", (lam1[0] - lam1[1]).abs(), tol_lam)
+    tol_n = CELL_NORMAL_TOL + tol_lam / (lam[:, 1] - lam[:, 0]).clamp_min(1e-30)
+    mean_norm = w["mean"].norm(dim=-1)
+    tol_d = CELL_D_RTOL * w["d"].abs() + CELL_D_ATOL_MM + tol_n * mean_norm
+    both = got.planar & want.planar
+    held("normal", (g["normal"] - w["normal"]).abs().amax(-1), tol_n, both)
+    held("d", (g["d"] - w["d"]).abs(), tol_d, both)
+    held("distance_tol", (g["distance_tol"] - w["distance_tol"]).abs(),
+         1e-5 * w["distance_tol"] + 1e-4, both)
+
+    # planar: the gate mse <= q(|z|)^2 at the plain version's values
+    q = primitives.get_depth_quantization(w["mean"][:, 2].abs())
+    planar_flip = got.planar != want.planar
+    for i in torch.nonzero(planar_flip).flatten().tolist():
+        margin, tol = abs(float(w["mse"][i] - q[i] ** 2)), float(tol_lam[i] / safe[i])
+        flips.append(dict(frame=name, output="planar", cell=i, margin=margin, tol=tol,
+                          plain=bool(want.planar[i])))
+        if not margin <= tol:
+            problems.append(f"planar flipped at cell {i}, {margin} from its gate")
+
+    # bins of the cells planar in both: the plain coordinates' distance to an
+    # edge, against what the normal's tolerance moves them
+    n = w["normal"]
+    bins = primitives.HIST_BINS
+    u = torch.arccos((-n[:, 2]).clamp(-1.0, 1.0)) / math.pi * bins
+    v = (torch.atan2(n[:, 0], n[:, 1]) + math.pi) / (2 * math.pi) * bins
+    du = CELL_BIN_TOL + bins / math.pi * tol_n / torch.sqrt((1 - n[:, 2] ** 2).clamp_min(1e-30))
+    dv = CELL_BIN_TOL + bins / (2 * math.pi) * tol_n \
+        / torch.sqrt((n[:, 0] ** 2 + n[:, 1] ** 2).clamp_min(1e-30))
+    for i in torch.nonzero((got.bins != want.bins) & both).flatten().tolist():
+        mu, mv = float((u[i] - u[i].round()).abs()), float((v[i] - v[i].round()).abs())
+        flips.append(dict(frame=name, output="bin", cell=i, margin_u=mu, tol_u=float(du[i]),
+                          margin_v=mv, tol_v=float(dv[i])))
+        if not (mu <= float(du[i]) or mv <= float(dv[i])):
+            problems.append(f"bin of cell {i} differs, {mu} and {mv} from a bin edge")
+
+    # edges: explained by a planar flip at either end, or a gate within its margin
+    if got.edges.shape != (4, gh, gw) or not got.edges.is_contiguous():
+        problems.append(f"edges of shape {tuple(got.edges.shape)}")
+    cos_max = cells_cuda.merge_angle_cos(det)
+    nn_ = n.reshape(gh, gw, 3)
+    cen = w["mean"].reshape(gh, gw, 3)
+    d_ = w["d"].reshape(gh, gw)
+    tol = w["distance_tol"].reshape(gh, gw)
+    pf = planar_flip.reshape(gh, gw)
+    tn, td = tol_n.reshape(gh, gw), tol_d.reshape(gh, gw)
+    tm = (CELL_SUM_RTOL * w["mean"].abs().amax(-1) + 1e-4).reshape(gh, gw)
+    for k, (dy, dx) in enumerate(((0, 1), (0, -1), (1, 0), (-1, 0))):
+        def rolled(x):
+            return torch.roll(x, (dy, dx), dims=(0, 1))
+        n_from = rolled(nn_)
+        cos_m = ((n_from * nn_).sum(-1) - cos_max).abs()
+        cos_tol = CELL_COS_TOL + tn + rolled(tn)
+        dot = (n_from * cen).sum(-1)
+        dist_m = ((dot + rolled(d_)).abs() - tol).abs()
+        dist_tol = rolled(tn) * cen.norm(dim=-1) + rolled(td) + tm + 1e-5 * tol + 1e-4
+        explained = pf | rolled(pf)
+        for y, x in torch.nonzero(got.edges[k] != want.edges[k]).tolist():
+            ok = bool(explained[y, x]) or float(cos_m[y, x]) <= float(cos_tol[y, x]) \
+                or float(dist_m[y, x]) <= float(dist_tol[y, x])
+            flips.append(dict(frame=name, output=f"edge{k}", cell=y * gw + x,
+                              cos_margin=float(cos_m[y, x]), cos_tol=float(cos_tol[y, x]),
+                              dist_margin=float(dist_m[y, x]),
+                              dist_tol=float(dist_tol[y, x]),
+                              planar_flip_at_an_end=bool(explained[y, x])))
+            if not ok:
+                problems.append(f"edge {k} at ({y}, {x}) differs outside its margins")
+    if problems:
+        raise RuntimeError(f"cells kernel against its plain version on {name}: "
+                           + "; ".join(problems))
+    return err, flips
+
+
+def check_cells(cam, cfg, device, frames, tunnel_depths):
+    """Phase ``cells``: the per-cell pass's kernels (``csrc/cells.cu``) against
+    the plain version on every depth map of the plane path's ``frames`` and of
+    the tunnel leg (``check_cells_frame``), then timed on the plane path's
+    first frame as the other kernels are; the bound counts the depth read once
+    and the outputs written once, and ``cells_cuda.cells_work``'s float
+    operations.  No PyTorch call computes the pass: ``library_ms`` is null."""
+    det = cfg.detection
+    worst, all_flips = {}, []
+    depths = [("room", d) for _, d in frames] + [("tunnel", d) for d in tunnel_depths]
+    for i, (kind, depth) in enumerate(depths):
+        dep = torch.as_tensor(depth, device=device)
+        err, flips = check_cells_frame(dep, cam, det, name=f"{kind}{i}")
+        for k, v in err.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        all_flips += flips
+    for f in all_flips:
+        _say("cells_flip", **f)
+    depth = torch.as_tensor(frames[0][1], device=device)
+    work = cells_cuda.cells_work(*depth.shape, det.depth_patch_size_px)
+    bound_ms, bound_by = bound_of(work)
+    result = dict(
+        max_abs_err=worst["normal"],
+        ms=_median_ms(lambda: cells_cuda.cell_pass(depth, cam, det)),
+        plain_ms=_median_ms(lambda: cells_cuda.cells_reference(depth, cam, det)),
+        device_us=graph_launch_us(lambda: cells_cuda.cell_pass(depth, cam, det)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    _say("kernel", name="cells", frames=len(depths), flips=len(all_flips),
+         **{f"max_err_{k}": v for k, v in worst.items()},
+         mflop=work["flops"] / 1e6, mbytes=work["bytes"] / 1e6,
+         **{k: result[k] for k in ("ms", "plain_ms", "device_us", "bound_ms", "bound_by")})
+    return result
+
+
+def cylinder_inputs(cam, det, depth):
+    """The inputs of the cylinder stage of ``find_primitives`` on one depth map
+    on the card: (grid, member, try_cyl, min_activated)."""
+    box = {}
+    stage = cylinders_cuda.cylinder_stage
+
+    def record(grid, member, try_cyl, cfg, min_activated):
+        box["args"] = (grid, member, try_cyl, min_activated)
+        return stage(grid, member, try_cyl, cfg, min_activated)
+
+    cylinders_cuda.cylinder_stage = record
+    try:
+        primitives.find_primitives(depth, cam, det)
+    finally:
+        cylinders_cuda.cylinder_stage = stage
+    return box["args"]
+
+
+def _eig_row_gap(m):
+    """Relative gap between the largest two cross-product norms that
+    ``eigenvector_for`` picks its row from, on [..., 3, 3] float64 matrices
+    (its smallest eigenvalue's): a sign flip of the eigenvector needs a tie."""
+    vals = torch.linalg.eigvalsh(m)
+    a = m / m.abs().amax((-2, -1), keepdim=True).clamp_min(1e-30)
+    lam = vals[..., 0] / m.abs().amax((-2, -1)).clamp_min(1e-30)
+    a = a - lam[..., None, None] * torch.eye(3, dtype=m.dtype, device=m.device)
+    r0, r1, r2 = a[..., 0, :], a[..., 1, :], a[..., 2, :]
+    norms = torch.stack([torch.linalg.cross(r0, r1), torch.linalg.cross(r0, r2),
+                         torch.linalg.cross(r1, r2)], -2).square().sum(-1)
+    top = norms.sort(-1, descending=True).values
+    return (top[..., 0] - top[..., 1]) / top[..., 0].clamp_min(1e-300)
+
+
+def msac_round64(grid, axis, remaining, si, n_hyp, trunc):
+    """One MSAC round of ``_fit_cylinder`` in float64 from ``remaining`` [C]
+    bool: (scores [B], distances [B, C], their float32 error bounds)."""
+    mean, normal = grid.mean.double(), grid.normal.double()
+    ax = axis.double()
+    pc = mean - (mean @ ax)[:, None] * ax
+    pn = normal - (normal @ ax)[:, None] * ax
+    pn = pn / torch.linalg.vector_norm(pn, dim=-1, keepdim=True).clamp_min(1e-9)
+    idx = torch.nonzero(remaining).flatten()
+    na = max(int(idx.numel()), 1)
+    base = torch.arange(n_hyp * 3, dtype=torch.int64).reshape(n_hyp, 3)
+    tri = (((base + si * 7919) * 2654435761) & 0xFFFFFFFF) % na
+    cells = idx[tri.to(idx.device)] if idx.numel() else torch.zeros_like(tri, device=idx.device)
+    tn, tc = pn[cells], pc[cells]
+    sn, sc, snc = tn.sum(1), tc.sum(1), (tn * tc).sum((1, 2))
+    a = 1.0 - (sn * sn).sum(-1) / 9.0
+    b = snc / 3.0 - (sn * sc).sum(-1) / 9.0
+    r = b / torch.where(a.abs() < 1e-9, torch.full_like(a, 1e-9), a)
+    h = (sc - r[:, None] * sn) / 3.0
+    r_ = r[:, None]
+    terms = [(pc * pc).sum(-1)[None], 2.0 * r_ * (pc * pn).sum(-1)[None], r_ * r_,
+             2.0 * (h @ pc.T), 2.0 * r_ * (h @ pn.T), (h * h).sum(-1)[:, None]]
+    den = (r_ * r_).clamp_min(1e-12)
+    d2 = (terms[0] - terms[1] + terms[2] - terms[3] + terms[4] + terms[5]) / den
+    d2_bound = CYL_D2_ULPS * F32_EPS * sum(t.abs() for t in terms) / den
+    rw = remaining.double()
+    scores = (rw * d2.clamp_max(trunc)).sum(-1)
+    score_bound = (rw * torch.where(d2 < trunc, d2_bound, torch.zeros_like(d2))).sum(-1)
+    return scores, d2, d2_bound, score_bound
+
+
+def lls_length_tolerance(grid, axis, inliers, radius: float) -> float:
+    """Tolerance of a sub-segment's centre and radius (mm): CYL_ATOL_MM +
+    CYL_RTOL radius / |a|, with a = 1 - |sum n|^2 / k^2 over the inliers'
+    normals across ``axis``: the LLS radius is b / a, so its error grows as
+    1 / |a| where the normals point one way (a region of planes)."""
+    ax = axis.double()
+    pn = grid.normal.double() - (grid.normal.double() @ ax)[:, None] * ax
+    pn = pn / torch.linalg.vector_norm(pn, dim=-1, keepdim=True).clamp_min(1e-9)
+    k = float(inliers.sum())
+    a = abs(1.0 - float(pn[inliers].sum(0).square().sum()) / max(k, 1.0) ** 2)
+    return CYL_ATOL_MM + CYL_RTOL * radius / max(a, 1e-9)
+
+
+def subsegment_flip(grid, axis, remaining, si, n_hyp, trunc, got_valid, got_inliers):
+    """Whether a round whose valid flag or inliers differ from the plain MSAC's
+    (from the same ``axis`` and ``remaining`` cells) took a decision the
+    plain version takes within float32's error: the hypotheses that can have
+    given the kernel's result (its inliers, but for cells whose distance lies
+    within its bound of the threshold; or, for an invalid round, fewer than 6
+    inliers) must hold one whose score lies within the two scores' bounds of
+    the best score (``msac_round64``, in float64)."""
+    scores, d2, d2_bound, score_bound = msac_round64(grid, axis, remaining, si, n_hyp, trunc)
+    inl = remaining & (d2 < trunc)
+    near = remaining & ((d2 - trunc).abs() <= d2_bound)
+    if bool(got_valid):
+        could = ((inl == got_inliers) | near).all(-1)
+    else:
+        could = (inl & ~near).sum(-1) < 6
+    best = int(scores.argmin())
+    margin = scores - scores[best]
+    tol = score_bound + score_bound[best]
+    within = could & (margin <= tol)
+    # the hypothesis the kernel can have taken with the least margin for its bound
+    ratio = torch.where(could, margin / tol.clamp_min(1e-300), torch.full_like(margin, math.inf))
+    pick = int(ratio.argmin()) if bool(could.any()) else -1
+    return dict(best=best, kernel_could_be=pick,
+                margin=float(margin[pick]) if pick >= 0 else None,
+                tol=float(tol[pick]) if pick >= 0 else None,
+                hypotheses_that_could=int(could.sum()), permitted=bool(within.any()))
+
+
+def check_cylinders_frame(cam, det, depth, name="frame"):
+    """The cylinders kernel against its plain version on the cylinder stage's
+    inputs of one depth map (``check_cylinder_stage``).  Returns (inputs, live
+    slots, max errors, flips)."""
+    inputs = cylinder_inputs(cam, det, depth)
+    return (inputs, *check_cylinder_stage(inputs, det, name))
+
+
+def check_cylinder_stage(inputs, det, name="frame"):
+    """The cylinders kernel against its plain version on ``inputs`` (grid,
+    member, try_cyl, min_activated), by the ``CYL_*`` rules.  Returns (live
+    slots, max errors, flips); raises on a difference outside the rules."""
+    grid, member, try_cyl, min_activated = inputs
+    got = cylinders_cuda.cylinders_cuda(grid, member, try_cyl, det, min_activated)
+    want = cylinders_cuda.cylinders_reference(grid, member, try_cyl, det, min_activated)
+    torch.cuda.synchronize()
+    problems, flips, err = [], [], {}
+    # the axis gate, against the plain score's distance to the threshold
+    w0 = (member & grid.planar).double()
+    nrm = grid.normal.double()
+    nn64 = torch.einsum("kc,ci,cj->kij", w0, nrm, nrm)
+    ev = torch.linalg.eigvalsh(nn64)
+    score = ev[:, 2] / ev[:, 0].clamp_min(1e-12)
+    gate_margin = (score / det.cylinder_ransac_min_score - 1.0).abs()
+    for r in torch.nonzero(got.axis_ok != want.axis_ok).flatten().tolist():
+        flips.append(dict(frame=name, output="axis_ok", region=r,
+                          margin=float(gate_margin[r]), tol=CYL_SCORE_RTOL))
+        if not float(gate_margin[r]) <= CYL_SCORE_RTOL:
+            problems.append(f"axis gate of region {r} flipped, {float(gate_margin[r])} of "
+                            "its threshold away")
+    # the axis is read only where a region holds a slot (a planar region's
+    # normals span one direction, so its smallest eigenvector is arbitrary)
+    ok_both = got.selected & want.selected
+    d_axis = (got.axis - want.axis).abs().amax(-1)
+    d_neg = (got.axis + want.axis).abs().amax(-1)
+    gap = _eig_row_gap(nn64)
+    tol_lam, lam = eig3_tolerance(nn64, w0.sum(-1) ** 2 * F32_EPS)
+    tol_axis = CYL_AXIS_TOL + tol_lam / (lam[:, 1] - lam[:, 0]).clamp_min(1e-30)
+    for r in torch.nonzero(ok_both).flatten().tolist():
+        if float(d_axis[r]) <= CYL_AXIS_TOL:
+            continue
+        sign = float(d_neg[r]) < float(d_axis[r])
+        flips.append(dict(frame=name, output="axis_sign" if sign else "axis", region=r,
+                          off=float(min(d_axis[r], d_neg[r])), tol=float(tol_axis[r]),
+                          row_gap=float(gap[r])))
+        if not (float(d_axis[r]) <= float(tol_axis[r])
+                or (float(d_neg[r]) <= float(tol_axis[r]) and float(gap[r]) <= CYL_SCORE_RTOL)):
+            problems.append(f"axis of region {r} off by {float(d_axis[r])}")
+    err["axis"] = float(torch.minimum(d_axis, d_neg)[ok_both].max()) if ok_both.any() else 0.0
+    gate_flipped = bool((got.axis_ok != want.axis_ok).any())
+    if not torch.equal(got.selected, want.selected) and not gate_flipped:
+        problems.append("selection differs")
+    live = [r for r in torch.nonzero(got.selected & want.selected).flatten().tolist()]
+    # the sub-segments of each live region, round by round
+    trunc = det.cylinder_ransac_sqrt_max_distance
+    n_hyp = primitives._msac_iterations(det)
+    err.update(center=0.0, radius=0.0, mse=0.0)
+    for r in live:
+        # the plain MSAC from the kernel's axis
+        ref = primitives._fit_cylinder(grid, member[r:r + 1], got.axis[r:r + 1],
+                                       torch.ones(1, dtype=torch.bool, device=member.device),
+                                       det, min_activated)
+        ref_centers, ref_radii, ref_mses, ref_valids, ref_inliers = [x[0] for x in ref]
+        remaining = member[r] & grid.planar
+        for si in range(want.valids.shape[1]):
+            same = bool(got.valids[r, si] == ref_valids[si]) \
+                and torch.equal(got.inliers[r, si], ref_inliers[si])
+            if not same:
+                f = subsegment_flip(grid, got.axis[r], remaining, si, n_hyp, trunc,
+                                    got.valids[r, si], got.inliers[r, si])
+                flips.append(dict(frame=name, output="subsegment", region=r, round=si, **f))
+                if not f["permitted"]:
+                    problems.append(f"region {r} round {si}: {f}")
+                break   # the later rounds start from another remaining set
+            if bool(ref_valids[si]):
+                rad = float(ref_radii[si].abs())
+                dc = float((got.centers[r, si] - ref_centers[si]).abs().max())
+                dr = float((got.radii[r, si] - ref_radii[si]).abs())
+                dm = float((got.mses[r, si] - ref_mses[si]).abs())
+                tol_len = lls_length_tolerance(grid, got.axis[r], ref_inliers[si], rad)
+                tol_mse = 4.0 * math.sqrt(float(ref_mses[si])) * tol_len + 4.0 * tol_len ** 2
+                err.update(center=max(err["center"], dc), radius=max(err["radius"], dr),
+                           mse=max(err["mse"], dm))
+                if not (dc <= tol_len and dr <= tol_len and dm <= tol_mse):
+                    problems.append(f"region {r} round {si}: centre {dc}, radius {dr}, mse {dm}"
+                                    f" (tolerances {tol_len}, {tol_len}, {tol_mse})")
+            elif not bool(got.mses[r, si].isinf()):
+                problems.append(f"region {r} round {si}: an invalid sub-segment's mse is "
+                                f"{float(got.mses[r, si])}")
+            remaining = remaining & ~ref_inliers[si]
+    # every region no slot holds carries the fill values
+    idle = ~(got.selected | want.selected)
+    if bool(got.valids[idle].any() or got.inliers[idle].any()
+            or (got.radii[idle] != 0).any() or (got.centers[idle] != 0).any()
+            or ~got.mses[idle].isinf().all()):
+        problems.append("a region without a slot holds other than the fill values")
+    if problems:
+        raise RuntimeError(f"cylinders kernel against its plain version on {name}: "
+                           + "; ".join(problems))
+    return len(live), err, flips
+
+
+def check_cylinders(cam, cfg, device, frames, tunnel_depths):
+    """Phase ``cylinders``: the cylinder stage's kernel (``csrc/cylinders.cu``)
+    against its plain version on the inputs ``find_primitives`` gives it on the
+    plane path's room frames (no live region: the axis gate and the fill
+    values) and the tunnel leg's (``check_cylinders_frame``), then timed on the
+    tunnel frame with the most live regions (the kernel's work; the room
+    frame's time is printed beside it).  The bound counts the inputs read once,
+    the outputs written once and ``cylinders_cuda.cylinders_work``'s float
+    operations for the frame's live regions.  No PyTorch call computes the
+    stage: ``library_ms`` is null."""
+    det = cfg.detection
+    worst, all_flips, timed = {}, [], {}
+    depths = [("room", d) for _, d in frames] + [("tunnel", d) for d in tunnel_depths]
+    for i, (kind, depth) in enumerate(depths):
+        dep = torch.as_tensor(depth, device=device)
+        inputs, live, err, flips = check_cylinders_frame(cam, det, dep, name=f"{kind}{i}")
+        for k, v in err.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        all_flips += flips
+        if kind not in timed or live > timed[kind][1]:
+            timed[kind] = (inputs, live)
+    for f in all_flips:
+        _say("cylinders_flip", **f)
+    result = None
+    n_hyp = primitives._msac_iterations(det)
+    for kind in ("tunnel", "room"):
+        (grid, member, try_cyl, min_act), live = timed[kind]
+        k, c = member.shape
+        work = cylinders_cuda.cylinders_work(c, k, n_hyp, primitives.CYL_SUBSEGMENTS, live)
+        bound_ms, bound_by = bound_of(work)
+        fields = dict(
+            max_abs_err=worst["axis"],
+            ms=_median_ms(lambda: cylinders_cuda.cylinder_stage(grid, member, try_cyl, det,
+                                                                min_act)),
+            plain_ms=_median_ms(lambda: cylinders_cuda.cylinders_reference(
+                grid, member, try_cyl, det, min_act)),
+            device_us=graph_launch_us(lambda: cylinders_cuda.cylinder_stage(
+                grid, member, try_cyl, det, min_act)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        _say("kernel", name="cylinders", frame=kind, live_regions=live, frames=len(depths),
+             flips=len(all_flips), **{f"max_err_{k}": v for k, v in worst.items()},
+             mflop=work["flops"] / 1e6, mbytes=work["bytes"] / 1e6,
+             **{k: fields[k] for k in ("ms", "plain_ms", "device_us", "bound_ms",
+                                       "bound_by")})
+        result = result or fields
+    if timed["tunnel"][1] == 0:
+        raise RuntimeError("cylinders: no live region on the tunnel frames")
     return result
 
 
@@ -974,7 +1496,8 @@ def profile_replays(graph, frames):
         torch.cuda.synchronize()
     counted = {k: v - before[k] for k, v in launch_counts().items()}
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    seen = {k: sum(e.name.startswith(k + "_kernel") for e in on_card) for k in counted}
+    seen = {k: sum(e.name.startswith(LAUNCH_MARKS.get(k, k + "_kernel")) for e in on_card)
+            for k in counted}
     return dict(kernels_per_frame=len(on_card) / len(frames),
                 device_us_per_frame=sum(e.time_range.elapsed_us() for e in on_card)
                 / len(frames), launches_counted=counted, launches_profiled=seen)
@@ -1276,7 +1799,7 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
     _say(name, **fields)
     problems = []
     if not with_planes:
-        expect_launches = {**expect_launches, "components": 0}
+        expect_launches = {**expect_launches, **{k: 0 for k in PLANE_KERNELS}}
     want = {k: v * (stats.frame_count + stats.warmup_steps)
             for k, v in expect_launches.items()}
     if launches != want:
@@ -1417,6 +1940,7 @@ def run_tum_cli(cam, frames, poses, gt):
             report = json.load(f)
     stats = report["stats"]
     launches = {**report["lk_launches"], **report["components_launches"],
+                **report["cells_launches"], **report["cylinders_launches"],
                 **report["lm_launches"]}
     ate_file = ate_rmse(traj[:, 1:4], gt)
     vertices = sum(ln.startswith("v ") for ln in map_lines)
@@ -1602,12 +2126,15 @@ def main() -> int:
     _say("device", card=card, torch=torch.__version__, cuda=torch.version.cuda)
 
     # one nvcc a source, started together
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = {"csrc/lk.cu": pool.submit(lk_cuda.build),
                   "csrc/components.cu": pool.submit(components_cuda.build),
+                  "csrc/cells.cu": pool.submit(cells_cuda.build),
+                  "csrc/cylinders.cu": pool.submit(cylinders_cuda.build),
                   "csrc/lm.cu": pool.submit(lm_cuda.build)}
         _say("build", **{src: f"{job.result():.1f} s" for src, job in builds.items()})
-    for log in (lk_cuda.BUILD_LOG, components_cuda.BUILD_LOG, lm_cuda.BUILD_LOG):
+    for log in (lk_cuda.BUILD_LOG, components_cuda.BUILD_LOG, cells_cuda.BUILD_LOG,
+                cylinders_cuda.BUILD_LOG, lm_cuda.BUILD_LOG):
         for kernel, usage in ptxas_usage(log).items():
             _say("ptxas", kernel=kernel, **usage)
 
@@ -1617,6 +2144,9 @@ def main() -> int:
     frames, gt = room_frames(cam, len(poses))
     kernels = check_kernels(cam, cfg, device)
     kernels["components"] = check_components(cam, cfg, device, frames)
+    tunnel_depths = _tunnel_depths(cam, JAX_REFERENCE["tunnel"]["frames"])
+    kernels["cells"] = check_cells(cam, cfg, device, frames, tunnel_depths)
+    kernels["cylinders"] = check_cylinders(cam, cfg, device, frames, tunnel_depths)
     kernels["lm_solve"] = check_lm(cam, cfg, device, frames)
     run_graph_phase(cam, cfg, device, frames, card)
     run_backend_graph_phase(cam, device, card)

@@ -32,7 +32,7 @@ from .config import TUM_FR1, CameraIntrinsics, SlamConfig, load_camera_yaml
 from .io import datasets
 from .io.map_writer import export_slam_map
 from .io.trajectory import ate_rmse
-from .ops import components_cuda, lk_cuda, lm_cuda
+from .ops import cells_cuda, components_cuda, cylinders_cuda, lk_cuda, lm_cuda
 
 CAMERAS = {
     "tum_fr1": TUM_FR1,
@@ -138,6 +138,8 @@ def main(argv=None) -> int:
             json.dump({"stats": dataclasses.asdict(stats),
                        "lk_launches": dict(lk_cuda.LAUNCHES),
                        "components_launches": dict(components_cuda.LAUNCHES),
+                       "cells_launches": dict(cells_cuda.LAUNCHES),
+                       "cylinders_launches": dict(cylinders_cuda.LAUNCHES),
                        "lm_launches": dict(lm_cuda.LAUNCHES)}, f)
     return 0
 

@@ -9,6 +9,10 @@ plane.  Shapes are fixed (``MAX_PLANES`` and ``MAX_CYLINDERS`` slots, masked).
 
 Differences from the JAX function that do not change its results:
 
+* on the card the per-cell pass (the cloud, the cell fits, the edges, the
+  normal bins: ``ops.cells_cuda``) and the cylinder stage (the axis gate to the
+  routing back: ``ops.cylinders_cuda``) are CUDA kernels; on the CPU their
+  plain versions run this module's functions of those steps;
 * the components fixpoint (``lax.while_loop``) is one CUDA kernel on the card
   (``ops.components_cuda``), which runs to its own convergence; on the CPU it
   runs in chunks of ``CC_CHUNK`` iterations with one host read after each
@@ -30,9 +34,8 @@ import torch
 from ..config import CameraIntrinsics, DetectionConfig
 from ..geometry.covariances import get_depth_quantization
 from ..geometry.eig3 import sym_eig3_smallest
-from ..ops import components_cuda
+from ..ops import cells_cuda, components_cuda, cylinders_cuda
 from ..ops.components_cuda import CC_CHUNK, FIXPOINT_READS, _clear_edge  # noqa: F401
-from ..ops.depth_cloud import depth_to_cloud
 from ..ops.fast import top_k
 from ..pose.linalg6 import solve_spd
 from ..utils import polygon as poly
@@ -378,16 +381,16 @@ def find_primitives(depth_mm, cam: CameraIntrinsics,
     dt = depth_mm.dtype
     dev = depth_mm.device
 
-    cloud, valid = depth_to_cloud(depth_mm, cam)
-    grid = fit_cells(cloud, valid, cfg)
-    cos_max = math.cos(math.radians(cfg.max_plane_merge_angle_d))
-    edges = _edge_maps(grid, gh, gw, cos_max)
+    # the per-cell pass: cell fits, edges, normal bins, cell-centre points
+    cells = cells_cuda.cell_pass(depth_mm, cam, cfg)
+    grid = CellGrid(*cells[:len(CellGrid._fields)])
+    cos_max = cells_cuda.merge_angle_cos(cfg)
 
     seed_threshold = max(1, int(cfg.min_plane_seed_proportion * n_cells))
     min_activated = max(1, int(cfg.min_cell_activated_proportion * n_cells))
 
     # grown regions = connected components; the largest K are the seed loop's
-    comp = _connected_components(edges, grid.planar, gh, gw)
+    comp = _connected_components(cells.edges, grid.planar, gh, gw)
     sizes = torch.zeros(n_cells + 1, dtype=torch.int32, device=dev).index_add_(
         0, comp, grid.planar.to(torch.int32))[:n_cells]
     k_cand = MAX_PLANES + MAX_CYLINDERS
@@ -399,9 +402,8 @@ def find_primitives(depth_mm, cam: CameraIntrinsics,
 
     # histogram seed gate: some orientation bin among the region's own cells
     # holds >= seed_threshold planar cells (one-hot count matmul, exact in f32)
-    bins = _normal_bins(grid.normal)
-    onehot = (bins[:, None] == torch.arange(HIST_BINS * HIST_BINS, device=dev)[None, :]) \
-        & grid.planar[:, None]
+    bin_ids = torch.arange(HIST_BINS * HIST_BINS, device=dev)
+    onehot = (cells.bins[:, None] == bin_ids[None, :]) & grid.planar[:, None]
     member_bin_counts = member.to(dt) @ onehot.to(dt)
     bin_gate = member_bin_counts.amax(dim=-1) >= seed_threshold
     grown_ok = (cand_sizes >= min_activated) & bin_gate & fit_ok
@@ -409,30 +411,9 @@ def find_primitives(depth_mm, cam: CameraIntrinsics,
     # plane-vs-cylinder model choice
     is_plane = grown_ok & (score > 100.0)
     try_cyl = grown_ok & ~is_plane & (cand_sizes > 5)
-    cy_axis, axis_ok = _cylinder_axis(grid, member, cfg)
-    cyl_cand = try_cyl & axis_ok
-    r_rank = torch.cumsum(cyl_cand.to(torch.int64), dim=0) - 1
-    r_sel = cyl_cand & (r_rank < MAX_CYLINDERS)
-    region_idx = torch.zeros(MAX_CYLINDERS + 1, dtype=torch.int64, device=dev).scatter(
-        0, torch.where(r_sel, r_rank, MAX_CYLINDERS),
-        torch.arange(k_cand, device=dev))[:MAX_CYLINDERS]
-    region_live = torch.arange(MAX_CYLINDERS, device=dev) < r_sel.to(torch.int64).sum()
-    sel_centers, sel_radii, sel_mses, sel_valids, sel_inliers = _fit_cylinder(
-        grid, member[region_idx], cy_axis[region_idx], region_live, cfg, min_activated)
-
-    # sub-segment results back to region index space (one-hot matmul)
-    s_ = CYL_SUBSEGMENTS
-    tgt = torch.where(region_live, region_idx, k_cand)
-    r_onehot = (tgt[None, :] == torch.arange(k_cand, device=dev)[:, None]).to(dt)
-    cy_centers = (r_onehot @ sel_centers.reshape(MAX_CYLINDERS, -1)).reshape(k_cand, s_, 3)
-    cy_radii = r_onehot @ sel_radii
-    cy_valids = (r_onehot @ sel_valids.to(dt)) > 0.5
-    cy_mses = torch.where(
-        cy_valids, r_onehot @ torch.where(torch.isfinite(sel_mses), sel_mses,
-                                          torch.zeros_like(sel_mses)),
-        torch.full_like(cy_radii, float("inf")))
-    cy_inliers = ((r_onehot @ sel_inliers.reshape(MAX_CYLINDERS, -1).to(dt)) > 0.5) \
-        .reshape(k_cand, s_, n_cells)
+    # the cylinder stage: axis gate, slot selection, sub-segment MSAC, routing
+    cy_axis, axis_ok, cy_selected, cy_centers, cy_radii, cy_valids, cy_mses, cy_inliers = \
+        cylinders_cuda.cylinder_stage(grid, member, try_cyl, cfg, min_activated)
     # per-sub-segment model choice against the region's merged-plane MSE
     cyl_better = cy_mses < mse[:, None]
     seg_cyl_better = try_cyl[:, None] & cy_valids & cyl_better
@@ -441,8 +422,10 @@ def find_primitives(depth_mm, cam: CameraIntrinsics,
     cyl_rank = torch.cumsum(seg_flat.to(torch.int64), dim=0) - 1
     overflow = seg_flat & (cyl_rank >= MAX_CYLINDERS)
     seg_flat = seg_flat & ~overflow
+    s_ = CYL_SUBSEGMENTS
     accept_plane = (is_plane | seg_plane_better.any(dim=1)
-                    | overflow.reshape(k_cand, s_).any(dim=1) | (cyl_cand & ~r_sel))
+                    | overflow.reshape(k_cand, s_).any(dim=1)
+                    | (try_cyl & axis_ok & ~cy_selected))
 
     p_num, (p_cnt, p_mean, p_m2, p_cellmask) = _compact_to(
         MAX_PLANES, accept_plane, (cnt, 0.0), (mean, 0.0), (m2, 0.0), (member, 0.0))
@@ -469,8 +452,8 @@ def find_primitives(depth_mm, cam: CameraIntrinsics,
     cloud_cov = solve_spd(raw / scale + 1e-9 * eye, eye.expand(raw.shape)) / scale
 
     planes_out = _build_plane_boundaries(params, centroid, mse, p_cnt, cloud_cov,
-                                         p_cellmask, plane_valid, cloud, valid, gh, gw,
-                                         patch)
+                                         p_cellmask, plane_valid, cells.centers,
+                                         cells.centers_valid, gh, gw)
     cylinders = DetectedCylinders(
         axis=c_axis, center=c_center, radius=c_radius, mse=c_mse, cell_mask=c_cells,
         valid=torch.arange(MAX_CYLINDERS, device=dev) < c_num)
@@ -511,10 +494,11 @@ def _merge_planes(p_cnt, p_mean, p_m2, p_cellmask, plane_valid, gh, gw, cos_max,
 
 
 def _build_plane_boundaries(params, centroid, mse, p_count, cloud_cov, p_cellmask,
-                            plane_valid, cloud, valid, gh, gw, patch):
+                            plane_valid, centers, centers_valid, gh, gw):
     """Boundary polygon per plane: cross-erode / square-dilate mask difference,
-    cell-centre camera points within 3 sqrt(MSE) of the plane, convex hull in the
-    plane basis."""
+    cell-centre camera points (``centers`` [gh, gw, 3] and their valid flags
+    ``centers_valid``, from the per-cell pass) within 3 sqrt(MSE) of the plane,
+    convex hull in the plane basis."""
     dev = params.device
     cell_maps = p_cellmask.reshape(MAX_PLANES, gh, gw)
 
@@ -533,11 +517,6 @@ def _build_plane_boundaries(params, centroid, mse, p_count, cloud_cov, p_cellmas
         for dx in (-1, 0, 1):
             dilated = dilated | shifted(cell_maps, dy, dx)
     boundary = dilated & ~eroded
-
-    cy = torch.arange(gh, device=dev) * patch + patch // 2
-    cx = torch.arange(gw, device=dev) * patch + patch // 2
-    centers = cloud[cy[:, None], cx[None, :]]          # [gh, gw, 3]
-    centers_valid = valid[cy[:, None], cx[None, :]]
 
     dist = torch.abs((params[:, None, None, :3] * centers[None]).sum(dim=-1)
                      + params[:, 3, None, None])

@@ -2,8 +2,8 @@
 package into a shared library with a plain C interface under
 ``rgbd_slam_tpu_torch/_build/``, loaded with ctypes.
 
-The library's name carries the hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  What ``nvcc``
+The library's name carries the hash of its source, of the headers beside it
+(``csrc/*.cuh``) and of its flags, so an edited source or header is rebuilt and an unchanged one is loaded as it is.  What ``nvcc``
 printed (``-Xptxas -v``: each kernel's registers, shared memory and spills) is
 kept in a file beside the library.
 """
@@ -42,8 +42,11 @@ def load_library(source: str, stem: str, extra_flags=()):
     flags = [*FLAGS, *extra_flags]
     path = os.path.join(CSRC, source)
     digest = hashlib.sha256(" ".join(flags).encode())
-    with open(path, "rb") as f:
-        digest.update(f.read())
+    # the source and every header beside it, which a source may include
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
     so_path = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
     log_path = so_path + ".log"

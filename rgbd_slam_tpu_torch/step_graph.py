@@ -39,12 +39,13 @@ import torch
 
 from . import engine
 from .config import CameraIntrinsics, SlamConfig
-from .ops import components_cuda, lk_cuda, lm_cuda
+from .ops import cells_cuda, components_cuda, cylinders_cuda, lk_cuda, lm_cuda
 
 #: eager steps (on a copy of the state) before the step is recorded
 WARMUP_STEPS = 1
 #: the launch counts of the kernels a step can launch
-_COUNTERS = (lk_cuda.LAUNCHES, components_cuda.LAUNCHES, lm_cuda.LAUNCHES)
+_COUNTERS = (lk_cuda.LAUNCHES, components_cuda.LAUNCHES, cells_cuda.LAUNCHES,
+             cylinders_cuda.LAUNCHES, lm_cuda.LAUNCHES)
 
 
 def tree_map(fn, tree):

@@ -923,3 +923,146 @@ def test_singular_window_is_refused_on_the_card(cuda):
         window.close()
     assert np.isfinite(costs[0]) and np.isnan(costs[1:]).all()
     assert not (np.isfinite(costs).all() and costs[-1] < costs[0])
+
+
+def _plane_depths(device, n_room=8, n_tunnel=8):
+    """(name, depth on the card) of the plane path's first RoomScene orbit
+    frames (depth noise on) and the tunnel leg's first frames, where the
+    cylinders live."""
+    import chip_smoke
+
+    cam = config.TUM_FR1
+    room = chip_smoke.room_frames(cam, n_room)[0] if n_room else []
+    tunnel = chip_smoke._tunnel_depths(cam, n_tunnel)
+    return ([(f"room{i}", torch.as_tensor(d, device=device)) for i, (_, d) in enumerate(room)]
+            + [(f"tunnel{i}", torch.as_tensor(d, device=device)) for i, d in enumerate(tunnel)])
+
+
+@pytest.mark.cuda
+def test_cells_kernel_matches_its_plain_version(cuda):
+    """The per-cell pass's kernels against ``cells_reference`` on the card at
+    640x480 on room and tunnel frames, by ``chip_smoke.check_cells_frame``'s
+    rules (continuous fields within the ``CELL_*`` tolerances, discrete ones
+    equal or flipped inside their gate's margin); one launch a call."""
+    import chip_smoke
+    from rgbd_slam_tpu_torch.ops import cells_cuda
+
+    det = config.DetectionConfig()
+    for name, depth in _plane_depths(cuda):
+        before = cells_cuda.LAUNCHES["cells"]
+        chip_smoke.check_cells_frame(depth, config.TUM_FR1, det, name=name)
+        assert cells_cuda.LAUNCHES["cells"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cylinders_kernel_matches_its_plain_version(cuda):
+    """The cylinder stage's kernel against ``cylinders_reference`` on the
+    card, by ``chip_smoke.check_cylinder_stage``'s rules, on the inputs
+    ``find_primitives`` gives it on room and tunnel frames and with the
+    tunnel's region cut in six candidates (more than the four slots)."""
+    import chip_smoke
+
+    det = config.DetectionConfig()
+    live = 0
+    for name, depth in _plane_depths(cuda):
+        _, n, _, _ = chip_smoke.check_cylinders_frame(config.TUM_FR1, det, depth, name=name)
+        live += n
+    assert live >= 8   # a live region on every tunnel frame
+    grid, member, try_cyl, min_act = chip_smoke.cylinder_inputs(
+        config.TUM_FR1, det, _plane_depths(cuda, 0, 1)[0][1])
+    r = int((try_cyl & member.any(dim=-1)).nonzero()[0])
+    cells = (member[r] & grid.planar).nonzero().flatten()
+    member = torch.zeros_like(member)
+    for i, chunk in enumerate(cells.chunk(6)):
+        member[i, chunk] = True
+    n, _, _ = chip_smoke.check_cylinder_stage((grid, member, member.any(dim=-1), min_act),
+                                              det, name="tunnel_in_six")
+    assert n == 4
+
+
+@pytest.mark.cuda
+def test_primitive_kernels_repeat_bit_equal(cuda):
+    """Fixed-order reductions and no atomics: two launches of each kernel on
+    the same inputs give the same bits."""
+    import chip_smoke
+    from rgbd_slam_tpu_torch.ops import cells_cuda, cylinders_cuda
+
+    det = config.DetectionConfig()
+    for name, depth in _plane_depths(cuda, 1, 1):
+        _assert_bit_equal(cells_cuda.cell_pass(depth, config.TUM_FR1, det),
+                          cells_cuda.cell_pass(depth, config.TUM_FR1, det), name)
+        grid, member, try_cyl, min_act = chip_smoke.cylinder_inputs(config.TUM_FR1, det,
+                                                                    depth)
+        _assert_bit_equal(
+            cylinders_cuda.cylinder_stage(grid, member, try_cyl, det, min_act),
+            cylinders_cuda.cylinder_stage(grid, member, try_cyl, det, min_act), name)
+
+
+@pytest.mark.cuda
+def test_primitive_kernels_raise_and_never_fall_back(cuda, monkeypatch):
+    """On the card ``find_primitives`` launches the two kernels or raises: a
+    failed launch and a failed build raise, and the plain versions are never
+    called."""
+    from rgbd_slam_tpu_torch.features import primitives
+    from rgbd_slam_tpu_torch.ops import cells_cuda, cylinders_cuda, nvcc
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(cells_cuda, "cells_reference", refuse)
+    monkeypatch.setattr(cylinders_cuda, "cylinders_reference", refuse)
+    depth = _plane_depths(cuda, 0, 1)[0][1]
+    det = config.DetectionConfig()
+    planes, cyls = primitives.find_primitives(depth, config.TUM_FR1, det)
+    assert int(cyls.valid.sum()) >= 1 and planes.valid.device.type == "cuda"
+
+    class Refusing:
+        @staticmethod
+        def cells_launch(*args):
+            return 1   # cudaErrorInvalidValue
+
+        @staticmethod
+        def cylinders_launch(*args):
+            return 1
+
+    for module, what in ((cells_cuda, "cells"), (cylinders_cuda, "cylinders")):
+        with monkeypatch.context() as mp:
+            mp.setattr(module, "_lib", Refusing())
+            with pytest.raises(RuntimeError, match=f"{what} kernel launch failed"):
+                primitives.find_primitives(depth, config.TUM_FR1, det)
+
+        def no_nvcc(*args, **kw):
+            raise RuntimeError(f"nvcc failed on {what}.cu")
+
+        with monkeypatch.context() as mp:
+            mp.setattr(module, "_lib", None)
+            mp.setattr(nvcc, "load_library", no_nvcc)
+            with pytest.raises(RuntimeError, match=f"nvcc failed on {what}.cu"):
+                primitives.find_primitives(depth, config.TUM_FR1, det)
+
+
+@pytest.mark.cuda
+def test_graph_step_runs_the_primitive_kernels_and_not_their_plain_versions(cuda,
+                                                                           monkeypatch):
+    """``run_frames`` on the card (the step as a CUDA graph) over 4 frames with
+    planes on and the plain versions patched to raise: each kernel runs once a
+    frame and once in the warm-up step; with planes off, never."""
+    from rgbd_slam_tpu_torch import runner
+    from rgbd_slam_tpu_torch.ops import cells_cuda, cylinders_cuda
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(cells_cuda, "cells_reference", refuse)
+    monkeypatch.setattr(cylinders_cuda, "cylinders_reference", refuse)
+    cam, cfg = config.TUM_FR1, config.SlamConfig()
+    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+    frames = [scene.render(q, p) for q, p in synthetic.orbit_trajectory(4, speed_mm=4.0)]
+    for with_planes, per_frame in ((True, 1), (False, 0)):
+        before = (cells_cuda.LAUNCHES["cells"], cylinders_cuda.LAUNCHES["cylinders"])
+        _, traj, stats = runner.run_frames(frames, cam, cfg, with_planes=with_planes,
+                                           device=cuda)
+        assert stats.warmup_steps == 1
+        assert cells_cuda.LAUNCHES["cells"] - before[0] == per_frame * (4 + 1)
+        assert cylinders_cuda.LAUNCHES["cylinders"] - before[1] == per_frame * (4 + 1)
+        assert np.isfinite(traj.positions_array()).all()

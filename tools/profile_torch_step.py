@@ -21,7 +21,12 @@ Monte-Carlo covariance (``POSE_STAGES``; the two LM ranges hold the LM's
 preparation and packing, and the LM kernels themselves, which the profiler
 charges to no range, are ``lm_kernels``: ``OWN_KERNELS``).  Eight more frames (one batch
 of the runner's summary reads) run under ``torch.cuda.set_sync_debug_mode`` to
-name the package line of every host sync.  Each run segment is a ``run_frames``
+name the package line of every host sync.  With planes on, ``PRIMITIVE_FRAMES``
+more frames run under the profiler with every op of ``find_primitives`` in a
+range of its part (``PRIMITIVE_STAGES``: cells, components, regions,
+cylinders, compact_merge, boundaries; ``PrimitiveRanges``), which splits
+``plane_extract``'s device µs and kernels a frame
+(``plane_extract_per_frame``).  Each run segment is a ``run_frames``
 call of its own, so with ``--ba-every 8`` a refine fires only in a segment of
 16 frames or more (three keyframes by its frame 15): ``--frames 53``.
 Prints one JSON line.
@@ -39,11 +44,14 @@ them, and once through ``runner.stage_frames``.
 from __future__ import annotations
 
 import argparse
+import ast
 import dataclasses
+import inspect
 import json
 import subprocess
 import sys
 import tempfile
+import textwrap
 import time
 import traceback
 import warnings
@@ -53,6 +61,7 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.autograd import DeviceType
+from torch.overrides import TorchFunctionMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
@@ -103,6 +112,36 @@ POSE_STAGES = {
 }
 #: prefix of the profiler ranges around the parts of ``pose_opt``
 POSE_PREFIX = "pose:"
+
+#: the parts of ``plane_extract`` the primitive frames split it into.  Each
+#: statement of ``find_primitives``' body belongs to one part, found by the
+#: names it assigns (``primitive_parts``), and so does every op it runs, in the
+#: functions it calls too: ``cells`` is the per-cell pass (the cloud, the cell
+#: fits, the edge maps, the normal bins; ``csrc/cells.cu`` where the port has
+#: it), ``components`` the connected components, ``regions`` the statements
+#: between them and the cylinder stage (region sizes, top-k, moment combine,
+#: region fit, the seed gate), ``cylinders`` the cylinder stage from the axis
+#: gate to the routing back (``csrc/cylinders.cu`` where the port has it),
+#: ``compact_merge`` the model choice, compaction, plane merge, refit and
+#: cloud covariance, and ``boundaries`` the statements from the boundary
+#: polygons on
+PRIMITIVE_STAGES = {
+    "cells": ("cloud", "valid", "grid", "edges", "bins", "cells"),
+    "components": ("comp",),
+    "regions": (),
+    # the prefixes of the names its first and its last statement assign
+    "cylinders": (("cy_", "cyl_"), "cy_"),
+    "compact_merge": (),
+    "boundaries": ("planes_out",),
+}
+#: prefix of the profiler ranges around the ops of each part
+PRIMITIVE_PREFIX = "prim:"
+#: frames profiled for the parts of ``plane_extract``, after the sync sites'
+PRIMITIVE_FRAMES = 4
+#: the port's own kernels by name prefix, and the part of ``plane_extract``
+#: that launches each
+PRIMITIVE_KERNELS = {"cells_": "cells", "components_kernel": "components",
+                     "cylinders_kernel": "cylinders"}
 
 #: how the profiled runs step: eagerly, stage by stage
 EAGER = "eager: engine.step a frame (step_graph.EagerStep), not the CUDA graph run_frames " \
@@ -161,6 +200,7 @@ RANGE_PREFIX = "stage:"
 #: They are launched through ctypes, outside every PyTorch op, so the profiler
 #: charges them to no range: they are charged to their stage by name.
 OWN_KERNELS = {"lk_": "optical_flow", "components_kernel": "plane_extract",
+               "cells_": "plane_extract", "cylinders_kernel": "plane_extract",
                "lm_solve_kernel": "pose_opt"}
 
 
@@ -191,6 +231,107 @@ class StageRanges(StageTimer):
             finally:
                 self.active = False
         return ranged
+
+
+def primitive_parts(fn=None) -> dict:
+    """{source line: part} of ``find_primitives``' body (``PRIMITIVE_STAGES``):
+    the statements before the one that assigns ``comp`` are ``cells``, that one
+    is ``components``; the cylinder stage runs from the first statement that
+    assigns a ``cy_`` or ``cyl_`` name to the last that assigns a ``cy_`` name;
+    the statements between ``comp`` and it are ``regions`` (but ``bins``,
+    ``cells``), those after it ``compact_merge``, and from the one that assigns
+    ``planes_out`` on ``boundaries``."""
+    fn = primitives.find_primitives if fn is None else fn
+    lines, first = inspect.getsourcelines(fn)
+    body = ast.parse(textwrap.dedent("".join(lines))).body[0].body
+    offset = first - 1
+
+    def assigned(stmt):
+        targets = getattr(stmt, "targets", None) or [getattr(stmt, "target", None)]
+        return {n.id for t in targets if t is not None for n in ast.walk(t)
+                if isinstance(n, ast.Name)}
+
+    names = [assigned(s) for s in body]
+
+    def first_index(pred, default=None):
+        return next((i for i, n in enumerate(names) if pred(n)), default)
+
+    i_comp = first_index(lambda n: set(PRIMITIVE_STAGES["components"]) & n)
+    first, last = PRIMITIVE_STAGES["cylinders"]
+    i_cyl0 = first_index(lambda n: any(x.startswith(first) for x in n))
+    i_cyl1 = max(i for i, n in enumerate(names) if any(x.startswith(last) for x in n))
+    i_bound = first_index(lambda n: set(PRIMITIVE_STAGES["boundaries"]) & n)
+    cells = set(PRIMITIVE_STAGES["cells"])
+    parts = {}
+    for i, stmt in enumerate(body):
+        if i < i_comp or names[i] & cells:
+            part = "cells"
+        elif i == i_comp:
+            part = "components"
+        elif i < i_cyl0:
+            part = "regions"
+        elif i <= i_cyl1:
+            part = "cylinders"
+        elif i < i_bound:
+            part = "compact_merge"
+        else:
+            part = "boundaries"
+        for line in range(stmt.lineno + offset, stmt.end_lineno + offset + 1):
+            parts[line] = part
+    return parts
+
+
+class PrimitiveRanges(TorchFunctionMode):
+    """While ``find_primitives`` runs, every PyTorch op it runs (in the
+    functions it calls too) goes into a profiler range named
+    ``PRIMITIVE_PREFIX`` + its part, the part of the body statement it runs
+    under (``primitive_parts``).  The port's own kernels launch through ctypes,
+    outside every op: ``PRIMITIVE_KERNELS`` charges them by name.  Costs host
+    time on every op: profile it over frames of its own."""
+
+    def __init__(self):
+        super().__init__()
+        self.fn = primitives.find_primitives
+        self.code = self.fn.__code__
+        self.parts = primitive_parts(self.fn)
+
+    def install(self):
+        fn, mode = self.fn, self
+
+        def split(*args, **kw):
+            with mode:
+                return fn(*args, **kw)
+        primitives.find_primitives = split
+
+    def remove(self):
+        primitives.find_primitives = self.fn
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        frame = sys._getframe(1)
+        while frame is not None and frame.f_code is not self.code:
+            frame = frame.f_back
+        part = self.parts.get(frame.f_lineno, "other") if frame is not None else "other"
+        with torch.profiler.record_function(PRIMITIVE_PREFIX + part):
+            return func(*args, **(kwargs or {}))
+
+
+def primitive_breakdown(prof, n_frames: int) -> dict:
+    """Device µs and kernels a frame of each part of ``plane_extract`` from a
+    ``torch.profiler`` run under ``PrimitiveRanges``, the port's own kernels
+    charged to their parts by name."""
+    parts = range_breakdown(prof, n_frames, PRIMITIVE_PREFIX)
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        part = next((p for prefix, p in PRIMITIVE_KERNELS.items()
+                     if evt.name.startswith(prefix)), None)
+        if part is not None:
+            entry = parts.setdefault(part, {"device_us": 0.0, "kernels": 0.0})
+            entry["device_us"] += evt.time_range.elapsed_us() / n_frames
+            entry["kernels"] += 1 / n_frames
+    parts["plane_extract"] = {k: sum(p[k] for p in parts.values())
+                              for k in ("device_us", "kernels")}
+    return parts
 
 
 def device_breakdown(prof, n_frames: int):
@@ -371,14 +512,16 @@ def main() -> int:
         cfg.mapping, max_tracked_points=args.tracked))
     with_planes = not args.no_planes
     run_kw = dict(with_planes=with_planes, with_lines=args.lines, ba_every=args.ba_every)
-    # the sync sites are found over one more batch of summary reads
+    # the sync sites are found over one more batch of summary reads, and the
+    # parts of plane_extract over PRIMITIVE_FRAMES more
     n_sync = runner.SUMMARY_BATCH
+    n_prim = PRIMITIVE_FRAMES if with_planes else 0
     if args.stripe_wall:
         scene = synthetic.StripeWallScene(cam, texture_scale=0.03, stripe_period_z=2400.0)
-        poses = synthetic.lateral_trajectory(args.frames + n_sync, speed_mm=4.0)
+        poses = synthetic.lateral_trajectory(args.frames + n_sync + n_prim, speed_mm=4.0)
     else:
         scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
-        poses = synthetic.orbit_trajectory(args.frames + n_sync, speed_mm=4.0)
+        poses = synthetic.orbit_trajectory(args.frames + n_sync + n_prim, speed_mm=4.0)
     frames = [scene.render(q, p) for q, p in poses]
     warm = 5
     n_staged = (args.frames - warm) // 2
@@ -436,7 +579,20 @@ def main() -> int:
                        "cudaMemcpyAsync", "cudaLaunchKernel"):
             counts[avg.key] = avg.count
 
-    sync_sites = _sync_sites(frames[args.frames:], cam, cfg, run_kw, state, device)
+    sync_sites = _sync_sites(frames[args.frames:args.frames + n_sync], cam, cfg, run_kw,
+                             state, device)
+    prim_parts = None
+    if n_prim:
+        split = PrimitiveRanges()
+        split.install()
+        try:
+            with torch.profiler.profile(activities=acts) as prim_prof:
+                runner.run_frames(frames[args.frames + n_sync:], cam, cfg, state=state,
+                                  device=device, **run_kw)
+                torch.cuda.synchronize()
+        finally:
+            split.remove()
+        prim_parts = primitive_breakdown(prim_prof, n_prim)
     stage_ms = {k: timer.ms[k] / n_staged for k in STAGES}
     stage_ms["rest"] = staged_ms - sum(stage_ms.values())
     print(json.dumps({
@@ -453,6 +609,7 @@ def main() -> int:
         "own_kernel_us_per_launch": {k: float(np.mean(v)) for k, v in own_us.items()},
         "own_launches_per_frame": {k: len(v) / n_prof for k, v in own_us.items()},
         "pose_opt_per_frame": pose_parts,
+        "plane_extract_per_frame": prim_parts,
         "sync_sites_per_frame": sync_sites,
     }))
     return 0
