@@ -44,7 +44,12 @@ Phases, one line of output each (any failure raises, so the last line, the
    error and the closed-form eig3's conditioning, discrete fields (planar,
    edges, bins) equal or flipped only where the plain version's margin to the
    gate lies inside those tolerances, each flip printed with its margin
-   (``check_cells_frame``, ``CELL_*``); timed on the first room frame.
+   (``check_cells_frame``, ``CELL_*``); timed (``device_us``) on the three
+   ``TIMED_FRAMES`` (a room frame whose cylinder stage holds no live region,
+   one that holds two, a tunnel frame that holds one), where its outputs must
+   equal the first design's bits on the first design's inputs (``held_bits``:
+   it prints null where the inputs moved, and fails where only the outputs
+   did).
    cylinders: the cylinder stage's kernel (``csrc/cylinders.cu``: the axis
    gate of the 20 candidate regions, the selection of at most 4, the 3-round
    sub-segment MSAC and the routing back) against its plain version on the
@@ -54,8 +59,8 @@ Phases, one line of output each (any failure raises, so the last line, the
    axis, a differing round only where the plain version's own float32 error
    could take the kernel's decision (``subsegment_flip``), the fill values of
    the regions without a slot (``check_cylinder_stage``, ``CYL_*``); timed on
-   the tunnel frame with the most live regions (the JSON line's) and on the
-   room frame with the most.
+   the three ``TIMED_FRAMES`` (the tunnel frame's is the JSON line's), held to
+   the first design's bits there as the cells are.
    lm: the LM kernel (the pose optimizer's ``lm_solve``, no Pallas port)
    against its plain version on the inputs of both ``lm_solve`` calls (the
    32 RANSAC hypotheses over 6/6/3/6-feature subsets, 10 iterations; the
@@ -172,6 +177,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import inspect
 import json
 import math
@@ -272,9 +278,11 @@ RIG_BASELINE_MM = 25.0
 #: + Monte-Carlo batch)
 FUSED_ONLY = {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0, "components": 1,
               "cells": 1, "cylinders": 1, "lm_solve": 2}
-#: the kernel whose launch the profiler sees for one count of a wrapper that
-#: launches more than one (default: the count's name + "_kernel")
-LAUNCH_MARKS = {"cells": "cells_fit_kernel"}
+#: the kernel the profiler sees for one launch a wrapper counts, by the start
+#: of its name (the LM's count covers ``lm_solve_kernel`` and
+#: ``lm_solve_kernel_warp``, one a call; the cells' is the fit kernel of the
+#: pair ``cells_fit_kernel`` + ``cells_edges_kernel``)
+LAUNCH_MARKS = {**{name: name + "_kernel" for name in FUSED_ONLY}, "cells": "cells_fit_kernel"}
 #: the kernels a step launches only with planes on
 PLANE_KERNELS = ("components", "cells", "cylinders")
 #: the Pallas kernel each CUDA kernel replaces; the components, cells,
@@ -721,6 +729,56 @@ CYL_ATOL_MM = 1e-2
 CYL_RTOL = 5e-5
 CYL_D2_ULPS = 16
 F32_EPS = float(np.finfo(np.float32).eps)
+#: the depth maps the cells and cylinders phases time, by kind: the first
+#: RoomScene orbit frame of the plane path whose cylinder stage holds no live
+#: region, the first that holds two, and the first frame of the tunnel leg,
+#: which holds one (``tools/profile_plane_kernels.py`` times the same)
+TIMED_FRAMES = {"room_none": ("room", 0), "room_two": ("room", 15),
+                "tunnel_one": ("tunnel", 0)}
+#: the first 16 hex digits of the sha256 (``output_digest``) of the two
+#: kernels' outputs on those frames as the first design of the kernels (commit
+#: adec76e) wrote them, and of their inputs there: the depth map and what
+#: ``find_primitives`` gives the cylinder stage (``tools/profile_plane_kernels.py
+#: time`` on that commit; NVIDIA H100 80GB HBM3).  Every sum keeps its order in
+#: the redesign, so the same inputs must give these bits (``held_bits``)
+HELD_BITS = {
+    "room_none": {"cells_inputs": "1f4371867413a745", "cells": "9e66dddd490c5501",
+                  "cylinders_inputs": "1f8988f5702a5999", "cylinders": "4b30b3ad3923410a"},
+    "room_two": {"cells_inputs": "f99a465333480820", "cells": "dfcf108f8eabb4a7",
+                 "cylinders_inputs": "d0972cc4135e26ae", "cylinders": "a97aa22a467f4a46"},
+    "tunnel_one": {"cells_inputs": "142cac8f5b194c6b", "cells": "34e9c4a3d33df923",
+                   "cylinders_inputs": "6b42a260add916b6", "cylinders": "d097ff90e65c69b6"},
+}
+
+
+def output_digest(tensors) -> str:
+    """The first 16 hex digits of the sha256 of ``tensors``' bytes, in order."""
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def held_bits(kind, kernel, inputs_bits, bits):
+    """Whether ``kernel``'s outputs (digest ``bits``) on the ``kind`` frame of
+    ``TIMED_FRAMES`` equal the first design's: True, or None where its inputs
+    (digest ``inputs_bits``) are not the ones the first design saw, so there is
+    nothing to compare; raises where the inputs are the same and the outputs
+    are not."""
+    held = HELD_BITS[kind]
+    if inputs_bits != held[f"{kernel}_inputs"]:
+        return None
+    if bits != held[kernel]:
+        raise RuntimeError(f"{kernel} on {kind}: outputs {bits} on the first design's inputs, "
+                           f"where it wrote {held[kernel]}: the bits moved")
+    return True
+
+
+def timed_depths(frames, tunnel_depths, device):
+    """{kind: depth on the card} of ``TIMED_FRAMES``."""
+    by_kind = {"room": [d for _, d in frames], "tunnel": tunnel_depths}
+    return {kind: torch.as_tensor(by_kind[src][i], device=device)
+            for kind, (src, i) in TIMED_FRAMES.items()}
 
 
 def _tunnel_depths(cam, n):
@@ -858,10 +916,13 @@ def check_cells_frame(depth, cam, det, name="frame"):
 def check_cells(cam, cfg, device, frames, tunnel_depths):
     """Phase ``cells``: the per-cell pass's kernels (``csrc/cells.cu``) against
     the plain version on every depth map of the plane path's ``frames`` and of
-    the tunnel leg (``check_cells_frame``), then timed on the plane path's
-    first frame as the other kernels are; the bound counts the depth read once
-    and the outputs written once, and ``cells_cuda.cells_work``'s float
-    operations.  No PyTorch call computes the pass: ``library_ms`` is null."""
+    the tunnel leg (``check_cells_frame``), then timed on each of
+    ``TIMED_FRAMES`` as the other kernels are (the JSON line's on the room
+    frame without a live region, the plane path's first), where its outputs
+    must equal the first design's (``held_bits``); the bound counts
+    the depth read once and the outputs written once, and
+    ``cells_cuda.cells_work``'s float operations.  No PyTorch call computes the
+    pass: ``library_ms`` is null."""
     det = cfg.detection
     worst, all_flips = {}, []
     depths = [("room", d) for _, d in frames] + [("tunnel", d) for d in tunnel_depths]
@@ -873,14 +934,24 @@ def check_cells(cam, cfg, device, frames, tunnel_depths):
         all_flips += flips
     for f in all_flips:
         _say("cells_flip", **f)
-    depth = torch.as_tensor(frames[0][1], device=device)
+    timed = timed_depths(frames, tunnel_depths, device)
+    by_kind = {}
+    for kind, dep in timed.items():
+        in_bits = output_digest([dep])
+        bits = output_digest(cells_cuda.cell_pass(dep, cam, det))
+        by_kind[kind] = dict(
+            device_us=graph_launch_us(lambda: cells_cuda.cell_pass(dep, cam, det)),
+            bits_equal_first_design=held_bits(kind, "cells", in_bits, bits))
+        _say("cells_frame", kind=kind, frame="%s%d" % TIMED_FRAMES[kind],
+             inputs_bits=in_bits, bits=bits, **by_kind[kind])
+    depth = timed["room_none"]
     work = cells_cuda.cells_work(*depth.shape, det.depth_patch_size_px)
     bound_ms, bound_by = bound_of(work)
     result = dict(
         max_abs_err=worst["normal"],
         ms=_median_ms(lambda: cells_cuda.cell_pass(depth, cam, det)),
         plain_ms=_median_ms(lambda: cells_cuda.cells_reference(depth, cam, det)),
-        device_us=graph_launch_us(lambda: cells_cuda.cell_pass(depth, cam, det)),
+        device_us=by_kind["room_none"]["device_us"],
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     _say("kernel", name="cells", frames=len(depths), flips=len(all_flips),
          **{f"max_err_{k}": v for k, v in worst.items()},
@@ -1099,50 +1170,59 @@ def check_cylinder_stage(inputs, det, name="frame"):
 def check_cylinders(cam, cfg, device, frames, tunnel_depths):
     """Phase ``cylinders``: the cylinder stage's kernel (``csrc/cylinders.cu``)
     against its plain version on the inputs ``find_primitives`` gives it on the
-    plane path's room frames (no live region: the axis gate and the fill
-    values) and the tunnel leg's (``check_cylinders_frame``), then timed on the
-    tunnel frame with the most live regions (the kernel's work; the room
-    frame's time is printed beside it).  The bound counts the inputs read once,
+    plane path's room frames (most without a live region: the axis gate and
+    the fill values) and the tunnel leg's (``check_cylinders_frame``), then
+    timed on each of ``TIMED_FRAMES`` (the JSON line's on the tunnel frame),
+    where its outputs must equal the first design's (``held_bits``).  The
+    bound counts the inputs read once,
     the outputs written once and ``cylinders_cuda.cylinders_work``'s float
     operations for the frame's live regions.  No PyTorch call computes the
     stage: ``library_ms`` is null."""
     det = cfg.detection
-    worst, all_flips, timed = {}, [], {}
+    worst, all_flips, tunnel_live = {}, [], 0
     depths = [("room", d) for _, d in frames] + [("tunnel", d) for d in tunnel_depths]
     for i, (kind, depth) in enumerate(depths):
         dep = torch.as_tensor(depth, device=device)
-        inputs, live, err, flips = check_cylinders_frame(cam, det, dep, name=f"{kind}{i}")
+        _, live, err, flips = check_cylinders_frame(cam, det, dep, name=f"{kind}{i}")
         for k, v in err.items():
             worst[k] = max(worst.get(k, 0.0), v)
         all_flips += flips
-        if kind not in timed or live > timed[kind][1]:
-            timed[kind] = (inputs, live)
+        tunnel_live += live if kind == "tunnel" else 0
     for f in all_flips:
         _say("cylinders_flip", **f)
+    if tunnel_live == 0:
+        raise RuntimeError("cylinders: no live region on the tunnel frames")
     result = None
     n_hyp = primitives._msac_iterations(det)
-    for kind in ("tunnel", "room"):
-        (grid, member, try_cyl, min_act), live = timed[kind]
+    for kind, dep in timed_depths(frames, tunnel_depths, device).items():
+        grid, member, try_cyl, min_act = cylinder_inputs(cam, det, dep)
+
+        def stage():
+            return cylinders_cuda.cylinder_stage(grid, member, try_cyl, det, min_act)
+
+        live = int(stage().selected.sum())
         k, c = member.shape
         work = cylinders_cuda.cylinders_work(c, k, n_hyp, primitives.CYL_SUBSEGMENTS, live)
         bound_ms, bound_by = bound_of(work)
+        in_bits = output_digest([grid.normal, grid.mean, grid.planar, member, try_cyl,
+                                 torch.tensor(min_act)])
+        bits = output_digest(stage())
         fields = dict(
-            max_abs_err=worst["axis"],
-            ms=_median_ms(lambda: cylinders_cuda.cylinder_stage(grid, member, try_cyl, det,
-                                                                min_act)),
+            max_abs_err=worst["axis"], ms=_median_ms(stage),
             plain_ms=_median_ms(lambda: cylinders_cuda.cylinders_reference(
                 grid, member, try_cyl, det, min_act)),
-            device_us=graph_launch_us(lambda: cylinders_cuda.cylinder_stage(
-                grid, member, try_cyl, det, min_act)),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        _say("kernel", name="cylinders", frame=kind, live_regions=live, frames=len(depths),
-             flips=len(all_flips), **{f"max_err_{k}": v for k, v in worst.items()},
+            device_us=graph_launch_us(stage), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+        _say("kernel", name="cylinders", kind=kind, frame="%s%d" % TIMED_FRAMES[kind],
+             live_regions=live, frames=len(depths), flips=len(all_flips),
+             **{f"max_err_{k}": v for k, v in worst.items()},
              mflop=work["flops"] / 1e6, mbytes=work["bytes"] / 1e6,
              **{k: fields[k] for k in ("ms", "plain_ms", "device_us", "bound_ms",
-                                       "bound_by")})
-        result = result or fields
-    if timed["tunnel"][1] == 0:
-        raise RuntimeError("cylinders: no live region on the tunnel frames")
+                                       "bound_by")},
+             inputs_bits=in_bits, bits=bits,
+             bits_equal_first_design=held_bits(kind, "cylinders", in_bits, bits))
+        if kind == "tunnel_one":
+            result = fields
     return result
 
 
@@ -1496,7 +1576,7 @@ def profile_replays(graph, frames):
         torch.cuda.synchronize()
     counted = {k: v - before[k] for k, v in launch_counts().items()}
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    seen = {k: sum(e.name.startswith(LAUNCH_MARKS.get(k, k + "_kernel")) for e in on_card)
+    seen = {k: sum(e.name.startswith(LAUNCH_MARKS[k]) for e in on_card)
             for k in counted}
     return dict(kernels_per_frame=len(on_card) / len(frames),
                 device_us_per_frame=sum(e.time_range.elapsed_us() for e in on_card)

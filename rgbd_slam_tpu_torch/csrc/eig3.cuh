@@ -22,6 +22,17 @@ __device__ __forceinline__ int argmax3(float v0, float v1, float v2) {
 // smallest, operation for operation as sym_eig3 and eigenvector_for.
 __device__ void sym_eig3_smallest(float a00, float a11, float a22, float a01, float a02,
                                   float a12, float* vals, float* vec) {
+  // the zero matrix (every entry +0: an empty cell or region) takes the
+  // isotropic branch below to eigenvalues +0 and the fallback vector (0, 0,
+  // 1); those bits directly, without the divisions by the 1e-30 floors
+  if ((__float_as_uint(a00) | __float_as_uint(a11) | __float_as_uint(a22)
+       | __float_as_uint(a01) | __float_as_uint(a02) | __float_as_uint(a12)) == 0u) {
+    vals[0] = vals[1] = vals[2] = 0.0f;
+    vec[0] = 0.0f;
+    vec[1] = 0.0f;
+    vec[2] = 1.0f;
+    return;
+  }
   const float p1 = (a01 * a01 + a02 * a02) + a12 * a12;
   const float q = ((a00 + a11) + a22) / 3.0f;
   const float d0 = a00 - q, d1 = a11 - q, d2 = a22 - q;
@@ -70,8 +81,11 @@ __device__ void sym_eig3_smallest(float a00, float a11, float a22, float a01, fl
   const float n0 = (c[0][0] * c[0][0] + c[0][1] * c[0][1]) + c[0][2] * c[0][2];
   const float n1 = (c[1][0] * c[1][0] + c[1][1] * c[1][1]) + c[1][2] * c[1][2];
   const float n2 = (c[2][0] * c[2][0] + c[2][1] * c[2][1]) + c[2][2] * c[2][2];
+  // the chosen row by selects: an index into c would put it in local memory
   const int best = argmax3(n0, n1, n2);
-  const float v0 = c[best][0], v1 = c[best][1], v2 = c[best][2];
+  const float v0 = best == 0 ? c[0][0] : (best == 1 ? c[1][0] : c[2][0]);
+  const float v1 = best == 0 ? c[0][1] : (best == 1 ? c[1][1] : c[2][1]);
+  const float v2 = best == 0 ? c[0][2] : (best == 1 ? c[1][2] : c[2][2]);
   const float norm = sqrtf((v0 * v0 + v1 * v1) + v2 * v2);
   if (norm > 1e-12f) {
     const float s = fmaxf(norm, 1e-12f);

@@ -9,10 +9,10 @@ cell-centre points with their valid flags, which the boundary polygons read.
 It is the head of the jitted ``find_primitives``
 (``rgbd_slam_tpu/features/primitives.py:441``): ``depth_to_cloud``,
 ``fit_cells``, ``_edge_maps`` and ``_normal_bins``.  For CUDA tensors it
-launches ``cells_fit_kernel`` and ``cells_edges_kernel`` (``csrc/cells.cu``,
-one warp a cell, then one thread a cell; the dense cloud is never written) or
-raises; for CPU tensors it runs :func:`cells_reference`, the port's tensor
-code of those four functions.
+launches ``cells_fit_kernel`` and ``cells_edges_kernel`` (``csrc/cells.cu``:
+one warp a cell, the patch's loads all in flight at once, then one thread a
+cell; the dense cloud is never written) or raises; for CPU tensors it runs
+:func:`cells_reference`, the port's tensor code of those four functions.
 
 The kernels are compiled with ``nvcc`` on first use (:mod:`.nvcc`, with
 ``-fmad=false``: every product and sum rounds on its own, as the plain

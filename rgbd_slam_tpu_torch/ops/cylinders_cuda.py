@@ -11,9 +11,10 @@ hold the fill values 0, inf and False.  It is the part of the jitted
 ``find_primitives`` (``rgbd_slam_tpu/features/primitives.py:441``) from the
 axis gate to the routing back: ``_cylinder_axis`` (:301), the selection,
 ``_fit_cylinder`` (:319) and the one-hot routing (:496-525).  For CUDA tensors
-it launches ``cylinders_kernel`` (``csrc/cylinders.cu``: one CTA a region
-slot; a dead slot exits after the axis gate) or raises; for CPU tensors it
-runs :func:`cylinders_reference`, the port's tensor code of those steps.
+it launches ``cylinders_kernel`` (``csrc/cylinders.cu``: a thread block
+cluster of 4 CTAs a region slot, the inputs staged in shared memory; a dead
+slot exits after the axis gate and the fill values) or raises; for CPU tensors
+it runs :func:`cylinders_reference`, the port's tensor code of those steps.
 
 The kernel is compiled with ``nvcc`` on first use (:mod:`.nvcc`, with
 ``-fmad=false``) and bound with ctypes; it launches on the current stream and
@@ -41,10 +42,9 @@ EXTRA_FLAGS = ("-fmad=false",)
 MAX_REGIONS = 64
 MAX_HYPOTHESES = 256
 MAX_SUBSEGMENTS = 8
-#: shared memory a CTA may hold on Hopper (227 KB), less the kernel's ~8 kB of
-#: static arrays; a cell takes 37 bytes of the rest
-MAX_SMEM_BYTES = 232448 - 8 * 1024
-SMEM_BYTES_PER_CELL = 37
+#: dynamic shared memory a CTA may hold on Hopper (227 KB), less the kernel's
+#: ~9 kB of static arrays
+MAX_SMEM_BYTES = 232448 - 10 * 1024
 #: operations :func:`cylinders_work` counts: a (region, cell) pair of the
 #: axis gate (six weighted products and the count), a region's eig3 and
 #: score, and for each live slot: a cell's projection, a hypothesis's triplet
@@ -155,9 +155,18 @@ def cylinders_reference(grid, member, try_cyl, cfg: DetectionConfig, min_activat
                          cy_inliers)
 
 
-def smem_bytes(c: int) -> int:
-    """Dynamic shared memory of a CTA at ``c`` cells (``cylinders_smem``)."""
-    return c * SMEM_BYTES_PER_CELL + 4 * ((c + 31) // 32)
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(c: int, k: int) -> int:
+    """Dynamic shared memory of a CTA at ``c`` cells and ``k`` regions
+    (``cylinders_smem``): normals and means (12 bytes a cell each), planar and
+    remaining flags (a byte each), the compacted cells (4), a mask a chunk of
+    32 cells, the candidate flags, and the member rows (k bytes a cell) that
+    the projected cells (32) replace after the gate."""
+    return (2 * _align16(12 * c) + 2 * _align16(c) + _align16(4 * c)
+            + _align16(4 * ((c + 31) // 32)) + _align16(k) + _align16(max(k, 32) * c))
 
 
 def check_inputs(grid, member, try_cyl, n_hyp: int, subsegments: int):
@@ -181,9 +190,9 @@ def check_inputs(grid, member, try_cyl, n_hyp: int, subsegments: int):
     if not 0 < n_hyp <= MAX_HYPOTHESES or not 0 < subsegments <= MAX_SUBSEGMENTS:
         raise ValueError(f"{n_hyp} hypotheses and {subsegments} sub-segments: the kernel "
                          f"takes up to {MAX_HYPOTHESES} and {MAX_SUBSEGMENTS}")
-    if smem_bytes(c) > MAX_SMEM_BYTES:
-        raise ValueError(f"{c} cells need {smem_bytes(c)} bytes of shared memory, more than "
-                         f"the {MAX_SMEM_BYTES} one CTA holds")
+    if smem_bytes(c, k) > MAX_SMEM_BYTES:
+        raise ValueError(f"{c} cells and {k} regions need {smem_bytes(c, k)} bytes of shared "
+                         f"memory, more than the {MAX_SMEM_BYTES} one CTA holds")
 
 
 def cylinders_cuda(grid, member, try_cyl, cfg: DetectionConfig, min_activated: int

@@ -1066,3 +1066,110 @@ def test_graph_step_runs_the_primitive_kernels_and_not_their_plain_versions(cuda
         assert cells_cuda.LAUNCHES["cells"] - before[0] == per_frame * (4 + 1)
         assert cylinders_cuda.LAUNCHES["cylinders"] - before[1] == per_frame * (4 + 1)
         assert np.isfinite(traj.positions_array()).all()
+
+
+def _replayed(fn, replays, eager_between=True):
+    """``fn()`` (a kernel wrapper on fixed inputs) captured into one CUDA graph
+    after a warm-up on a side stream, then: its output after each of
+    ``replays`` replays, then an eager call's, then one more replay's; every
+    output copied out as it comes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    copies = []
+    for _ in range(replays):
+        graph.replay()
+        copies.append([x.clone() for x in out])
+    if eager_between:
+        copies.append([x.clone() for x in fn()])
+        graph.replay()
+        copies.append([x.clone() for x in out])
+    torch.cuda.synchronize()
+    return copies
+
+
+@pytest.mark.cuda
+def test_cell_pass_from_a_graph_keeps_its_bits(cuda):
+    """The cell pass replayed from a CUDA graph three times, then called
+    eagerly, then replayed again gives the eager pass's bits each time: the
+    pair of kernels keeps no state from one launch to the next, however it
+    was launched."""
+    from rgbd_slam_tpu_torch.ops import cells_cuda
+
+    det = config.DetectionConfig()
+    for name, depth in _plane_depths(cuda, 1, 1):
+        want = cells_cuda.cell_pass(depth, config.TUM_FR1, det)
+        for k, got in enumerate(_replayed(
+                lambda: cells_cuda.cell_pass(depth, config.TUM_FR1, det), 3)):
+            _assert_bit_equal(want, tuple(got), f"{name} call {k}")
+
+
+def _tunnel_cut(device, pieces):
+    """The cylinder stage's inputs of the first tunnel frame with its region's
+    planar cells cut into ``pieces`` candidate regions."""
+    import chip_smoke
+
+    det = config.DetectionConfig()
+    grid, member, try_cyl, min_act = chip_smoke.cylinder_inputs(
+        config.TUM_FR1, det, _plane_depths(device, 0, 1)[0][1])
+    r = int((try_cyl & member.any(dim=-1)).nonzero()[0])
+    cells = (member[r] & grid.planar).nonzero().flatten()
+    member = torch.zeros_like(member)
+    for i, chunk in enumerate(cells.chunk(pieces)):
+        member[i, chunk] = True
+    return grid, member, member.any(dim=-1), min_act
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pieces", [4, 6])
+def test_cylinder_stage_with_every_slot_live(cuda, pieces):
+    """The tunnel's region cut into 4 candidates (each holds a slot) and into
+    6 (four hold the slots): all four slots live, by
+    ``chip_smoke.check_cylinder_stage``'s rules; two launches, and three
+    replays of a CUDA graph around an eager call, give the same bits."""
+    import chip_smoke
+    from rgbd_slam_tpu_torch.ops import cylinders_cuda
+
+    det = config.DetectionConfig()
+    grid, member, try_cyl, min_act = inputs = _tunnel_cut(cuda, pieces)
+    n, _, _ = chip_smoke.check_cylinder_stage(inputs, det, name=f"tunnel_in_{pieces}")
+    assert n == 4
+
+    def stage():
+        return cylinders_cuda.cylinder_stage(grid, member, try_cyl, det, min_act)
+
+    want = stage()
+    assert int(want.selected.sum()) == 4 and bool(want.valids[want.selected].any())
+    _assert_bit_equal(want, stage(), "repeat")
+    for k, got in enumerate(_replayed(stage, 3)):
+        _assert_bit_equal(want, tuple(got), f"call {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patch", [16, 32, 33])
+def test_plane_kernels_at_other_patch_sizes(cuda, patch):
+    """The cell pass and the cylinder stage against their plain versions, by
+    ``chip_smoke``'s rules, with 16 px cells (1,200 cells: a larger grid than
+    the main path's), 32 px cells (300 cells of 1,024 pixels: a lane's larger
+    register share) and 33 px cells (the largest patch the kernel takes: its
+    33rd column and row lie past the warp's lanes; the map cut to 627x462,
+    19x14 cells), on a room frame and a tunnel frame; the cell pass repeats
+    its bits."""
+    import dataclasses
+
+    import chip_smoke
+    from rgbd_slam_tpu_torch.ops import cells_cuda
+
+    det = dataclasses.replace(config.DetectionConfig(), depth_patch_size_px=patch)
+    for name, depth in _plane_depths(cuda, 1, 1):
+        h, w = depth.shape
+        depth = depth[:h // patch * patch, :w // patch * patch].contiguous()
+        chip_smoke.check_cells_frame(depth, config.TUM_FR1, det, name=f"{name}_{patch}px")
+        chip_smoke.check_cylinders_frame(config.TUM_FR1, det, depth, name=f"{name}_{patch}px")
+        _assert_bit_equal(cells_cuda.cell_pass(depth, config.TUM_FR1, det),
+                          cells_cuda.cell_pass(depth, config.TUM_FR1, det), name)

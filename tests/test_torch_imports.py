@@ -20,8 +20,8 @@ def _run(args, cwd, env=None):
 
 def _port_modules():
     """Every module of the port, by its files: the package's, ``chip_smoke``,
-    ``bench_torch`` and the stage profiler it imports, the backend profiler,
-    and the example launcher."""
+    ``bench_torch`` and the stage profiler it imports, the backend and plane
+    kernel profilers, and the example launcher."""
     names = []
     package = os.path.join(ROOT, "rgbd_slam_tpu_torch")
     for folder, dirs, files in os.walk(package):
@@ -31,7 +31,8 @@ def _port_modules():
                 rel = os.path.relpath(os.path.join(folder, f), ROOT)[:-3]
                 names.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
     return names + ["chip_smoke", "bench_torch", "tools.profile_torch_step",
-                    "tools.profile_torch_backend", "examples/run_tum_torch.py"]
+                    "tools.profile_torch_backend", "tools.profile_plane_kernels",
+                    "examples/run_tum_torch.py"]
 
 
 #: imports every module in one interpreter under a watch on the import system:
@@ -53,7 +54,8 @@ class Watch:
                 who = frame.f_globals.get("__name__", "")
                 if who.startswith("rgbd_slam_tpu_torch") or who in (
                         "chip_smoke", "bench_torch", "tools.profile_torch_step",
-                        "tools.profile_torch_backend", "profile_torch_step",
+                        "tools.profile_torch_backend", "tools.profile_plane_kernels",
+                        "profile_torch_step",
                         "run_tum_torch"):
                     asked.setdefault(who, []).append(name)
                     break
