@@ -35,8 +35,11 @@ Phases, one line of output each (any failure raises, so the last line, the
    computes pyramidal LK, so ``library_ms`` is null.  Then the components
    kernel (the plane extraction's connected components, no Pallas port)
    against its plain version on the cell graph of a 640x480 RoomScene depth
-   map, a serpentine one-cell-wide component and the grid in one component:
-   labels equal; timed on the first (see ``check_components``).
+   map, a serpentine one-cell-wide component, the grid in one component, a
+   spiral cut in two, a random grid whose edges may join non-planar cells and
+   the 40x30 cell graph of the same depth map at 16 px cells (more cells than
+   a CTA's threads): labels equal; timed on the first, and warm on the
+   serpentine (see ``check_components``).
    cells: the per-cell pass's kernel pair (``csrc/cells.cu``: the cloud, cell
    fits, edges, normal bins and cell centres of a depth map) against its
    plain version on the depth of every plane-path frame and of the tunnel
@@ -603,21 +606,92 @@ def cell_graph(cam, cfg, depth, device):
     return edges.contiguous(), grid.planar.contiguous(), gh, gw
 
 
-def components_cases(cam, cfg, device):
-    """(name, edges, planar, gh, gw) of the components kernel's checks: the
-    cell graph ``find_primitives`` builds from a 640x480 RoomScene depth map
-    (the main path's input), a serpentine one-cell-wide component through the
-    same grid (the longest chain) and the grid in one component."""
-    edges, planar, gh, gw = cell_graph(cam, cfg, room_frames(cam, 1)[0][0][1], device)
+def serpentine_grid(gh, gw):
+    """(edges [4, gh, gw], planar [C]) numpy bool of one component that snakes
+    through the grid a row at a time, every cell planar: the longest chain of
+    row runs."""
     snake = np.zeros((4, gh, gw), bool)
     snake[0, :, 1:] = True
     for y in range(gh - 1):
         snake[2, y + 1, gw - 1 if y % 2 == 0 else 0] = True
+    return snake, np.ones(gh * gw, bool)
+
+
+def _join(edges, p, q, k):
+    """Set one of the two directed edges that make the symmetric edge between
+    neighbouring cells p and q, (y, x) each (the ``k``-th's parity picks)."""
+    (y, x), (v, u) = sorted([p, q])
+    if v == y:   # q right of p: right (y, x) = e0[y, x+1] or e1[y, x]
+        edges[(0, y, u) if k % 2 else (1, y, x)] = True
+    else:        # below: down (y, x) = e2[y+1, x] or e3[y, x]
+        edges[(2, v, x) if k % 2 else (3, y, x)] = True
+
+
+def spiral_grid(gh, gw):
+    """(edges, planar) of a one-cell-wide path that spirals in from the
+    corner through every cell, right, down, left and up by turns, cut in two
+    by one non-planar cell half-way: the longest chains a grid holds, over
+    runs of both kinds."""
+    order, top, bottom, left, right = [], 0, gh - 1, 0, gw - 1
+    while top <= bottom and left <= right:
+        order += [(top, x) for x in range(left, right + 1)]
+        order += [(y, right) for y in range(top + 1, bottom + 1)]
+        if top < bottom:
+            order += [(bottom, x) for x in range(right - 1, left - 1, -1)]
+        if left < right:
+            order += [(y, left) for y in range(bottom - 1, top, -1)]
+        top, bottom, left, right = top + 1, bottom - 1, left + 1, right - 1
+    edges = np.zeros((4, gh, gw), bool)
+    for k, (p, q) in enumerate(zip(order, order[1:])):
+        _join(edges, p, q, k)
+    planar = np.ones(gh * gw, bool)
+    y, x = order[len(order) // 2]
+    planar[y * gw + x] = False
+    return edges, planar
+
+
+def random_grid(gh, gw, seed, planar_ends=True):
+    """(edges, planar) drawn from ``seed``: 70% of the cells planar, 60% of
+    the directed edges set; with ``planar_ends`` only those into a planar cell
+    (an edge's destination, as ``_edge_maps`` gives), else any (an edge may
+    join a non-planar cell at either end, which must join nothing)."""
+    rng = np.random.default_rng(seed)
+    planar = rng.random(gh * gw) < 0.7
+    edges = rng.random((4, gh, gw)) < 0.6
+    if planar_ends:
+        edges &= planar.reshape(gh, gw)[None]
+    return edges, planar
+
+
+def grid_tensors(grid, device):
+    """(edges, planar, gh, gw) on ``device`` of a numpy (edges, planar)."""
+    edges, planar = grid
+    return (torch.as_tensor(edges, device=device), torch.as_tensor(planar, device=device),
+            *edges.shape[1:])
+
+
+def components_cases(cam, cfg, device):
+    """(name, edges, planar, gh, gw) of the components kernel's checks: the
+    cell graph ``find_primitives`` builds from a 640x480 RoomScene depth map
+    (the main path's input), a serpentine one-cell-wide component through the
+    same grid (the longest chain of row runs), the grid in one component, a
+    spiral through it cut in two (long chains with turns every way), a random
+    grid whose edges may join non-planar cells at either end (they must join
+    nothing), and the cell graph of the same depth map at 16 px cells (40x30:
+    more cells than a CTA's threads)."""
+    depth = room_frames(cam, 1)[0][0][1]
+    edges, planar, gh, gw = cell_graph(cam, cfg, depth, device)
     ones = torch.ones(gh * gw, dtype=torch.bool, device=device)
+    cfg16 = dataclasses.replace(cfg, detection=dataclasses.replace(cfg.detection,
+                                                                   depth_patch_size_px=16))
     return [("room_frame", edges, planar, gh, gw),
-            ("serpentine", torch.as_tensor(snake, device=device), ones, gh, gw),
+            ("serpentine", *grid_tensors(serpentine_grid(gh, gw), device)),
             ("one_component", torch.ones((4, gh, gw), dtype=torch.bool, device=device), ones,
-             gh, gw)]
+             gh, gw),
+            ("spiral", *grid_tensors(spiral_grid(gh, gw), device)),
+            ("random_non_planar_ends",
+             *grid_tensors(random_grid(gh, gw, SEED, planar_ends=False), device)),
+            ("room_frame_16px", *cell_graph(cam, cfg16, depth, device))]
 
 
 def check_components(cam, cfg, device, frames):
@@ -629,9 +703,11 @@ def check_components(cam, cfg, device, frames):
     outside the tensor cores; the published table gives no int32 rate).  No
     PyTorch call computes connected components: ``library_ms`` is null.
     Printed beside them: the JAX loop's rounds on the cell graph of each of
-    the plane path's ``frames``, and the card's floor for one graph node, the
+    the plane path's ``frames``, the card's floor for one graph node, the
     device time of a kernel that reads the clock once and returns
-    (``torch.cuda._sleep(0)``) replayed from a graph of 50."""
+    (``torch.cuda._sleep(0)``) replayed from a graph of 50, and the kernel's
+    device time on the serpentine, whose rows the first design crossed one
+    cell a round."""
     rounds = [components_cuda.components_work(*cell_graph(cam, cfg, depth, device))["rounds"]
               for _, depth in frames]
     _say("components", frames=len(rounds), jax_loop_rounds_min=min(rounds),
@@ -666,6 +742,9 @@ def check_components(cam, cfg, device, frames):
             fields.update(bytes=work["bytes"], int_ops=work["ops"],
                           **{k: result[k] for k in ("ms", "plain_ms", "device_us", "bound_ms",
                                                     "bound_by")})
+        elif name == "serpentine":
+            fields["device_us"] = graph_launch_us(
+                lambda: components_cuda.connected_components(edges, planar, gh, gw))
         _say("kernel", **fields)
     return result
 

@@ -6,10 +6,11 @@ the smallest cell index of its component under the symmetric 4-neighbour
 mergeability edges, and every other cell with ``C = gh * gw``: the fixpoint of
 the ``lax.while_loop`` in ``rgbd_slam_tpu/features/primitives.py:267``.  For
 CUDA tensors it launches ``components_kernel`` (``csrc/components.cu``: one
-CTA, the labels in shared memory, the loop ended on the card) or raises; for
-CPU tensors it runs :func:`components_reference`, the same propagation as
-tensor code, which reads on the host whether a chunk of ``CC_CHUNK`` rounds
-changed a label.
+CTA, the labels in shared memory, rounds of propagation that carry a label
+along a whole row run at once, ended on the card) or raises; for CPU tensors
+it runs :func:`components_reference`, the JAX loop's propagation as tensor
+code, which reads on the host whether a chunk of ``CC_CHUNK`` rounds changed a
+label.
 
 The kernel is compiled with ``nvcc`` on first use (:mod:`.nvcc`) and bound
 with ctypes; it launches on the current stream and reads nothing back, so a
@@ -33,9 +34,9 @@ FIXPOINT_READS = {"components": 0}
 #: launches of the CUDA kernel since import (or since :func:`reset_launches`)
 LAUNCHES = {"components": 0}
 #: shared memory a CTA may hold on Hopper (227 KB), the kernel's limit on the
-#: grid: an int32 label and a byte of edge bits a cell
+#: grid: an int32 label and uint16 flags a cell (``CC_SMEM_BYTES_PER_CELL``)
 MAX_SMEM_BYTES = 232448
-SMEM_BYTES_PER_CELL = 5
+SMEM_BYTES_PER_CELL = 6
 #: what nvcc printed when the loaded library was built
 BUILD_LOG = ""
 
@@ -62,8 +63,8 @@ def build() -> float:
 
 
 def check_grid(gh: int, gw: int):
-    """Raise on a grid the kernel does not take: empty, or labels past the
-    shared memory of one CTA."""
+    """Raise on a grid the kernel does not take: empty, or past the shared
+    memory of one CTA."""
     if gh < 1 or gw < 1:
         raise ValueError(f"an empty {gh}x{gw} cell grid")
     if gh * gw * SMEM_BYTES_PER_CELL > MAX_SMEM_BYTES:

@@ -480,43 +480,41 @@ def test_gloo_collectives_on_cuda_tensors(cuda, tmp_path):
 # the components kernel and the step as one CUDA graph
 # ---------------------------------------------------------------------------
 
-def _serpentine(gh, gw):
-    """One component snaking through the grid a row at a time, the longest
-    chain a grid holds."""
-    edges = np.zeros((4, gh, gw), bool)
-    edges[0, :, 1:] = True
-    for y in range(gh - 1):
-        edges[2, y + 1, gw - 1 if y % 2 == 0 else 0] = True
-    return edges, np.ones(gh * gw, bool)
-
-
 def _components_case(name):
     """(edges [4, gh, gw], planar [C], gh, gw) of a named grid."""
-    rng = np.random.default_rng(0)
-    if name == "serpentine_32x24":
-        return (*_serpentine(24, 32), 24, 32)
-    if name == "full_32x24":
-        return np.ones((4, 24, 32), bool), np.ones(24 * 32, bool), 24, 32
-    if name.startswith("random"):
-        gh, gw = {"random_32x24": (24, 32), "random_7x5": (5, 7),
-                  "random_160x120": (120, 160)}[name]
-        planar = rng.random(gh * gw) < 0.7
-        edges = rng.random((4, gh, gw)) < 0.6
-        p2 = planar.reshape(gh, gw)
-        edges &= p2[None]            # an edge joins two planar cells, as _edge_maps gives
-        return edges, planar, gh, gw
-    raise ValueError(name)
+    import chip_smoke
+    from rgbd_slam_tpu_torch.ops import components_cuda
+
+    if name == "full_1xmax":
+        # the longest row the wrapper takes, one component: a chain of 32-cell
+        # runs joined at every warp's last lane
+        cells = components_cuda.MAX_SMEM_BYTES // components_cuda.SMEM_BYTES_PER_CELL
+        return np.ones((4, 1, cells), bool), np.ones(cells, bool), 1, cells
+    kind, size = name.rsplit("_", 1)
+    gw, gh = map(int, size.split("x"))
+    grid = {"serpentine": lambda: chip_smoke.serpentine_grid(gh, gw),
+            "spiral": lambda: chip_smoke.spiral_grid(gh, gw),
+            "full": lambda: (np.ones((4, gh, gw), bool), np.ones(gh * gw, bool)),
+            # edges into planar cells only, as _edge_maps gives them
+            "random": lambda: chip_smoke.random_grid(gh, gw, 0),
+            "random_nonplanar_ends": lambda: chip_smoke.random_grid(gh, gw, 1,
+                                                                    planar_ends=False)}[kind]()
+    return (*grid, gh, gw)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["random_32x24", "serpentine_32x24", "full_32x24",
-                                  "random_7x5", "random_160x120"])
+                                  "random_7x5", "random_160x120", "spiral_32x24",
+                                  "random_nonplanar_ends_32x24", "random_40x30", "full_1xmax"])
 def test_components_kernel_matches_its_plain_version(cuda, name):
     """The kernel's labels equal the plain version's on random planar masks
-    (the 640x480 grid, a grid under one warp, and 19,200 cells: more cells than
-    threads, and shared memory past the 48 KB default), on a serpentine
-    one-cell-wide component (the longest chain) and on the full grid in one
-    component.  One launch a call; a grid past shared memory raises."""
+    (the 640x480 grid, a grid under one warp, 1,200 cells at 16 px cells and
+    19,200: more cells than threads, and shared memory past the 48 KB
+    default), with edges into planar cells only, as ``_edge_maps`` gives, or
+    at either end non-planar (they join nothing); on a serpentine and a spiral
+    one-cell-wide component (the longest chains, the spiral cut in two); on
+    the full grid in one component; and on the longest row the wrapper takes.
+    One launch a call; a grid past shared memory raises."""
     from rgbd_slam_tpu_torch.ops import components_cuda
 
     edges, planar, gh, gw = _components_case(name)
@@ -532,6 +530,50 @@ def test_components_kernel_matches_its_plain_version(cuda, name):
         components_cuda.connected_components(
             torch.zeros((4, 240, 320), dtype=torch.bool, device=cuda),
             torch.zeros(240 * 320, dtype=torch.bool, device=cuda), 240, 320)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["serpentine_32x24", "random_160x120"])
+def test_components_kernel_repeats_bit_equal(cuda, name):
+    """32 launches give the same labels: the hooks race on their atomics, and
+    every order must reach the same roots."""
+    from rgbd_slam_tpu_torch.ops import components_cuda
+
+    edges, planar, gh, gw = _components_case(name)
+    edges, planar = torch.from_numpy(edges).to(cuda), torch.from_numpy(planar).to(cuda)
+    first = components_cuda.connected_components(edges, planar, gh, gw)
+    runs = [components_cuda.connected_components(edges, planar, gh, gw) for _ in range(31)]
+    torch.cuda.synchronize()
+    for labels in runs:
+        assert torch.equal(labels, first)
+
+
+@pytest.mark.cuda
+def test_components_kernel_replayed_from_a_graph_equals_its_launch(cuda):
+    """The kernel recorded in a CUDA graph, replayed on new inputs copied into
+    the captured ones, gives the eager launch's labels on each."""
+    from rgbd_slam_tpu_torch.ops import components_cuda
+
+    cases = [_components_case(n) for n in ("random_32x24", "spiral_32x24", "serpentine_32x24")]
+    edges = torch.from_numpy(cases[0][0]).to(cuda)
+    planar = torch.from_numpy(cases[0][1]).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        components_cuda.connected_components(edges, planar, 24, 32)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = components_cuda.connected_components(edges, planar, 24, 32)
+    for e, p, gh, gw in cases:
+        edges.copy_(torch.from_numpy(e))
+        planar.copy_(torch.from_numpy(p))
+        graph.replay()
+        want = components_cuda.connected_components(edges, planar, gh, gw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        np.testing.assert_array_equal(want.cpu().numpy(), components_cuda.components_reference(
+            torch.from_numpy(e), torch.from_numpy(p), gh, gw).numpy())
 
 
 def _bits(t):

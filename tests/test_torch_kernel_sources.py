@@ -8,7 +8,8 @@ and the wrappers say of the kernels must hold in ``rgbd_slam_tpu_torch/csrc``.
   dynamic part (``cylinders_cuda.smem_bytes``) beside its static arrays fits a
   Hopper CTA at the main path's 768 cells and 20 regions and at the largest
   grid the wrapper accepts, which refuses one cell more; the cell pass has
-  only static arrays, which fit the 48 KB a CTA gets without an opt-in.
+  only static arrays, which fit the 48 KB a CTA gets without an opt-in; the
+  components kernel's bytes a cell are the wrapper's.
 * ``chip_smoke.held_bits`` fails a kernel whose outputs moved on the first
   design's inputs, and compares nothing where the inputs moved.
 * The text edits of ``tools/profile_plane_kernels.py`` (its ``clock64()``
@@ -28,7 +29,7 @@ import pytest
 import torch
 
 import chip_smoke
-from rgbd_slam_tpu_torch.ops import cells_cuda, cylinders_cuda, nvcc
+from rgbd_slam_tpu_torch.ops import cells_cuda, components_cuda, cylinders_cuda, nvcc
 from tools import profile_plane_kernels as plane_tool
 
 #: a CTA's shared memory on Hopper, and what it gets without the opt-in
@@ -133,11 +134,21 @@ def test_cylinder_shared_memory_at_the_main_path():
     assert cylinders_cuda.smem_bytes(768, 20) == 2 * 9216 + 2 * 768 + 3072 + 96 + 32 + 24576
 
 
+def test_components_shared_memory_matches_the_wrapper():
+    """The source's bytes a cell are what ``check_grid`` charges, it has no
+    static shared memory, and its dynamic part is sized by that budget."""
+    text = _source("components.cu")
+    assert _defines(text)["CC_SMEM_BYTES_PER_CELL"] == components_cuda.SMEM_BYTES_PER_CELL
+    assert _static_smem(text) == 0
+    assert "(size_t)gh * (size_t)gw * CC_SMEM_BYTES_PER_CELL" in text
+    assert components_cuda.MAX_SMEM_BYTES == CTA_SMEM_BYTES
+
+
 def test_cell_pass_static_shared_memory_needs_no_opt_in():
     assert 0 < _static_smem(_source("cells.cu")) <= DEFAULT_SMEM_BYTES
 
 
-@pytest.mark.parametrize("source", ["cells.cu", "cylinders.cu"])
+@pytest.mark.parametrize("source", ["cells.cu", "components.cu", "cylinders.cu"])
 def test_the_split_stamps_apply_to_the_sources(source):
     text = _source(source)
     edits, phases = plane_tool.STAMPS[source]
@@ -145,8 +156,11 @@ def test_the_split_stamps_apply_to_the_sources(source):
         assert text.count(old) == 1, old
     stamped = "".join(new for _, new in edits)
     # every phase is stamped, by its index in the names
-    assert sorted({int(p) for p in re.findall(r"SPLIT\((\d+)\)", stamped)}) \
+    assert sorted({int(p) for p in re.findall(r"SPLIT(?:_COUNT)?\((\d+)\)", stamped)}) \
         == list(range(len(phases)))
+    # a count's phase is counted, a time's phase is stamped
+    for k, phase in enumerate(phases):
+        assert (f"SPLIT_COUNT({k})" in stamped) == phase.endswith("_count"), phase
     assert len(phases) < 16   # a row of the device's table holds 15 phases and the count
     if source == "cells.cu":
         assert text.count(plane_tool._EDGES_LAUNCH) == 1

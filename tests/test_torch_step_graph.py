@@ -255,8 +255,8 @@ def test_runner_over_reused_buffers_keeps_its_results(monkeypatch, tmp_path):
 
 
 def test_components_kernel_takes_any_grid_that_fits():
-    """The grid limit is one CTA's shared memory: an int32 label and a byte of
-    edge bits a cell."""
+    """The grid limit is one CTA's shared memory: ``SMEM_BYTES_PER_CELL`` a
+    cell (its int32 label and its uint16 flags)."""
     components_cuda.check_grid(24, 32)
     components_cuda.check_grid(1, 1)
     cells = components_cuda.MAX_SMEM_BYTES // components_cuda.SMEM_BYTES_PER_CELL

@@ -1,13 +1,15 @@
-"""Times, output hashes and phase split of the plane extraction's two kernels on
-the card.
+"""Times, output hashes and phase split of the plane extraction's three kernels
+on the card.
 
 ``python tools/profile_plane_kernels.py time`` times the per-cell pass
-(``csrc/cells.cu``) and the cylinder stage (``csrc/cylinders.cu``) on the
-three depth maps at 640x480 of ``chip_smoke.TIMED_FRAMES`` (``frame_kinds``:
-a RoomScene orbit frame whose cylinder stage holds no live region, one that
-holds two, and a tunnel frame that holds one).  For each it prints the device
-µs a launch replayed from a CUDA graph of 50 (``chip_smoke``'s
-``graph_launch_us``: the kernel warm in the caches) and
+(``csrc/cells.cu``), the connected components (``csrc/components.cu``) and
+the cylinder stage (``csrc/cylinders.cu``) on the three depth maps at 640x480
+of ``chip_smoke.TIMED_FRAMES`` (``frame_kinds``: a RoomScene orbit frame whose
+cylinder stage holds no live region, one that holds two, and a tunnel frame
+that holds one; the components kernel on the cell graph the card's cell pass
+makes of each, and on ``chip_smoke.serpentine_grid``'s 32x24 snake).  For each it
+prints the device µs a launch replayed from a CUDA graph of 50
+(``chip_smoke``'s ``graph_launch_us``: the kernel warm in the caches) and
 ``chip_smoke.output_digest`` of the kernels' inputs and outputs (the cylinder
 stage's inputs are what the card's ``find_primitives`` makes); then each
 kernel's device µs a frame inside the plane step's CUDA graph
@@ -23,9 +25,11 @@ every kernel; like ``time``, it runs that of the tree it is copied into.
 
 ``python tools/profile_plane_kernels.py variants [NAME ...]`` times the
 design's alternatives (``VARIANTS``: other CTA and cluster sizes, rolled
-loops, built from text edits of the tree's sources) beside the tree's
-kernels, in the order tree, variants, the variants reversed, tree, with each
-one's output hash and its device µs a frame inside the plane step's graph.
+loops, the components kernel without its pointer jump or with two, with
+volatile label reads or its flags read again every round, built from text
+edits of the tree's sources) beside the tree's kernels, in the order tree,
+variants, the variants reversed, tree, with each one's output hash and its
+device µs a frame inside the plane step's graph.
 
 ``python tools/profile_plane_kernels.py split`` splits the kernels' device
 time into their phases.  It builds a copy of each source with ``clock64()``
@@ -33,9 +37,10 @@ stamps at the phase boundaries (``STAMPS``), inserted by text edits into the
 git-ignored build directory (the tree's sources stay as they are), runs them
 on the three frames and prints the mean µs of each phase by row: for the
 cells a warp's fit (lane 0 of one warp in 16), for the cylinders a CTA's
-(thread 0, one row a slot; the rounds' phases summed over the rounds), at the
-SM clock measured by a spinning kernel.  It also times the cell pass without
-its edges launch, so the edges' share shows.
+(thread 0, one row a slot; the rounds' phases summed over the rounds), for the
+components the CTA's thread 0 (a phase whose name ends in ``_count`` counts
+events a launch, not µs), at the SM clock measured by a spinning kernel.  It
+also times the cell pass without its edges launch, so the edges' share shows.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 from rgbd_slam_tpu_torch import config  # noqa: E402
-from rgbd_slam_tpu_torch.ops import cells_cuda, cylinders_cuda  # noqa: E402
+from rgbd_slam_tpu_torch.ops import cells_cuda, components_cuda, cylinders_cuda  # noqa: E402
 
 #: the stamps' macros and readers, put after the sources' includes
 _SPLIT_HEAD = r"""
@@ -64,6 +69,7 @@ __device__ unsigned long long g_split[8][16];
   long long _split_last = clock64();
 #define SPLIT(p) do { if (_split_on) { const long long _n = clock64(); \
   _split_acc[p] += _n - _split_last; _split_last = _n; } } while (0)
+#define SPLIT_COUNT(p) do { if (_split_on) _split_acc[p] += 1; } while (0)
 #define SPLIT_END(row) do { if (_split_on) { \
   _Pragma("unroll") for (int _p = 0; _p < 15; ++_p) \
     atomicAdd(&g_split[row][_p], (unsigned long long)_split_acc[_p]); \
@@ -146,6 +152,20 @@ STAMPS = {
         "compaction", "hypotheses", "scoring", "argmin", "refit", "mse", "writes",
         "empty_round")),
 }
+STAMPS["components.cu"] = ([
+    ("#include <stdint.h>\n", "#include <stdint.h>\n" + _SPLIT_HEAD),
+    ("  const int lane = threadIdx.x & 31;\n\n",
+     "  const int lane = threadIdx.x & 31;\n  SPLIT_BEGIN(threadIdx.x == 0);\n\n"),
+    ("  __syncthreads();\n\n  // the flags of a lane past the grid",
+     "  __syncthreads();\n  SPLIT(0);\n\n  // the flags of a lane past the grid"),
+    ("    while (__syncthreads_or(cc_step(lbl, i, f, own, gw, lane))) {}\n",
+     "    while (true) {\n"
+     "      const int changed = __syncthreads_or(cc_step(lbl, i, f, own, gw, lane));\n"
+     "      if (changed) SPLIT(1); else SPLIT(2);\n      SPLIT_COUNT(4);\n"
+     "      if (!changed) break;\n    }\n"),
+    ("labels[i] = (int64_t)lbl[i];\n}",
+     "labels[i] = (int64_t)lbl[i];\n  SPLIT(3);\n  SPLIT_END(0);\n}"),
+], ("flags", "rounds_that_changed", "last_round", "labels", "round_count"))
 #: the cell pass's second launch, removed to time the fit kernel alone
 _EDGES_LAUNCH = ("  cells_edges_kernel<<<(c + EDGES_THREADS - 1) / EDGES_THREADS, EDGES_THREADS, "
                  "0, s>>>(a);\n  return (int)cudaGetLastError();")
@@ -154,8 +174,9 @@ _SPIN_CYCLES = 4_000_000
 
 
 def frame_kinds(device):
-    """{kind: (name, depth on the card, cylinder-stage inputs, live slots)} of
-    ``chip_smoke.TIMED_FRAMES``."""
+    """{kind: (name, depth on the card, cylinder-stage inputs, live slots, cell
+    graph)} of ``chip_smoke.TIMED_FRAMES``; the cell graph is the components
+    kernel's input (``chip_smoke.cell_graph``: edges, planar, gh, gw)."""
     import chip_smoke
 
     cam, det = config.TUM_FR1, config.SlamConfig().detection
@@ -169,15 +190,42 @@ def frame_kinds(device):
         grid, member, try_cyl, min_act = inputs
         live = int(cylinders_cuda.cylinder_stage(grid, member, try_cyl, det, min_act)
                    .selected.sum())
-        found[kind] = ("%s%d" % chip_smoke.TIMED_FRAMES[kind], dep, inputs, live)
+        found[kind] = ("%s%d" % chip_smoke.TIMED_FRAMES[kind], dep, inputs, live,
+                       chip_smoke.cell_graph(cam, config.SlamConfig(), dep, device))
     return found
+
+
+def component_graphs(kinds, device):
+    """{kind: cell graph} of the components kernel's timed inputs: the three
+    frames' and the serpentine's through the same 32x24 grid."""
+    import chip_smoke
+
+    graphs = {kind: graph for kind, (*_, graph) in kinds.items()}
+    gh, gw = next(iter(graphs.values()))[2:]
+    return {**graphs, "serpentine": chip_smoke.grid_tensors(chip_smoke.serpentine_grid(gh, gw),
+                                                            device)}
+
+
+def _calls(module, kinds):
+    """{kind: a call of ``module``'s kernel that returns its outputs} on the
+    timed inputs: ``frame_kinds``' three frames, and for the components
+    kernel also the serpentine (``component_graphs``)."""
+    cam, det = config.TUM_FR1, config.SlamConfig().detection
+    if module is components_cuda:
+        return {kind: (lambda g=graph: [components_cuda.connected_components(*g)])
+                for kind, graph in component_graphs(kinds, torch.device("cuda", 0)).items()}
+    if module is cells_cuda:
+        return {kind: (lambda d=depth: cells_cuda.cell_pass(d, cam, det))
+                for kind, (_, depth, *_) in kinds.items()}
+    return {kind: (lambda x=inputs: cylinders_cuda.cylinder_stage(*x[:3], det, x[3]))
+            for kind, (_, _, inputs, *_) in kinds.items()}
 
 
 def _time_kinds(kinds, with_hashes=True):
     import chip_smoke
 
     cam, det = config.TUM_FR1, config.SlamConfig().detection
-    for kind, (name, depth, (grid, member, try_cyl, min_act), live) in kinds.items():
+    for kind, (name, depth, (grid, member, try_cyl, min_act), live, _) in kinds.items():
         def cells():
             return cells_cuda.cell_pass(depth, cam, det)
 
@@ -194,10 +242,17 @@ def _time_kinds(kinds, with_hashes=True):
                                                 try_cyl, torch.tensor(min_act)]),
                        cylinders_outputs=digest(cylinders()))
         print(json.dumps(out), flush=True)
+    graphs = component_graphs(kinds, torch.device("cuda", 0))
+    for kind, components in _calls(components_cuda, kinds).items():
+        out = dict(kind=kind, components_device_us=chip_smoke.graph_launch_us(components))
+        if with_hashes:
+            out.update(components_inputs=chip_smoke.output_digest(graphs[kind][:2]),
+                       components_outputs=chip_smoke.output_digest(components()))
+        print(json.dumps(out), flush=True)
 
 
 def in_graph_step_us(n_frames: int = 16, profiled: int = 8) -> dict:
-    """Device µs a frame of each of the two kernels where the main path runs
+    """Device µs a frame of each of the three kernels where the main path runs
     them: inside the plane step's CUDA graph (``step_graph.StepGraph``) over
     the plane path's first ``n_frames`` room frames, the last ``profiled``
     under the profiler.  There the kernels run between the step's other
@@ -224,7 +279,7 @@ def in_graph_step_us(n_frames: int = 16, profiled: int = 8) -> dict:
             torch.cuda.synchronize()
     finally:
         graph.close()
-    out = {"cells": 0.0, "cylinders": 0.0}
+    out = {"cells": 0.0, "components": 0.0, "cylinders": 0.0}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             for name in out:
@@ -238,12 +293,23 @@ def run_time():
 
     device = torch.device("cuda", 0)
     print(json.dumps(dict(card=chip_smoke._card_line(), torch=torch.__version__,
-                          build_s=[cells_cuda.build(), cylinders_cuda.build()],
-                          ptxas={**chip_smoke.ptxas_usage(cells_cuda.BUILD_LOG),
-                                 **chip_smoke.ptxas_usage(cylinders_cuda.BUILD_LOG)})),
+                          build_s=[m.build() for m in _MODULES.values()],
+                          ptxas=_ptxas())),
           flush=True)
     _time_kinds(frame_kinds(device))
     print(json.dumps(dict(in_graph_step_us_a_frame=in_graph_step_us())), flush=True)
+
+
+#: the tool's kernels by source
+_MODULES = {"cells.cu": cells_cuda, "components.cu": components_cuda,
+            "cylinders.cu": cylinders_cuda}
+
+
+def _ptxas() -> dict:
+    import chip_smoke
+
+    return {kernel: usage for m in _MODULES.values()
+            for kernel, usage in chip_smoke.ptxas_usage(m.BUILD_LOG).items()}
 
 
 def _sm_cycles_per_us(lib) -> float:
@@ -294,9 +360,11 @@ def _build_edited(module, source: str, edits, tmp: str):
 
 
 def _rows(buf, phases, rate):
-    """{row: {phase: mean µs, "count": n}} of the rows that counted anything."""
+    """{row: {phase: mean µs (a ``*_count`` phase: mean events), "count": n}}
+    of the rows that counted anything."""
     return {f"row{r}": {"count": int(buf[r, 15]),
-                        **{p: float(buf[r, i]) / float(buf[r, 15]) / rate
+                        **{p: float(buf[r, i]) / float(buf[r, 15])
+                           / (1.0 if p.endswith("_count") else rate)
                            for i, p in enumerate(phases)}}
             for r in range(buf.shape[0]) if buf[r, 15]}
 
@@ -315,11 +383,17 @@ def run_split(reps: int = 20):
             cells_lib = _build_edited(cells_cuda, "cells.cu", STAMPS["cells.cu"][0], tmp)
             cyl_lib = _build_edited(cylinders_cuda, "cylinders.cu", STAMPS["cylinders.cu"][0],
                                     tmp)
+            cc_lib = _build_edited(components_cuda, "components.cu",
+                                   STAMPS["components.cu"][0], tmp)
             rate = _sm_cycles_per_us(cells_lib)
-            print(json.dumps(dict(sm_cycles_per_us=rate, ptxas={
-                **chip_smoke.ptxas_usage(cells_cuda.BUILD_LOG),
-                **chip_smoke.ptxas_usage(cylinders_cuda.BUILD_LOG)})), flush=True)
-            for kind, (frame, depth, (grid, member, try_cyl, min_act), live) in kinds.items():
+            print(json.dumps(dict(sm_cycles_per_us=rate, ptxas=_ptxas())), flush=True)
+            for kind, graph in component_graphs(kinds, device).items():
+                _read_split(cc_lib)
+                for _ in range(reps):
+                    components_cuda.connected_components(*graph)
+                print(json.dumps(dict(kind=kind, unit="us", components=_rows(
+                    _read_split(cc_lib), STAMPS["components.cu"][1], rate))), flush=True)
+            for kind, (frame, depth, (grid, member, try_cyl, min_act), live, _) in kinds.items():
                 _read_split(cells_lib)
                 for _ in range(reps):
                     cells_cuda.cell_pass(depth, cam, det)
@@ -345,7 +419,8 @@ def run_split(reps: int = 20):
                     lambda: cells_cuda.cell_pass(depth, cam, det))
             print(json.dumps(dict(cells_pass=timed)), flush=True)
         finally:
-            cells_cuda._lib = cylinders_cuda._lib = None
+            for module in _MODULES.values():
+                module._lib = None
     _time_kinds(kinds, with_hashes=False)
 
 
@@ -363,6 +438,21 @@ VARIANTS = {
     "cells_warps_8": ("cells.cu", [("#define CELLS_WARPS 6", "#define CELLS_WARPS 8")]),
     "cylinders_cluster_2": ("cylinders.cu", [("#define CYL_CLUSTER 4", "#define CYL_CLUSTER 2")]),
     "cylinders_cluster_8": ("cylinders.cu", [("#define CYL_CLUSTER 4", "#define CYL_CLUSTER 8")]),
+    # no pointer jump, and two a round as the JAX loop takes
+    "components_no_jump": ("components.cu", [(
+        "  m = min(m, lbl[m]);   // pointer jump: a cell may adopt its label's own label\n", "")]),
+    "components_two_jumps": ("components.cu", [(
+        "  m = min(m, lbl[m]);   // pointer jump: a cell may adopt its label's own label\n",
+        "  m = min(m, lbl[m]);\n  m = min(m, lbl[m]);\n")]),
+    # the labels read as volatile, as the first design read them
+    "components_volatile_reads": ("components.cu", [
+        ("__device__ __forceinline__ int cc_step(int* lbl,",
+         "__device__ __forceinline__ int cc_step(volatile int* lbl,"),
+        ("  int* lbl = reinterpret_cast<int*>(cc_smem);",
+         "  volatile int* lbl = reinterpret_cast<int*>(cc_smem);")]),
+    # a lone cell's flags read again every round, as a thread of several cells does
+    "components_flags_reloaded": ("components.cu", [
+        ("  if (c <= (int)blockDim.x) {", "  if (false) {")]),
 }
 
 
@@ -373,10 +463,9 @@ def run_variants(names):
     from rgbd_slam_tpu_torch.ops import nvcc
 
     device = torch.device("cuda", 0)
-    cam, det = config.TUM_FR1, config.SlamConfig().detection
     kinds = frame_kinds(device)
     print(json.dumps(dict(card=chip_smoke._card_line(), torch=torch.__version__)), flush=True)
-    modules = {"cells.cu": cells_cuda, "cylinders.cu": cylinders_cuda}
+    modules = _MODULES
     os.makedirs(nvcc.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=nvcc.BUILD_DIR) as tmp:
         try:
@@ -390,19 +479,14 @@ def run_variants(names):
                     _build_edited(module, source, VARIANTS[name][1] if name in VARIANTS else [],
                                   sub)
                     out[f"{source}_ptxas"] = chip_smoke.ptxas_usage(module.BUILD_LOG)
-                    for kind, (_, depth, (grid, member, try_cyl, min_act), _) in kinds.items():
-                        def call():
-                            if module is cells_cuda:
-                                return cells_cuda.cell_pass(depth, cam, det)
-                            return cylinders_cuda.cylinder_stage(grid, member, try_cyl, det,
-                                                                 min_act)
-
+                    for kind, call in _calls(module, kinds).items():
                         out[f"{source}_{kind}_us"] = chip_smoke.graph_launch_us(call)
                         out[f"{source}_{kind}_bits"] = chip_smoke.output_digest(call())
                 out["in_graph_step_us_a_frame"] = in_graph_step_us()
                 print(json.dumps(out), flush=True)
         finally:
-            cells_cuda._lib = cylinders_cuda._lib = None
+            for module in modules.values():
+                module._lib = None
 
 
 def run_graph():
