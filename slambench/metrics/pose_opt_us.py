@@ -1,0 +1,11 @@
+"""engine stages (``engine.compute_optimized_pose``): device µs a frame of the
+pose optimisation, over eager steps after the window (a range cannot live in
+the CUDA graph that the window replays)."""
+
+NEEDS = ("stages",)
+
+
+def read(run):
+    if run.stages is None:
+        return None
+    return run.stages["stages_us"].get("pose_opt")
