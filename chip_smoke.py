@@ -1907,7 +1907,8 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
     launch a frame and its warm-up step launches once more), no components
     fixpoint read on the host, failed/lost frames and the ATE
     against the path's JAX reference (``reference=None``: print only), lines
-    alive and matched when lines are on, and the backend's counts when it is.
+    alive and matched when lines are on, the backend's counts when it is, and
+    the step graph's stamps (ten a replay, the stages summing to its span).
     Returns (launch counts, ATE, RunStats)."""
     ref = JAX_REFERENCE.get(reference)
     step_s, line_matches, cylinders = [], [], []
@@ -1965,6 +1966,16 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
         problems.append(f"launches {launches}, expected {want}")
     if fixpoint_reads:
         problems.append(f"{fixpoint_reads} components fixpoint reads on the host")
+    # the run's trace: the stamp kernel recorded into the step graph, ten
+    # stamps a replay past the first frame, its stages summing to its span
+    if stats.stamped_frames != stats.frame_count - 1:
+        problems.append(f"{stats.stamped_frames} stamped replays of {stats.frame_count} "
+                        "frames")
+    stages_us = sum(stats.stage_device_us.values())
+    if not (min(stats.stage_device_us.values(), default=-1) >= 0
+            and math.isclose(stages_us, stats.graph_span_us, rel_tol=1e-9)):
+        problems.append(f"the step's stages {stats.stage_device_us} do not sum to its "
+                        f"span {stats.graph_span_us} us")
     if not np.isfinite(traj.positions_array()).all() \
             or not np.isfinite(np.array(traj.quaternions)).all():
         problems.append("a pose is not finite")

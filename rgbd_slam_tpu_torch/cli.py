@@ -5,16 +5,18 @@ Usage:
     python -m rgbd_slam_tpu_torch.cli -d /path/to/rgbd_dataset_freiburg1_xyz \\
         [-c tum_fr1] [--camera-yaml FILE] [-n MAX_FRAMES] [-o trajectory.txt] \\
         [-m map.obj] [--no-planes] [--lines] [--ba N] [--stream-map] \\
-        [--native-loader] [--device cpu]
+        [--native-loader] [--device cpu] [--trace-out trace.json]
 
 Prints the frame count, a status line every 20 frames, the run's summary, the
 ATE-RMSE against the ground truth (when the sequence has one) and where the
 trajectory and the map went.  Runs on the card unless ``--device`` says
 otherwise, and raises without one.
 
-With ``RGBD_SLAM_RUN_REPORT=FILE`` in the environment the run's ``RunStats`` and
-the CUDA kernels' launch counts are also written to FILE as one JSON object, for
-a caller that starts this as a subprocess.
+With ``RGBD_SLAM_RUN_REPORT=FILE`` in the environment the run's ``RunStats`` (with
+the trace's aggregates: spans, counters, the step graph's stage times) and the
+CUDA kernels' launch counts are also written to FILE as one JSON object, for a
+caller that starts this as a subprocess.  ``--trace-out FILE`` keeps the run's
+event log and writes it to FILE as a Chrome trace (``profiling.StageTimer.export``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import sys
 
 import numpy as np
 
-from . import runner
+from . import profiling, runner
 from .config import TUM_FR1, CameraIntrinsics, SlamConfig, load_camera_yaml
 from .io import datasets
 from .io.map_writer import export_slam_map
@@ -65,6 +67,9 @@ def parse_args(argv=None):
                     help="use the C++ prefetching PNG loader")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card (no CPU fallback)")
+    ap.add_argument("--trace-out", default="",
+                    help="write the run's spans, counters and the step graph's "
+                         "device stages to this file as a Chrome trace")
     return ap.parse_args(argv)
 
 
@@ -106,13 +111,17 @@ def main(argv=None) -> int:
                   f"pts={int(out.n_points_alive)} "
                   f"planes={int(out.n_planes_alive)} ({dt * 1000:.0f} ms)")
 
+    timer = profiling.StageTimer(log=True) if args.trace_out else True
     state, traj, stats = runner.run_frames(
         open_frames(index, cam, args.native_loader), cam, cfg,
         with_planes=not args.no_planes, with_lines=args.lines, on_frame=on_frame,
         ba_every=args.ba_every or None,
         export_map=(args.map_out if args.stream_map and args.map_out else None),
-        camera_setup=setup, device=args.device)
+        camera_setup=setup, device=args.device, trace=timer)
     print(stats.summary())
+    if args.trace_out:
+        timer.export(args.trace_out)
+        print(f"trace -> {args.trace_out}")
     if args.ba_every:
         print(f"BA: runs={stats.ba_runs} accepted={stats.ba_accepted} "
               f"iters/s={stats.ba_iters_per_s:.1f} "

@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import profiling
 from .config import CameraIntrinsics, SlamConfig
 from .device import resolve_device
 from .features import lines as lines_mod
@@ -501,6 +502,9 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     def i32(x):
         return x.to(torch.int32)
 
+    # the sections end at ``profiling.stamp``s: nodes of the step's CUDA graph
+    # when it is recorded with a recorder active, nothing elsewhere
+    profiling.stamp("start")
     # --- predicted pose ---------------------------------------------------
     if cfg.engine.use_motion_model_prediction:
         pred_quat, pred_pos = motion_model.predict_pose(state.motion, state.quat,
@@ -531,6 +535,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
                         state.tracked_map_idx.to(torch.int64), m3)
     of_uv = _scatter_set(full((m3, 2), 0.0, dt), t_idx, of_uv_t)
     of_ok = _scatter_set(full((m3,), False, torch.bool), t_idx, True)
+    profiling.stamp("flow")
 
     # detection runs on refresh frames, when optical flow tracked too few
     # points, or when lost; the flag stays on the device (lax.cond in JAX):
@@ -558,6 +563,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     det_z = _sample_depth(depth, det_xy)
     det_depth_ok = pinhole.is_depth_valid(det_z, cfg.engine.min_depth_mm,
                                           cfg.engine.max_depth_mm) & det_valid
+    profiling.stamp("detect")
 
     # --- data association ---------------------------------------------------
     pts = state.points
@@ -627,6 +633,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         n_lines = full((), 0, torch.int32)
         l_match_idx = full((ml,), -1, torch.int32)
     l_matched = l_match_idx >= 0
+    profiling.stamp("associate")
 
     # planes + cylinders (cylinders surface only in the step output)
     n_grid_cells = (cam.height // det_cfg.depth_patch_size_px) \
@@ -643,6 +650,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         cylinder_cells = full((n_grid_cells,), False, torch.bool)
     k_matched = k_match_idx >= 0
     safe_k = k_match_idx.clamp(0, MAX_PLANES - 1).to(torch.int64)
+    profiling.stamp("plane_extract")
 
     # --- pose optimization --------------------------------------------------
     def std_of(cov):
@@ -682,6 +690,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     new_c2w = se3.camera_to_world(new_quat, new_pos)
     new_w2c = se3.world_to_camera(new_quat, new_pos)
     pose_cov3 = new_pose_cov[:3, :3]
+    profiling.stamp("pose_opt")
 
     # --- map update ---------------------------------------------------------
     # final per-slot "matched" = matched AND RANSAC inlier, on successful frames
@@ -751,6 +760,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     else:
         pl = state.planes
         n_merge_dropped = full((), 0, torch.int32)
+    profiling.stamp("map_update")
 
     # --- lifecycle ------------------------------------------------------------
     promote_pts = int(cfg.mapping.point_min_confidence_for_map
@@ -866,6 +876,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         new_lines = state.lines
         l_evicted = full((ml,), False, torch.bool)
         l_evict_eps = state.lines.endpoints
+    profiling.stamp("insert")
 
     # --- next-frame tracking set ---------------------------------------------
     proj_next, proj_next_ok = pinhole.world_to_screen(new_points.pos, new_w2c, cam)
@@ -926,4 +937,5 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         plane_evict_v=k_evict.basis_v,
         line_evicted=l_evicted, line_evict_eps=l_evict_eps,
     )
+    profiling.stamp("next_track")
     return new_state, output

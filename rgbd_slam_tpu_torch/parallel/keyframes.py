@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import solve_graph
+from .. import profiling, solve_graph
 from ..config import CameraIntrinsics
 from ..device import resolve_device
 from ..geometry import se3
@@ -265,7 +265,8 @@ class KeyframeWindow:
         # the solver moves a host buffer to its device in the one copy
         out, *device_lm = solve(buf)
         self.transfers["uploads"] += 1
-        out = out.cpu().numpy()
+        with profiling.span("solve.read"):
+            out = out.cpu().numpy()
         self.transfers["readbacks"] += 1
         if solve.reuses_outputs:
             device_lm = [t.clone() for t in device_lm]

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import jvp, vmap
 
-from .. import solve_graph
+from .. import profiling, solve_graph
 from ..device import resolve_device
 from ..geometry import se3
 
@@ -326,7 +326,8 @@ class PoseGraph:
         # the solver moves the host buffer to its device in the one copy
         out = self._get_solver(iterations)(torch.from_numpy(fbuf))
         self.transfers["uploads"] += 1
-        out = out.cpu().numpy()
+        with profiling.span("solve.read"):
+            out = out.cpu().numpy()
         self.transfers["readbacks"] += 1
         nn = self.max_nodes
         rq = out[: nn * 4].reshape(nn, 4)

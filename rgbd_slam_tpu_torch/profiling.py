@@ -1,54 +1,192 @@
-"""Per-stage timing statistics and device profiling hooks (port of
+"""A run's trace: host spans, counters and the step graph's device stamps (port of
 ``rgbd_slam_tpu/profiling.py``).
 
-``StageTimer`` keeps the reference's wall-clock accounting and report;
-``device_trace`` captures a ``torch.profiler`` trace of the card around a block.
+``StageTimer`` keeps the reference's wall-clock accounting and report (``record``,
+``show_statistics``) and is the run's recorder:
+
+* spans (:meth:`StageTimer.stage`), nested: each has a name, a start, an end and
+  a parent; by name the recorder keeps the count, the total, the self time (the
+  total less what its children cover) and the longest.  While ``torch.profiler``
+  records, a span also opens a range of its name (:func:`_range`), so that it
+  sits in the profiler's trace on the trace's own clock;
+* counters (:meth:`StageTimer.count`);
+* on request (``log=True``), an event log of every span, counter and device
+  stage, written as one Chrome trace (:meth:`StageTimer.export`).
+
+``runner.run_frames`` makes a recorder the active one for its run
+(:func:`recording`), and the layers below it open spans with :func:`span` and
+count with :func:`count` without being handed it; with no active recorder both
+do nothing.
+
+The step's device stamps: :func:`stamp` is called at ``engine.step``'s section
+boundaries, in the order of ``STAMPS``.  It does nothing unless a
+``step_graph.StepGraph`` capture with an active recorder is under way
+(:func:`stamping`); there each call records a node into the graph that writes
+the card's ``%globaltimer`` (ns) into the next slot of the graph's stamp buffer.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import contextvars
+import json
 import time
 from collections import defaultdict
 
 import torch
 
+#: the step's stages in their order; each ends at a stamp of its name
+#: (``commit``: ``StepGraph._commit``'s copies into the static state)
+STAGES = ("flow", "detect", "associate", "plane_extract", "pose_opt", "map_update",
+          "insert", "next_track", "commit")
+#: the stamps of one replay: its start, then the end of each stage
+STAMPS = ("start",) + STAGES
+#: entries the event log holds; later ones are counted in ``dropped``
+LOG_LIMIT = 1_000_000
+
+#: the recorder of the run under way, and the stamp writer of the capture
+#: under way, in this thread
+_active = contextvars.ContextVar("recorder", default=None)
+_stamper = contextvars.ContextVar("stamper", default=None)
+_NOTHING = contextlib.nullcontext()
+
+
+#: the profiler's operation range, a private class of torch (tested with torch
+#: 2.11 on the card and 2.13 on the CPU): where a torch release lacks it, spans
+#: open no profiler range and stay host spans.
+_FAST_RANGE = getattr(getattr(torch._C, "_profiler", None), "_RecordFunctionFast", None)
+
+
+def _range(name: str):
+    """A profiler range named ``name``, recorded as an operation (``cpu_op``)
+    on the host's timeline.  A ``record_function`` range is a user annotation,
+    which the profiler also copies onto the device's timeline over the kernels
+    launched inside it, where a reader of device operations would count it as
+    one."""
+    return _FAST_RANGE(name)
+
+
+class _Span:
+    """One open span of a :class:`StageTimer`."""
+
+    __slots__ = ("timer", "name", "start", "children", "range")
+
+    def __init__(self, timer, name):
+        self.timer = timer
+        self.name = name
+
+    def __enter__(self):
+        self.range = None
+        if _FAST_RANGE is not None and torch.autograd._profiler_enabled():
+            self.range = _range(self.name)
+            self.range.__enter__()
+        self.children = 0
+        self.timer._open.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        timer = self.timer
+        timer._open.pop()
+        ns = end - self.start
+        name = self.name
+        timer.totals[name] += 1e-9 * ns
+        timer.counts[name] += 1
+        timer.self_s[name] += 1e-9 * (ns - self.children)
+        if ns > timer.max_ns[name]:
+            timer.max_ns[name] = ns
+        parent = timer._open[-1] if timer._open else None
+        if parent is not None:
+            parent.children += ns
+        if timer.events is not None:
+            timer._log(("span", name, self.start, end, parent.name if parent else None))
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
 
 class StageTimer:
-    """Accumulates host wall-clock per named stage and prints a percentage
-    breakdown.  ``device``: the card whose queue a blocking stage drains; None
-    (or a CPU device) drains nothing."""
+    """A run's recorder: nested host spans, counters and, with ``log``, an event
+    log of at most ``LOG_LIMIT`` entries for :meth:`export`.  ``totals`` and
+    ``counts`` hold every span's and every :meth:`record`'s seconds and calls
+    by name, as the reference's report reads them."""
 
-    def __init__(self, device=None):
+    def __init__(self, log: bool = False):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
-        device = torch.device(device) if device is not None else None
-        self._cuda = device if device is not None and device.type == "cuda" else None
+        self.self_s = defaultdict(float)
+        self.max_ns = defaultdict(int)
+        self.counters = defaultdict(int)
+        #: the event log (None: off), and the entries it had no room for
+        self.events = [] if log else None
+        self.dropped = 0
+        self._open = []
 
-    def _sync(self):
-        if self._cuda is not None:
-            torch.cuda.synchronize(self._cuda)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, block: bool = True):
-        """Time a block.  With ``block`` the card's queue is drained before the
-        clock starts and before it stops, so the stage is charged the device
-        work it enqueued and none of its predecessor's."""
-        if block:
-            self._sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block:
-                self._sync()
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+    def stage(self, name: str):
+        """A span named ``name`` around a block, a child of the span open
+        around it.  It reads the host clock once at each end and drains
+        nothing: work it enqueues on the card is not waited for."""
+        return _Span(self, name)
 
     def record(self, name: str, seconds: float):
         self.totals[name] += seconds
         self.counts[name] += 1
+
+    def count(self, name: str, n: int = 1):
+        self.counters[name] += n
+        if self.events is not None:
+            self._log(("counter", name, time.perf_counter_ns(), self.counters[name]))
+
+    def device_stages(self, stamps, offset_ns: int):
+        """One replay's stamps (``STAMPS``, ns of the card's ``%globaltimer``)
+        into the event log, as stages on the host clock: ``offset_ns`` is the
+        card's clock less ``time.perf_counter_ns``."""
+        if self.events is not None:
+            self._log(("device", [int(t) - offset_ns for t in stamps]))
+
+    def _log(self, entry):
+        if len(self.events) < LOG_LIMIT:
+            self.events.append(entry)
+        else:
+            self.dropped += 1
+
+    def aggregates(self) -> dict:
+        """{span name: {"count", "total_s", "self_s", "max_s"}} of every span."""
+        return {name: {"count": self.counts[name], "total_s": self.totals[name],
+                       "self_s": self.self_s[name], "max_s": 1e-9 * self.max_ns[name]}
+                for name in self.max_ns}
+
+    def export(self, path: str):
+        """The event log as one Chrome trace (chrome://tracing, Perfetto): host
+        spans on one track, the step graph's device stages on another, on the
+        host clock in µs, and the counters."""
+        if self.events is None:
+            raise ValueError("the recorder was made without its event log (log=True)")
+        pid = 1
+        out = [{"name": "process_name", "ph": "M", "pid": pid, "args": {"name": "run_frames"}},
+               {"name": "thread_name", "ph": "M", "pid": pid, "tid": 1,
+                "args": {"name": "host"}},
+               {"name": "thread_name", "ph": "M", "pid": pid, "tid": 2,
+                "args": {"name": "device: step graph"}}]
+        for entry in self.events:
+            kind = entry[0]
+            if kind == "span":
+                _, name, start, end, parent = entry
+                out.append({"name": name, "ph": "X", "pid": pid, "tid": 1, "ts": 1e-3 * start,
+                            "dur": 1e-3 * (end - start), "args": {"parent": parent}})
+            elif kind == "device":
+                times = entry[1]
+                for stage, start, end in zip(STAGES, times, times[1:]):
+                    out.append({"name": stage, "ph": "X", "pid": pid, "tid": 2,
+                                "ts": 1e-3 * start, "dur": 1e-3 * (end - start)})
+            else:
+                _, name, t, value = entry
+                out.append({"name": name, "ph": "C", "pid": pid, "ts": 1e-3 * t,
+                            "args": {name: value}})
+        with open(path, "w") as f:
+            json.dump({"traceEvents": out, "displayTimeUnit": "ms",
+                       "otherData": {"dropped": self.dropped}}, f)
 
     def show_statistics(self, frame_count: int | None = None) -> str:
         """Formatted breakdown, stages by falling total time."""
@@ -66,14 +204,47 @@ class StageTimer:
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str):
-    """Capture a ``torch.profiler`` trace (host and, where there is one, the
-    card) around a block and write it as ``trace.json`` into ``log_dir``, in
-    Chrome's trace format (chrome://tracing, Perfetto).  Yields the profiler."""
-    os.makedirs(log_dir, exist_ok=True)
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+def recording(timer: StageTimer):
+    """Make ``timer`` the active recorder inside the block, in this thread."""
+    token = _active.set(timer)
+    try:
+        yield timer
+    finally:
+        _active.reset(token)
+
+
+def active() -> StageTimer | None:
+    """The active recorder, or None."""
+    return _active.get()
+
+
+def span(name: str):
+    """A span of the active recorder; with none, a block that records nothing."""
+    timer = _active.get()
+    return _NOTHING if timer is None else _Span(timer, name)
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to a counter of the active recorder, if there is one."""
+    timer = _active.get()
+    if timer is not None:
+        timer.count(name, n)
+
+
+@contextlib.contextmanager
+def stamping(stamper):
+    """Inside the block, :func:`stamp` calls ``stamper(name)``: what a
+    ``StepGraph`` capture with a recorder does."""
+    token = _stamper.set(stamper)
+    try:
+        yield stamper
+    finally:
+        _stamper.reset(token)
+
+
+def stamp(name: str):
+    """The end of the step's section ``name`` (``STAMPS``): a stamp node in the
+    step graph under capture, and nothing anywhere else."""
+    stamper = _stamper.get()
+    if stamper is not None:
+        stamper(name)

@@ -7,20 +7,23 @@ streaming map export.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
+import itertools
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import engine, step_graph
+from . import engine, profiling, step_graph
 from .config import CameraIntrinsics, SlamConfig
 from .device import resolve_device
 from .io.map_writer import OBJWriter, append_alive_features, append_dying_features
 from .io.trajectory import Trajectory, ate_rmse
+from .ops import stamps_cuda
 from .ops.depth_cloud import rectify_depth
 from .parallel.keyframes import KeyframeWindow, serve_refines, stop_serving
 from .parallel.pose_graph import PoseGraph, _np_quat_mul, _np_quat_rotate
@@ -37,7 +40,28 @@ class RunStats:
     refine's and the first graph solve's time: on a card the solver's warm-up,
     the capture of its CUDA graph (``solve_graph.SolveGraph``, the counterpart
     of the JAX solvers' compile) and the first replay, as ``compile_s`` is the
-    step's; on the CPU the first eager solve."""
+    step's; on the CPU the first eager solve.
+
+    The run's trace (``run_frames(trace=...)``; empty with ``trace=False``):
+    ``spans`` {name: {"count", "total_s", "self_s", "max_s"}} of every host
+    span and ``counters`` {name: count} (``profiling.StageTimer``); and, where
+    the step runs as a CUDA graph, its device stamps over the frames past the
+    first, as µs summed over ``stamped_frames`` replays: each stage
+    (``stage_device_us``, ``profiling.STAGES``), a replay from its first stamp
+    to its last (``graph_span_us``), and from the last stamp of the replay
+    before to its first (``replay_gap_us``: what the card spends between
+    replays, idle or on other work).  Where a frame crosses from the host to
+    the card, ``upload_device_us`` sums, over ``upload_frames`` frames, the
+    stretch of the card's queue from a stamp before its upload to one after
+    it (the copies, the depth's rectification and the host's turns between
+    them, without the wait for the replay before).  ``clock_offset_ns`` is the card's clock less the
+    host's ``perf_counter_ns``, measured at the capture, to within
+    ``clock_offset_err_ns``.  The counters hold what no other field does:
+    ``captures`` (CUDA graphs recorded), ``drains`` (batched summary reads),
+    ``device_reads.keyframes``, ``uploads`` (frame arrays copied from the
+    host) and ``clone_bytes``; the frames, refines, graph solves and the
+    backend's reads are ``frame_count``, ``ba_runs``, ``graph_solves`` and
+    ``backend_readbacks``."""
     frame_count: int = 0
     warmup_steps: int = 0
     success_count: int = 0
@@ -64,6 +88,17 @@ class RunStats:
     # features the streamed map export wrote when they died, and at the end
     map_streamed: int = 0
     map_alive_at_end: int = 0
+    # the run's trace
+    spans: dict = field(default_factory=dict)
+    counters: dict = field(default_factory=dict)
+    stage_device_us: dict = field(default_factory=dict)
+    graph_span_us: float = 0.0
+    replay_gap_us: float = 0.0
+    stamped_frames: int = 0
+    upload_device_us: float = 0.0
+    upload_frames: int = 0
+    clock_offset_ns: int = 0
+    clock_offset_err_ns: int = 0
 
     @property
     def ba_iters_per_s(self):
@@ -105,6 +140,10 @@ class RunStats:
 #: frames per batched summary read: frame 0 is read alone, then frames 1-8,
 #: 9-16, ...; keyframe and BA decisions run up to a batch late
 SUMMARY_BATCH = 8
+#: float32 entries of a frame's summary before the step's stamps
+SUMMARY_WIDTH = 12
+#: what a frame source's ``next`` gives at its end
+_END = object()
 
 
 def stage_frames(frames, chunk: int = 32, device=None):
@@ -135,16 +174,63 @@ def stage_frames(frames, chunk: int = 32, device=None):
     return staged
 
 
-def _pack_summary(out: engine.StepOutput):
-    """Everything the frame loop reads every frame, as one [12] tensor:
+def _pack_summary(out: engine.StepOutput, stamps=None):
+    """Everything the frame loop reads every frame, as one float32 tensor:
     position, quaternion, success, is_lost, n_evicted, n_plane_merge_dropped,
-    n_point_inliers."""
+    n_point_inliers (``SUMMARY_WIDTH``), then the int64 ``stamps`` of the
+    step's graph, if given, as their bit patterns (two entries a stamp), so
+    that they reach the host in the summary's read and keep every ns."""
     f32 = torch.float32
-    return torch.cat([out.position.to(f32), out.quat.to(f32),
-                      torch.stack([out.success.to(f32), out.is_lost.to(f32),
-                                   out.n_evicted.to(f32),
-                                   out.n_plane_merge_dropped.to(f32),
-                                   out.n_point_inliers.to(f32)])])
+    parts = [out.position.to(f32), out.quat.to(f32),
+             torch.stack([out.success.to(f32), out.is_lost.to(f32),
+                          out.n_evicted.to(f32), out.n_plane_merge_dropped.to(f32),
+                          out.n_point_inliers.to(f32)])]
+    if stamps is not None:
+        parts.append(stamps.view(f32))
+    return torch.cat(parts)
+
+
+def _split_summaries(raw: np.ndarray):
+    """Read summaries [n, SUMMARY_WIDTH (+ 2 a stamp)] float32: (the summaries
+    as float64 [n, SUMMARY_WIDTH], the stamps int64 [n, k] or None)."""
+    rows = raw[:, :SUMMARY_WIDTH].astype(np.float64)
+    if raw.shape[1] == SUMMARY_WIDTH:
+        return rows, None
+    return rows, np.ascontiguousarray(raw[:, SUMMARY_WIDTH:]).view(np.int64)
+
+
+def _add_stamps(stats: RunStats, stamps, last_end, uploaded: bool = False):
+    """Add one replay's stamps (``profiling.STAMPS``, ns of the card's clock) to
+    the device sums of ``stats``, and with ``uploaded`` its frame's upload
+    (``step_graph.UPLOAD_SLOTS``).  ``last_end`` is the replay before's last
+    stamp; None for a sequence's first frame, which is left out (its capture
+    runs before it).  Returns this replay's last stamp."""
+    times = [int(t) for t in stamps[:len(profiling.STAMPS)]]
+    if uploaded:
+        start, end = (int(stamps[k]) for k in step_graph.UPLOAD_SLOTS)
+        stats.upload_device_us += 1e-3 * (end - start)
+        stats.upload_frames += 1
+    if last_end is not None:
+        sums = stats.stage_device_us
+        for stage, start, end in zip(profiling.STAGES, times, times[1:]):
+            sums[stage] = sums.get(stage, 0.0) + 1e-3 * (end - start)
+        stats.graph_span_us += 1e-3 * (times[-1] - times[0])
+        stats.replay_gap_us += 1e-3 * (times[0] - last_end)
+        stats.stamped_frames += 1
+    return times[-1]
+
+
+def _on_host(x, device) -> bool:
+    """Whether a frame's array crosses from the host to the card ``device``."""
+    return device.type == "cuda" and not (isinstance(x, torch.Tensor) and x.is_cuda)
+
+
+def _upload(x, device):
+    """A frame's array as a float32 tensor on ``device``; an array that crosses
+    from the host is counted in ``uploads``."""
+    if _on_host(x, device):
+        profiling.count("uploads")
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def _pack_keyframe_obs(out: engine.StepOutput, point_positions):
@@ -246,7 +332,7 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                kf_min_trans_mm: float = 20.0, kf_min_rot_deg: float = 1.0,
                with_pose_graph: bool = True, ba_update_map: bool = True,
                ba_correct_traj: bool = True, camera_setup=None,
-               export_map: str | None = None, device=None):
+               export_map: str | None = None, device=None, trace=True):
     """Run the engine over an iterable of (gray, depth[, timestamp]) frames (numpy
     or tensors), on ``device`` (``None``: the card, see ``resolve_device``).
 
@@ -292,8 +378,20 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
     and the surviving local map at the end, so that features lost on the way
     still reach the file.
 
+    ``trace`` (default on) records the run's trace into ``RunStats``: the
+    host spans and counters of the loop and of the layers under it
+    (``profiling``), and on a card the step graph's device stamps, which ride
+    in each frame's summary read.  ``False`` records nothing and leaves the
+    stamps out of the graph.  A ``profiling.StageTimer`` records into that
+    recorder (made with ``log=True``, it keeps the event log for its
+    ``export``).
+
     Returns (final_state, Trajectory, RunStats)."""
     device = resolve_device(device)
+    if isinstance(trace, profiling.StageTimer):
+        timer = trace
+    else:
+        timer = profiling.StageTimer() if trace else None
     if state is None:
         state = engine.init_state(cam, cfg, seed=seed, device=device)
     stepper = step_graph.stepper(state, cam, cfg, with_planes=with_planes,
@@ -323,52 +421,60 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
             graph = PoseGraph(device=device)
 
     def _refine(i):
-        if pending_kfs:
-            # every waiting keyframe's pack in two reads
-            fobs = torch.stack([kf[2] for kf in pending_kfs]).cpu().numpy()
-            kf_fids = torch.stack([kf[3] for kf in pending_kfs]).cpu().numpy()
-            for (q_, p_, _, _, ts_, i_), fo_, fi_ in zip(pending_kfs, fobs, kf_fids):
-                window.add_keyframe_packed(q_, p_, fo_, fi_, timestamp=ts_, frame_id=i_)
-            pending_kfs.clear()
-        t_ba = time.perf_counter()
-        res = window.refine(cam, iterations=ba_iterations, mesh=ba_mesh)
-        if res is None:
-            return
-        refined, device_lm, costs = res
-        stats.ba_runs += 1
-        dt_ba = time.perf_counter() - t_ba
-        stats.ba_total_s += dt_ba
-        if stats.ba_runs == 1:
-            stats.ba_compile_s = dt_ba
-        stats.ba_total_iters += ba_iterations
-        if np.isfinite(costs).all() and costs[-1] < costs[0]:
-            stats.ba_accepted += 1
-            if ba_update_map:
-                window.apply_refinement(refined, device_lm)
-                # the live state may be up to a batch past frame i: the scatter
-                # is guarded by feature id
-                stepper.state = _scatter_ba_landmarks(stepper.state, device_lm)
-            if ba_correct_traj and graph is None:
-                for kf, fi in enumerate(window.frame_ids):
-                    q, p = refined[kf]
-                    traj.positions[fi] = np.asarray(p, np.float64)
-                    traj.quaternions[fi] = np.asarray(q, np.float64)
-            if graph is not None:
-                graph.add_ba_window(window.frame_ids[:len(refined)], refined)
-                t_graph = time.perf_counter()
-                solved = graph.solve()
-                dt_graph = time.perf_counter() - t_graph
-                stats.graph_solves += 1
-                stats.graph_total_s += dt_graph
-                if stats.graph_solves == 1:
-                    stats.graph_first_s = dt_graph
-                if solved is not None:
-                    _apply_graph_correction(traj, *solved)
-        stats.ba_dropped_landmarks = window.dropped_landmarks
-        stats.ba_dropped_obs = window.dropped_obs
-        moved = [window.transfers] + ([graph.transfers] if graph is not None else [])
-        stats.backend_uploads = sum(t["uploads"] for t in moved)
-        stats.backend_readbacks = sum(t["readbacks"] for t in moved)
+        with profiling.span("backend"):
+            if pending_kfs:
+                with profiling.span("backend.keyframes"):
+                    # every waiting keyframe's pack in two reads
+                    fobs = torch.stack([kf[2] for kf in pending_kfs]).cpu().numpy()
+                    kf_fids = torch.stack([kf[3] for kf in pending_kfs]).cpu().numpy()
+                    profiling.count("device_reads.keyframes", 2)
+                    for (q_, p_, _, _, ts_, i_), fo_, fi_ in zip(pending_kfs, fobs, kf_fids):
+                        window.add_keyframe_packed(q_, p_, fo_, fi_, timestamp=ts_, frame_id=i_)
+                    pending_kfs.clear()
+            t_ba = time.perf_counter()
+            with profiling.span("backend.refine"):
+                res = window.refine(cam, iterations=ba_iterations, mesh=ba_mesh)
+            if res is None:
+                return
+            refined, device_lm, costs = res
+            stats.ba_runs += 1
+            dt_ba = time.perf_counter() - t_ba
+            stats.ba_total_s += dt_ba
+            if stats.ba_runs == 1:
+                stats.ba_compile_s = dt_ba
+            stats.ba_total_iters += ba_iterations
+            if np.isfinite(costs).all() and costs[-1] < costs[0]:
+                stats.ba_accepted += 1
+                if ba_update_map:
+                    with profiling.span("backend.apply"):
+                        window.apply_refinement(refined, device_lm)
+                        # the live state may be up to a batch past frame i: the
+                        # scatter is guarded by feature id
+                        stepper.state = _scatter_ba_landmarks(stepper.state, device_lm)
+                if ba_correct_traj and graph is None:
+                    with profiling.span("backend.correct"):
+                        for kf, fi in enumerate(window.frame_ids):
+                            q, p = refined[kf]
+                            traj.positions[fi] = np.asarray(p, np.float64)
+                            traj.quaternions[fi] = np.asarray(q, np.float64)
+                if graph is not None:
+                    with profiling.span("backend.graph_solve"):
+                        graph.add_ba_window(window.frame_ids[:len(refined)], refined)
+                        t_graph = time.perf_counter()
+                        solved = graph.solve()
+                        dt_graph = time.perf_counter() - t_graph
+                    stats.graph_solves += 1
+                    stats.graph_total_s += dt_graph
+                    if stats.graph_solves == 1:
+                        stats.graph_first_s = dt_graph
+                    if solved is not None:
+                        with profiling.span("backend.correct"):
+                            _apply_graph_correction(traj, *solved)
+            stats.ba_dropped_landmarks = window.dropped_landmarks
+            stats.ba_dropped_obs = window.dropped_obs
+            moved = [window.transfers] + ([graph.transfers] if graph is not None else [])
+            stats.backend_uploads = sum(t["uploads"] for t in moved)
+            stats.backend_readbacks = sum(t["readbacks"] for t in moved)
 
     def _process(i, ts, frame_state, out, summary, kf_obs, dt):
         """Consume one frame's summary: stats, trajectory, keyframes and BA.
@@ -406,62 +512,115 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                 _refine(i)
 
         if map_writer is not None and summary[9] > 0.5:   # n_evicted
-            stats.map_streamed += append_dying_features(map_writer, out)
+            with profiling.span("map_export"):
+                stats.map_streamed += append_dying_features(map_writer, out)
 
         if on_frame is not None:
-            on_frame(i, frame_state, out, dt)
+            with profiling.span("on_frame"):
+                on_frame(i, frame_state, out, dt)
 
     pending = []
     t_prev = time.perf_counter()
+    last_stamp = None     # the last stamp of the replay before
+    clone_bytes = None    # what a frame's copies out of the graph's buffers hold
 
     def _drain():
         nonlocal t_prev
         if not pending:
             return
-        batch = torch.stack([p[4] for p in pending]).cpu().numpy().astype(np.float64)
-        now = time.perf_counter()
-        per_frame = (now - t_prev) / len(pending)
-        t_prev = now
-        for row, (pi, pts_, pstate, pout, _, kf_obs) in zip(batch, pending):
-            _process(pi, pts_, pstate, pout, row, kf_obs, per_frame)
-        pending.clear()
+        with profiling.span("drain"):
+            with profiling.span("drain.read"):
+                raw = torch.stack([p[4] for p in pending]).cpu().numpy()
+            profiling.count("drains")
+            now = time.perf_counter()
+            per_frame = (now - t_prev) / len(pending)
+            t_prev = now
+            with profiling.span("drain.process"):
+                batch, stamps = _split_summaries(raw)
+                for k, (row, (pi, pts_, pstate, pout, _, kf_obs, up)) in enumerate(
+                        zip(batch, pending)):
+                    if stamps is not None:
+                        _read_stamps(pi, stamps[k], up)
+                    _process(pi, pts_, pstate, pout, row, kf_obs, per_frame)
+            pending.clear()
+
+    def _read_stamps(i, stamps, uploaded):
+        nonlocal last_stamp
+        if i == 0:
+            before, after = stepper.clock_bracket
+            stats.clock_offset_ns = int(stamps[step_graph.OFFSET_SLOT]) - (before + after) // 2
+            stats.clock_offset_err_ns = (after - before + 1) // 2
+        last_stamp = _add_stamps(stats, stamps, last_stamp, uploaded)
+        timer.device_stages(stamps[:len(profiling.STAMPS)], stats.clock_offset_ns)
+
+    def _keep(frame_state, out):
+        """Copies of what the next replay overwrites, where they are read."""
+        nonlocal clone_bytes
+        keep_out = on_frame is not None or map_writer is not None
+        with profiling.span("frame.clone"):
+            frame_state = (step_graph.clone_tree(frame_state) if on_frame is not None
+                           else None)
+            out = step_graph.clone_tree(out) if keep_out else None
+        if timer is not None and (frame_state is not None or out is not None):
+            if clone_bytes is None:
+                clone_bytes = sum(t.nbytes for t in step_graph.tensor_leaves((frame_state, out)))
+            profiling.count("clone_bytes", clone_bytes)
+        return frame_state, out
 
     map_writer = OBJWriter(export_map) if export_map is not None else None
-    try:
-        for i, frame in enumerate(frames):
-            if len(frame) == 3:
-                gray, depth, ts = frame
-            else:
-                (gray, depth), ts = frame, float(i)
-            gray = torch.as_tensor(gray, dtype=torch.float32, device=device)
-            depth = torch.as_tensor(depth, dtype=torch.float32, device=device)
-            if rectify is not None:
-                depth = rectify(depth)
-            frame_state, out = stepper.step(gray, depth)
-            kf_obs = (_pack_keyframe_obs(out, frame_state.points.pos)
-                      if window is not None else None)
-            summary = _pack_summary(out)
-            if stepper.reuses_outputs:
-                # the next replay overwrites both: keep copies where they are read
-                keep_out = on_frame is not None or map_writer is not None
-                frame_state = (step_graph.clone_tree(frame_state) if on_frame is not None
-                               else None)
-                out = step_graph.clone_tree(out) if keep_out else None
-            pending.append((i, ts, frame_state, out, summary, kf_obs))
-            if i == 0 or len(pending) >= SUMMARY_BATCH:
-                _drain()
-        _drain()
-        if map_writer is not None:
-            stats.map_alive_at_end = append_alive_features(map_writer, stepper.state,
-                                                           only_local=True)
-    finally:
-        stepper.close()
-        if window is not None:
-            window.close()
-        if graph is not None:
-            graph.close()
-        if map_writer is not None:
-            map_writer.close()
+    stamps = None
+    frames = iter(frames)
+    with profiling.recording(timer) if timer is not None else contextlib.nullcontext():
+        try:
+            for i in itertools.count():
+                with profiling.span("frame.pull"):
+                    frame = next(frames, _END)
+                if frame is _END:
+                    break
+                if len(frame) == 3:
+                    gray, depth, ts = frame
+                else:
+                    (gray, depth), ts = frame, float(i)
+                with profiling.span("frame.upload"):
+                    # on the card's queue, the upload between two stamps
+                    uploaded = stamps is not None and (_on_host(gray, device)
+                                                       or _on_host(depth, device))
+                    if uploaded:
+                        stamps_cuda.stamp(stamps, step_graph.UPLOAD_SLOTS[0])
+                    gray, depth = _upload(gray, device), _upload(depth, device)
+                    if rectify is not None:
+                        depth = rectify(depth)
+                    if uploaded:
+                        stamps_cuda.stamp(stamps, step_graph.UPLOAD_SLOTS[1])
+                frame_state, out = stepper.step(gray, depth)
+                if i == 0 and timer is not None:
+                    stamps = getattr(stepper, "stamps", None)
+                with profiling.span("frame.pack"):
+                    kf_obs = (_pack_keyframe_obs(out, frame_state.points.pos)
+                              if window is not None else None)
+                    summary = _pack_summary(out, stamps)
+                if stepper.reuses_outputs:
+                    # the next replay overwrites both: keep copies where they are read
+                    frame_state, out = _keep(frame_state, out)
+                pending.append((i, ts, frame_state, out, summary, kf_obs, uploaded))
+                if i == 0 or len(pending) >= SUMMARY_BATCH:
+                    _drain()
+            _drain()
+            if map_writer is not None:
+                with profiling.span("map_export"):
+                    stats.map_alive_at_end = append_alive_features(map_writer, stepper.state,
+                                                                   only_local=True)
+        finally:
+            stepper.close()
+            if window is not None:
+                window.close()
+            if graph is not None:
+                graph.close()
+            if map_writer is not None:
+                map_writer.close()
+    if timer is not None:
+        stats.spans = timer.aggregates()
+        stats.counters = dict(timer.counters)
     return stepper.state, traj, stats
 
 

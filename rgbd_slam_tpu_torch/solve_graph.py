@@ -23,6 +23,8 @@ a ``torch.cuda.CUDAGraph`` and replayed at every call, as
   by the next call; a caller that keeps one past it copies it.
 * Launch counts: as in ``StepGraph``, the counts a capture added are taken
   back and added again at every replay.
+* Spans (``profiling.span``): ``solve.capture`` (the first call), ``solve.load``
+  and ``solve.replay``; the caller's read of the outputs is its ``solve.read``.
 
 :func:`solver` gives the backend a :class:`SolveGraph` on a card and an
 :class:`EagerSolve` (the function as it is) on the CPU.
@@ -34,6 +36,7 @@ import time
 
 import torch
 
+from . import profiling
 from .step_graph import add_launches, capture
 
 
@@ -84,10 +87,13 @@ class SolveGraph:
         """Copy ``inputs`` into the static buffers and replay; the first call
         records the graph first.  Returns the static outputs."""
         if self._graph is None:
-            self._record(inputs)
+            with profiling.span("solve.capture"):
+                self._record(inputs)
         else:
-            self._load(inputs)
-        self._graph.replay()
+            with profiling.span("solve.load"):
+                self._load(inputs)
+        with profiling.span("solve.replay"):
+            self._graph.replay()
         add_launches(self._launches)
         return self._out
 
@@ -130,6 +136,7 @@ class SolveGraph:
         graph = torch.cuda.CUDAGraph()
         self._out, self._launches = capture(graph, lambda: self._fn(*self._inputs))
         self._graph = graph
+        profiling.count("captures")
         self.record_s = time.perf_counter() - t0
 
 

@@ -26,6 +26,14 @@ recorded.
 * Launch counts: a kernel wrapper counts its launches when Python calls it,
   which a replay does not.  The counts a capture added are taken back and added
   again on every replay.
+* Stamps: recorded while a ``profiling`` recorder is active (``run_frames``'
+  ``trace``), the graph holds one stamp node at the start of the step and one
+  at the end of each stage (``profiling.STAMPS``), each writing the card's
+  clock into its slot of ``stamps``; a replay overwrites them.  Before the
+  capture one stamp between two host clock reads gives the card's clock
+  against the host's (``clock_bracket``, into ``OFFSET_SLOT``).  The runner
+  stamps a frame's upload from the host into ``UPLOAD_SLOTS``.  The stamps
+  write only their own buffer.
 
 :func:`stepper` gives the runner a :class:`StepGraph` on a card and an
 :class:`EagerStep` (``engine.step`` as it is) on the CPU.
@@ -37,12 +45,16 @@ import time
 
 import torch
 
-from . import engine
+from . import engine, profiling
 from .config import CameraIntrinsics, SlamConfig
-from .ops import cells_cuda, components_cuda, cylinders_cuda, lk_cuda, lm_cuda
+from .ops import cells_cuda, components_cuda, cylinders_cuda, lk_cuda, lm_cuda, stamps_cuda
 
 #: eager steps (on a copy of the state) before the step is recorded
 WARMUP_STEPS = 1
+#: the stamp buffer's last slots: the stamp taken between two host clock reads,
+#: then the two that the runner takes before and after a frame's upload
+OFFSET_SLOT = len(profiling.STAMPS)
+UPLOAD_SLOTS = (OFFSET_SLOT + 1, OFFSET_SLOT + 2)
 #: the launch counts of the kernels a step can launch
 _COUNTERS = (lk_cuda.LAUNCHES, components_cuda.LAUNCHES, cells_cuda.LAUNCHES,
              cylinders_cuda.LAUNCHES, lm_cuda.LAUNCHES)
@@ -149,6 +161,12 @@ class StepGraph:
         #: the capture took
         self.warmup_steps = 0
         self.record_s = 0.0
+        #: with a recorder at the capture: the replay's stamps (int64 [13] ns on
+        #: the card's clock, ``profiling.STAMPS``, ``OFFSET_SLOT`` and
+        #: ``UPLOAD_SLOTS``), and the host's ``perf_counter_ns`` before and after
+        #: the stamp in ``OFFSET_SLOT``
+        self.stamps = None
+        self.clock_bracket = None
 
     @property
     def state(self) -> engine.SlamState:
@@ -172,16 +190,21 @@ class StepGraph:
         """One frame: draws from the state's generator, the frame into the
         static buffers, one replay.  Returns (state, StepOutput), both the
         graph's static tensors."""
-        if self._graph is None:
-            self._record(gray, depth)
-        cam, cfg, _, _, device = self.key
-        draws = engine.draw_step_draws(cfg, self._state.generator, device)
-        for dst, src in zip(tensor_leaves(self._draws), tensor_leaves(draws)):
-            dst.copy_(src)
-        self._frame[0].copy_(gray)
-        self._frame[1].copy_(depth)
-        self._graph.replay()
-        add_launches(self._launches)
+        with profiling.span("step"):
+            if self._graph is None:
+                with profiling.span("step.capture"):
+                    self._record(gray, depth)
+            cam, cfg, _, _, device = self.key
+            with profiling.span("step.draws"):
+                draws = engine.draw_step_draws(cfg, self._state.generator, device)
+                for dst, src in zip(tensor_leaves(self._draws), tensor_leaves(draws)):
+                    dst.copy_(src)
+            with profiling.span("step.load"):
+                self._frame[0].copy_(gray)
+                self._frame[1].copy_(depth)
+            with profiling.span("step.replay"):
+                self._graph.replay()
+            add_launches(self._launches)
         return self._state, self._out
 
     def close(self):
@@ -209,12 +232,33 @@ class StepGraph:
         self._frame = tuple(torch.empty(t.shape, dtype=t.dtype, device=device)
                             for t in (gray, depth))
         self._draws = tree_map(torch.empty_like, draws)
+        stamper = None
+        if profiling.active() is not None:
+            self.stamps = torch.zeros(UPLOAD_SLOTS[-1] + 1, dtype=torch.int64, device=device)
+            self.clock_bracket = self._read_clocks(device)
+            stamper = _Stamper(self.stamps)
         graph = torch.cuda.CUDAGraph()
-        self._out, self._launches = capture(graph, lambda: self._commit(*engine.step(
-            self._state, *self._frame, cam, cfg, with_planes=with_planes,
-            with_lines=with_lines, draws=self._draws)))
+        with profiling.stamping(stamper):
+            self._out, self._launches = capture(graph, lambda: self._commit(*engine.step(
+                self._state, *self._frame, cam, cfg, with_planes=with_planes,
+                with_lines=with_lines, draws=self._draws)))
+        if stamper is not None and tuple(stamper.names) != profiling.STAMPS:
+            raise RuntimeError(f"the step stamped {stamper.names}, not {profiling.STAMPS}")
         self._graph = graph
+        profiling.count("captures")
         self.record_s = time.perf_counter() - t0
+
+    def _read_clocks(self, device):
+        """One stamp into ``OFFSET_SLOT`` between two host clock reads, the card
+        drained before and after (a first stamp, unread, loads the kernel).
+        Returns the host's ``perf_counter_ns`` (before, after); the stamp stays
+        in the slot, for the runner's read with the first frame's summary."""
+        stamps_cuda.stamp(self.stamps, OFFSET_SLOT)
+        torch.cuda.synchronize(device)
+        before = time.perf_counter_ns()
+        stamps_cuda.stamp(self.stamps, OFFSET_SLOT)
+        torch.cuda.synchronize(device)
+        return before, time.perf_counter_ns()
 
     def _commit(self, new_state, out):
         """Inside the capture: copy the new state into the static state buffers
@@ -238,7 +282,21 @@ class StepGraph:
         for s, n in zip(static, sources):
             if n is not None:
                 s.copy_(n)
+        profiling.stamp("commit")
         return out
+
+
+class _Stamper:
+    """Inside a capture: each ``profiling.stamp`` records a stamp node that
+    writes the next slot of ``stamps``."""
+
+    def __init__(self, stamps):
+        self.stamps = stamps
+        self.names = []
+
+    def __call__(self, name: str):
+        stamps_cuda.stamp(self.stamps, len(self.names))
+        self.names.append(name)
 
 
 def stepper(state: engine.SlamState, cam: CameraIntrinsics, cfg: SlamConfig,

@@ -166,26 +166,16 @@ def test_stage_timer_report_matches_jax():
     assert report.splitlines()[0].startswith("Mean frame treatment duration: 30.25 ms")
 
 
-@pytest.mark.parametrize("block", [True, False])
-def test_stage_timer_stage_counts(block):
-    timer = profiling.StageTimer(device="cpu")
+def test_stage_timer_stage_counts():
+    timer = profiling.StageTimer()
     for _ in range(3):
-        with timer.stage("work", block=block):
+        with timer.stage("work"):
             torch.ones(8).sum()
     with pytest.raises(RuntimeError):
         with timer.stage("fails"):
             raise RuntimeError("inside")
     assert timer.counts == {"work": 3, "fails": 1}
     assert timer.totals["work"] > 0 and timer.totals["fails"] >= 0
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.device_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    with open(tmp_path / "trace" / "trace.json") as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
-    assert prof.key_averages()
 
 
 @pytest.mark.parametrize("level, shown", [

@@ -66,6 +66,12 @@ DELIBERATE_MODULES = {
     "ops/pallas_lk.py": "the Pallas kernels are csrc/lk.cu, wrapped by ops/lk_cuda.py",
     "utils/compile_cache.py": "XLA's persistent compilation cache",
 }
+#: (module path, name) -> what replaces it: functions of the JAX package that the
+#: port's own design removed
+DELIBERATE_NAMES = {
+    ("profiling.py", "device_trace"): "the run's own trace: StageTimer(log=True).export, "
+                                      "run_frames(trace=...)",
+}
 _DRAWS = "the draws the key would give (injected randomness)"
 _GROUPS = "a torch.distributed process group"
 DELIBERATE_PARAMS = {
@@ -76,6 +82,8 @@ DELIBERATE_PARAMS = {
         "coordinator_address": "init_method", "num_processes": "world_size",
         "process_id": "rank"},
     ("parallel/ba.py", "make_sharded_ba"): {"mesh": _GROUPS, "axis": _GROUPS},
+    ("profiling.py", "StageTimer.stage"): {
+        "block": "a span drains nothing; the step's device time comes from its stamps"},
     ("pose/optimizer.py", "compute_optimized_pose"): {"key": _DRAWS + ": draws"},
     ("pose/optimizer.py", "refit_with_variance"): {"key": _DRAWS + ": noise"},
     ("pose/optimizer.py", "compute_pose_variance"): {"key": _DRAWS + ": noise"},
@@ -112,10 +120,13 @@ def _params(fn):
 def test_public_surface_matches():
     ref = _surface(ROOT / "rgbd_slam_tpu")
     port = _surface(ROOT / "rgbd_slam_tpu_torch")
-    missing, used_modules, used_params = [], set(), set()
+    missing, used_modules, used_names, used_params = [], set(), set(), set()
     for (mod, name), params in ref.items():
         if mod in DELIBERATE_MODULES:
             used_modules.add(mod)
+            continue
+        if (mod, name) in DELIBERATE_NAMES:
+            used_names.add((mod, name))
             continue
         if (mod, name) not in port:
             missing.append(f"{mod}: {name}")
@@ -132,6 +143,7 @@ def test_public_surface_matches():
                 missing.append(f"{mod}: {name}({p}=)")
     assert not missing, "missing from the port: " + "; ".join(missing)
     stale = sorted(set(DELIBERATE_MODULES) - used_modules) + sorted(
+        f"{m}: {n}" for m, n in set(DELIBERATE_NAMES) - used_names) + sorted(
         f"{m}: {n}({p}=)" for (m, n), ps in DELIBERATE_PARAMS.items() for p in ps
         if (m, n, p) not in used_params)
     assert not stale, "allow-list entries that excuse nothing: " + "; ".join(stale)
