@@ -31,8 +31,9 @@ Legs (``bench.py``'s, in its order):
    without the backend: ATE-RMSE of each, the backend's counts and its ms
    (``RunStats.backend_ms``: the first refine and graph solve, which record
    their CUDA graphs, and the mean of the later ones); the median and
-   p80 of the step's batch means (the runner reads summaries in batches of 8)
-   from frame 10 of the run without the backend.
+   p80 of the host's time between two frames' hand-overs (``on_frame``'s
+   ``dt``; the runner hands each frame over one replay behind) from frame 10
+   of the run without the backend.
 4. hard scene: ``HardRoomScene`` on the orbit, ``ba_every=8``, seeds 0, 1, 2,
    without and with motion-model prediction: ATE per seed (sorted, as
    ``bench.py`` lists them, and in seed order), lost frames per seed.
@@ -250,7 +251,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ate_on, stats, _ = run(frames, gt, cam, cfg, device, ba_every=8)
     ate_off, stats_off, step_s = run(frames, gt, cam, cfg, device)
-    batch_ms = np.array(step_s[1 + runner.SUMMARY_BATCH:]) * 1e3   # past the warm-up
+    steady_ms = np.array(step_s[1 + runner.SUMMARY_BATCH:]) * 1e3   # past the warm-up
     _say("accuracy", ate_ba_on_mm=ate_on, ate_ba_off_mm=ate_off, keyframes=stats.keyframe_count,
          ba_runs=stats.ba_runs, ba_accepted=stats.ba_accepted,
          failed=stats.frame_count - stats.success_count, lost=stats.lost_count,
@@ -324,8 +325,8 @@ def main() -> int:
         "device_utilization_vs_peak": flops / (eager_device_us * 1e-6) / PEAK_F32_FLOPS,
         "utilization_flops_ops": flop_ops,
         "utilization_peak_flops": PEAK_F32_FLOPS,
-        "step_ms_batch_median": float(np.median(batch_ms)),
-        "step_ms_batch_p80": float(np.percentile(batch_ms, 80)),
+        "step_ms_batch_median": float(np.median(steady_ms)),
+        "step_ms_batch_p80": float(np.percentile(steady_ms, 80)),
         "ate_rmse_mm": ate_on,
         "ate_ba_off_mm": ate_off,
         "ate_frames": n_ate,

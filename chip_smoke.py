@@ -81,7 +81,8 @@ Phases, one line of output each (any failure raises, so the last line, the
    both, the warm-up and capture time, 4 replays under the profiler (kernels
    and device time a frame; the launch counts must be what the profiler
    saw), and ``run_frames`` over the frames under ``set_sync_debug_mode``:
-   every host sync must be the runner's summary read (``run_graph_phase``).
+   every host sync must be the recording's; the runner waits for a frame's
+   summary on an event, which is no sync (``run_graph_phase``).
    backend_graph: the windowed BA's packed solve at full count (8 keyframes x
    512 landmarks x 8 observations, every slot valid: ``full_window``) and the
    pose graph's (64 nodes, 256 edges: ``full_pose_graph``), each on two
@@ -158,10 +159,10 @@ Every path runs through ``runner.run_frames``, which on the card records the
 step as one CUDA graph at its first frame (one eager warm-up step, whose
 launches count: each path expects its launches a frame times its frames plus
 ``RunStats.warmup_steps``) and replays it for every frame; no path may read
-the components fixpoint on the host.  ``run_frames`` reads the frames'
-summaries in batches of 8, so the per-frame times a path prints are means over
-a batch; ``fps_from_frame_10`` leaves out frame 0 and the first batch, which
-hold the recording.  The last phase before the JSON lines prints the
+the components fixpoint on the host.  ``run_frames`` hands each frame over
+one replay behind, so the per-frame times a path prints are the host's time
+between two hand-overs; ``fps_from_frame_10`` leaves out frame 0 and the next
+8 (``runner.SUMMARY_BATCH``), which follow the recording.  The last phase before the JSON lines prints the
 script's wall time.
 
 The JAX references come from ``rgbd_slam_tpu.runner.run_frames`` on the same
@@ -181,7 +182,6 @@ import dataclasses
 import functools
 import gc
 import hashlib
-import inspect
 import json
 import math
 import os
@@ -204,8 +204,8 @@ import torch
 import torch.distributed as dist
 
 from bench_torch import hard_orbit, room_roll, tunnel_flight
-from rgbd_slam_tpu_torch import (config, dryrun, engine, runner, solve_graph, step_graph,
-                                 synthetic)
+from rgbd_slam_tpu_torch import (config, dryrun, engine, profiling, runner, solve_graph,
+                                 step_graph, synthetic)
 from rgbd_slam_tpu_torch.features import primitives
 from rgbd_slam_tpu_torch.geometry import pinhole, se3
 from rgbd_slam_tpu_torch.io import checkpoint
@@ -1624,15 +1624,6 @@ def host_sync_sites(fn):
     return sites
 
 
-def _source_line(fn, text: str) -> str:
-    """``file:line`` of the line of ``fn``'s source that holds ``text``."""
-    lines, first = inspect.getsourcelines(fn)
-    for k, line in enumerate(lines):
-        if text in line:
-            return f"{Path(inspect.getsourcefile(fn)).name}:{first + k}"
-    raise RuntimeError(f"no line with {text!r} in {fn.__name__}")
-
-
 def _bit_equal(a, b) -> bool:
     return all(torch.equal(x.contiguous().view(-1).view(torch.uint8),
                            y.contiguous().view(-1).view(torch.uint8))
@@ -1671,8 +1662,8 @@ def run_graph_phase(cam, cfg, device, frames, card):
     (kernels and device µs a frame, the busy share; the kernels' launches as
     the profiler sees them must equal the wrappers' counts); then
     ``run_frames`` over the same frames under ``set_sync_debug_mode``: every
-    host sync must be the runner's summary read or the recording's.  Returns
-    the frames/s of both."""
+    host sync must be the recording's (the runner waits for its summaries on
+    events, which are no syncs).  Returns the frames/s of both."""
     staged = runner.stage_frames(frames[:GRAPH_FRAMES], device=device)
 
     def timed(step):
@@ -1704,16 +1695,13 @@ def run_graph_phase(cam, cfg, device, frames, card):
     torch.cuda.synchronize()
     sites = host_sync_sites(lambda: runner.run_frames(staged, cam, cfg, seed=SEED,
                                                       device=device))
-    summary_read = _source_line(runner.run_frames, "for p in pending]).cpu()")
     recording = {k: v for k, v in sites.items() if k.startswith("step_graph.py")}
-    others = {k: v for k, v in sites.items() if k != summary_read and k not in recording}
-    syncs = sites.get(summary_read, 0)
+    others = {k: v for k, v in sites.items() if k not in recording}
     _say("graph", card=card, frames=len(staged), eager_ms_per_frame=eager_ms,
          graph_ms_per_frame=graph_ms, eager_fps=1e3 / eager_ms, graph_fps=1e3 / graph_ms,
          device_busy_share=replays["device_us_per_frame"] / (1e3 * graph_ms), **replays,
          warmup_and_capture_s=graph.record_s, poses_equal_to_the_bit=poses_equal,
          final_states_equal_to_the_bit=states_equal,
-         summary_read_syncs_per_frame=syncs / len(staged), summary_read_site=summary_read,
          recording_syncs=recording, other_host_syncs=others,
          fixpoint_reads=primitives.FIXPOINT_READS["components"])
     problems = []
@@ -1724,7 +1712,7 @@ def run_graph_phase(cam, cfg, device, frames, card):
         problems.append(f"launches counted {replays['launches_counted']}, profiled "
                         f"{replays['launches_profiled']} over {PROFILED_REPLAYS} replays")
     if others or primitives.FIXPOINT_READS["components"]:
-        problems.append(f"host syncs outside the summary read: {others}, fixpoint reads "
+        problems.append(f"host syncs outside the recording: {others}, fixpoint reads "
                         f"{primitives.FIXPOINT_READS['components']}")
     if problems:
         raise RuntimeError("graph phase: " + "; ".join(problems))
@@ -1908,8 +1896,10 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
     fixpoint read on the host, failed/lost frames and the ATE
     against the path's JAX reference (``reference=None``: print only), lines
     alive and matched when lines are on, the backend's counts when it is, and
-    the step graph's stamps (ten a replay, the stages summing to its span).
-    Returns (launch counts, ATE, RunStats)."""
+    the step graph's stamps (ten a replay, the stages summing to its span, and
+    every frame's own replay's stamps handed over with the frame: each replay
+    starts after the one before it ended).  Returns (launch counts, ATE,
+    RunStats)."""
     ref = JAX_REFERENCE.get(reference)
     step_s, line_matches, cylinders = [], [], []
 
@@ -1920,10 +1910,11 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
 
     reset_launches()
     primitives.FIXPOINT_READS["components"] = 0
+    timer = profiling.StageTimer(log=True)
     with traced_solves() as traced:
         state, traj, stats = runner.run_frames(
             frames, cam, cfg, with_planes=with_planes, with_lines=with_lines,
-            ba_every=ba_every, seed=SEED, device=device, on_frame=on_frame)
+            ba_every=ba_every, seed=SEED, device=device, on_frame=on_frame, trace=timer)
     launches = launch_counts()
     fixpoint_reads = primitives.FIXPOINT_READS["components"]
 
@@ -1939,6 +1930,7 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
         failed=failed, lost=stats.lost_count,
         ate_rmse_mm=ate, ate_bound_mm=ATE_MARGIN * ref["worst_ate_mm"] if ref else None,
         fps_from_frame_10=1e3 * len(steady_ms) / steady_ms.sum(),
+        summary_waits=stats.counters.get("summary_waits", 0),
         step_ms_median=float(np.median(steady_ms)),
         step_ms_p80=float(np.percentile(steady_ms, 80)), first_frame_s=step_s[0],
         points_alive=int((state.points.fid >= 0).sum()), planes_alive=planes_alive)
@@ -1971,6 +1963,11 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
     if stats.stamped_frames != stats.frame_count - 1:
         problems.append(f"{stats.stamped_frames} stamped replays of {stats.frame_count} "
                         "frames")
+    replays = [event[1] for event in timer.events if event[0] == "device"]
+    if len(replays) != stats.frame_count or any(
+            b[0] < a[-1] for a, b in zip(replays, replays[1:])):
+        problems.append(f"{len(replays)} replays' stamps handed over for {stats.frame_count} "
+                        "frames, or a replay's stamps before the replay's before it")
     stages_us = sum(stats.stage_device_us.values())
     if not (min(stats.stage_device_us.values(), default=-1) >= 0
             and math.isclose(stages_us, stats.graph_span_us, rel_tol=1e-9)):

@@ -7,6 +7,7 @@ streaming map export.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import inspect
@@ -57,9 +58,11 @@ class RunStats:
     them, without the wait for the replay before).  ``clock_offset_ns`` is the card's clock less the
     host's ``perf_counter_ns``, measured at the capture, to within
     ``clock_offset_err_ns``.  The counters hold what no other field does:
-    ``captures`` (CUDA graphs recorded), ``drains`` (batched summary reads),
-    ``device_reads.keyframes``, ``uploads`` (frame arrays copied from the
-    host) and ``clone_bytes``; the frames, refines, graph solves and the
+    ``captures`` (CUDA graphs recorded), ``summary_waits`` (frames whose
+    summary was still on its way from the card when the loop came for it, so
+    that the host waited on its event), ``device_reads.keyframes``,
+    ``uploads`` (frame arrays copied from the host) and ``clone_bytes``; the
+    frames, refines, graph solves and the
     backend's reads are ``frame_count``, ``ba_runs``, ``graph_solves`` and
     ``backend_readbacks``."""
     frame_count: int = 0
@@ -137,13 +140,30 @@ class RunStats:
                 f"fps={self.fps:.1f}")
 
 
-#: frames per batched summary read: frame 0 is read alone, then frames 1-8,
-#: 9-16, ...; keyframe and BA decisions run up to a batch late
+#: the backend's cadence, the JAX runner's batch: frame 0 forms a group alone,
+#: then frames 1-8, 9-16, ...; a refine decided at a frame runs once the step of
+#: the frame that closes its group has been issued, before the next one is
 SUMMARY_BATCH = 8
 #: float32 entries of a frame's summary before the step's stamps
 SUMMARY_WIDTH = 12
 #: what a frame source's ``next`` gives at its end
 _END = object()
+
+
+@dataclass
+class _Issued:
+    """A frame whose step has been issued and that the loop has not processed:
+    what ``_process`` takes, and its summary on the way to the host (``sent``:
+    a host tensor, or on a card a row of the page-locked ring and the event
+    behind its copy) until ``row`` holds it."""
+    i: int
+    ts: float
+    state: object
+    out: object
+    kf_obs: object
+    uploaded: bool
+    sent: object
+    row: np.ndarray | None = None
 
 
 def stage_frames(frames, chunk: int = 32, device=None):
@@ -344,10 +364,15 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
     ``on_frame`` or the map export its state and outputs) is copied out of the
     graph's buffers on the device.
 
-    The loop reads a frame's summary from the device in batches of
-    ``SUMMARY_BATCH`` frames (frame 0 alone), so ``on_frame(i, state, out, dt)``
-    and the backend run up to a batch after their frame, with ``dt`` the
-    batch's mean time a frame.  Frames that are tensors on ``device`` already
+    The loop keeps one step queued ahead of the frame it hands over: each
+    frame's summary comes back to the host by an asynchronous copy, and frame
+    ``i`` is processed (``on_frame(i, state, out, dt)``, then its keyframe gate)
+    once step ``i + 1`` has been issued, with ``dt`` the host's time since the
+    frame before was handed over; frame 0 is handed over before frame 1 is
+    pulled.  The backend keeps the JAX runner's cadence (``SUMMARY_BATCH``): a
+    refine decided at frame ``i`` waits until the step of the frame that closes
+    ``i``'s group has been issued and its summary has come back, and the frames
+    after ``i`` wait with it.  Frames that are tensors on ``device`` already
     (``stage_frames``) are taken as they are.
 
     ``camera_setup`` (a ``config.CameraSetup``) with a depth-to-RGB extrinsic
@@ -381,7 +406,7 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
     ``trace`` (default on) records the run's trace into ``RunStats``: the
     host spans and counters of the loop and of the layers under it
     (``profiling``), and on a card the step graph's device stamps, which ride
-    in each frame's summary read.  ``False`` records nothing and leaves the
+    in each frame's summary.  ``False`` records nothing and leaves the
     stamps out of the graph.  A ``profiling.StageTimer`` records into that
     recorder (made with ``log=True``, it keeps the event log for its
     ``export``).
@@ -448,7 +473,7 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                 if ba_update_map:
                     with profiling.span("backend.apply"):
                         window.apply_refinement(refined, device_lm)
-                        # the live state may be up to a batch past frame i: the
+                        # the live state may be up to a group past frame i: the
                         # scatter is guarded by feature id
                         stepper.state = _scatter_ba_landmarks(stepper.state, device_lm)
                 if ba_correct_traj and graph is None:
@@ -477,10 +502,11 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
             stats.backend_readbacks = sum(t["readbacks"] for t in moved)
 
     def _process(i, ts, frame_state, out, summary, kf_obs, dt):
-        """Consume one frame's summary: stats, trajectory, keyframes and BA.
-        ``frame_state`` is the state of the same step as ``out`` (its slots
-        align with ``out``'s records) and ``kf_obs`` its keyframe observation
-        record; each is None where nothing reads it."""
+        """Consume one frame's summary: stats, trajectory, the map export,
+        ``on_frame`` and the keyframe gate.  ``frame_state`` is the state of the
+        same step as ``out`` (its slots align with ``out``'s records) and
+        ``kf_obs`` its keyframe observation record; each is None where nothing
+        reads it.  Returns whether a refine is due at this frame."""
         nonlocal last_kf_quat, last_kf_pos
         pos_np = summary[0:3]
         quat_np = summary[3:7]
@@ -495,54 +521,107 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
         stats.lost_count += int(summary[8] > 0.5)
         traj.append(ts, pos_np, quat_np)
 
-        if window is not None and success:
-            is_kf = last_kf_quat is None
-            if not is_kf:
-                trans_mm = float(np.linalg.norm(pos_np - last_kf_pos))
-                dot = min(abs(float(np.dot(quat_np, last_kf_quat))), 1.0)
-                rot_deg = float(np.degrees(2.0 * np.arccos(dot)))
-                is_kf = trans_mm >= kf_min_trans_mm or rot_deg >= kf_min_rot_deg
-            if is_kf:
-                stats.keyframe_count += 1
-                last_kf_quat, last_kf_pos = quat_np, pos_np
-                pending_kfs.append((quat_np, pos_np, *kf_obs, ts, i))
-                if graph is not None:
-                    graph.add_keyframe(i, quat_np, pos_np)
-            if window.n_keyframes + len(pending_kfs) >= 3 and (i + 1) % ba_every == 0:
-                _refine(i)
-
         if map_writer is not None and summary[9] > 0.5:   # n_evicted
             with profiling.span("map_export"):
                 stats.map_streamed += append_dying_features(map_writer, out)
 
         if on_frame is not None:
+            # before the backend: a refine delays the frames after it, not its
+            # own, whose copies it does not touch
             with profiling.span("on_frame"):
                 on_frame(i, frame_state, out, dt)
 
-    pending = []
+        if window is None or not success:
+            return False
+        is_kf = last_kf_quat is None
+        if not is_kf:
+            trans_mm = float(np.linalg.norm(pos_np - last_kf_pos))
+            dot = min(abs(float(np.dot(quat_np, last_kf_quat))), 1.0)
+            rot_deg = float(np.degrees(2.0 * np.arccos(dot)))
+            is_kf = trans_mm >= kf_min_trans_mm or rot_deg >= kf_min_rot_deg
+        if is_kf:
+            stats.keyframe_count += 1
+            last_kf_quat, last_kf_pos = quat_np, pos_np
+            pending_kfs.append((quat_np, pos_np, *kf_obs, ts, i))
+            if graph is not None:
+                graph.add_keyframe(i, quat_np, pos_np)
+        return window.n_keyframes + len(pending_kfs) >= 3 and (i + 1) % ba_every == 0
+
+    issued = collections.deque()   # frames whose step is issued, not yet processed
+    held = None        # (frame, the frame that closes its group): a refine due, not yet run
+    ring = []          # on a card, (page-locked row, event) pairs the summaries come back in
     t_prev = time.perf_counter()
     last_stamp = None     # the last stamp of the replay before
     clone_bytes = None    # what a frame's copies out of the graph's buffers hold
 
-    def _drain():
-        nonlocal t_prev
-        if not pending:
-            return
-        with profiling.span("drain"):
-            with profiling.span("drain.read"):
-                raw = torch.stack([p[4] for p in pending]).cpu().numpy()
-            profiling.count("drains")
-            now = time.perf_counter()
-            per_frame = (now - t_prev) / len(pending)
-            t_prev = now
-            with profiling.span("drain.process"):
-                batch, stamps = _split_summaries(raw)
-                for k, (row, (pi, pts_, pstate, pout, _, kf_obs, up)) in enumerate(
-                        zip(batch, pending)):
+    def _send(i, summary):
+        """Start frame ``i``'s summary towards the host: on a card an
+        asynchronous copy into a row of the page-locked ring with an event
+        recorded behind it; elsewhere it is on the host already.  A held refine
+        keeps at most ``SUMMARY_BATCH`` frames unprocessed, so a row of the
+        ring's ``SUMMARY_BATCH + 1`` is written again only after its frame has
+        been received."""
+        if summary.device.type != "cuda":
+            return summary
+        if not ring:
+            rows = torch.empty((SUMMARY_BATCH + 1, summary.numel()), dtype=summary.dtype,
+                               pin_memory=True)
+            ring.extend((row, torch.cuda.Event()) for row in rows)
+        row, event = ring[i % len(ring)]
+        row.copy_(summary, non_blocking=True)
+        event.record()
+        return row, event
+
+    def _receive(frame):
+        """``frame``'s summary row on the host; where its copy is still under
+        way, the host waits on its event (``summary_waits``), which leaves the
+        steps queued behind it running."""
+        if frame.row is None:
+            with profiling.span("deliver.wait"):
+                if isinstance(frame.sent, torch.Tensor):
+                    frame.row = frame.sent.numpy()
+                else:
+                    row, event = frame.sent
+                    if not event.query():
+                        profiling.count("summary_waits")
+                        event.synchronize()
+                    frame.row = row.numpy().copy()
+            frame.sent = None
+        return frame.row
+
+    def _deliver(j, end=False):
+        """Process the issued frames in order once frame ``j``'s step has been
+        issued: those before ``j``, and ``j`` itself where it is frame 0 or
+        closes its group with a refine possibly due at it (the refine must
+        write back before the next step); at the ``end``, every one.  A refine
+        due at a frame runs once the frame that closes its group (at the
+        ``end``, the last frame) has been issued and received, and the frames
+        after it wait with it."""
+        nonlocal held, t_prev
+        closes = window is not None and j % SUMMARY_BATCH == 0 and (j + 1) % ba_every == 0
+        bound = j + 1 if end or j == 0 or closes else j
+        while True:
+            if held is not None:
+                if held[1] > j and not end:
+                    return
+                if issued:
+                    _receive(issued[-1])   # the frame that closes the group
+                _refine(held[0])
+                held = None
+            if not issued or issued[0].i >= bound:
+                return
+            frame = issued.popleft()
+            with profiling.span("deliver"):
+                row = _receive(frame)
+                now = time.perf_counter()
+                dt, t_prev = now - t_prev, now
+                with profiling.span("deliver.process"):
+                    summary, stamps = _split_summaries(row[None])
                     if stamps is not None:
-                        _read_stamps(pi, stamps[k], up)
-                    _process(pi, pts_, pstate, pout, row, kf_obs, per_frame)
-            pending.clear()
+                        _read_stamps(frame.i, stamps[0], frame.uploaded)
+                    if _process(frame.i, frame.ts, frame.state, frame.out, summary[0],
+                                frame.kf_obs, dt):
+                        held = frame.i, -(-frame.i // SUMMARY_BATCH) * SUMMARY_BATCH
 
     def _read_stamps(i, stamps, uploaded):
         nonlocal last_stamp
@@ -598,14 +677,13 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                 with profiling.span("frame.pack"):
                     kf_obs = (_pack_keyframe_obs(out, frame_state.points.pos)
                               if window is not None else None)
-                    summary = _pack_summary(out, stamps)
+                    sent = _send(i, _pack_summary(out, stamps))
                 if stepper.reuses_outputs:
                     # the next replay overwrites both: keep copies where they are read
                     frame_state, out = _keep(frame_state, out)
-                pending.append((i, ts, frame_state, out, summary, kf_obs, uploaded))
-                if i == 0 or len(pending) >= SUMMARY_BATCH:
-                    _drain()
-            _drain()
+                issued.append(_Issued(i, ts, frame_state, out, kf_obs, uploaded, sent))
+                _deliver(i)
+            _deliver(i - 1, end=True)   # i: the frames' count
             if map_writer is not None:
                 with profiling.span("map_export"):
                     stats.map_alive_at_end = append_alive_features(map_writer, stepper.state,

@@ -166,8 +166,8 @@ def _refuse(*_args, **_kw):
 def test_export_is_chrome_json_with_the_offset_applied(clock, tmp_path):
     timer = profiling.StageTimer(log=True)
     clock.extend([1_000, 1_500, 2_000])
-    with timer.stage("drain"):
-        timer.count("drains")
+    with timer.stage("deliver"):
+        timer.count("summary_waits")
     # the card's clock 10 s ahead of the host's
     offset = 10_000_000_000
     stamps = offset + np.array([1_100, 1_200, 1_250, 1_300, 1_400, 1_500, 1_600, 1_700,
@@ -180,13 +180,13 @@ def test_export_is_chrome_json_with_the_offset_applied(clock, tmp_path):
     spans = [e for e in events if e["ph"] == "X" and e["tid"] == 1]
     device = [e for e in events if e["ph"] == "X" and e["tid"] == 2]
     counters = [e for e in events if e["ph"] == "C"]
-    assert spans == [{"name": "drain", "ph": "X", "pid": 1, "tid": 1, "ts": 1.0, "dur": 1.0,
+    assert spans == [{"name": "deliver", "ph": "X", "pid": 1, "tid": 1, "ts": 1.0, "dur": 1.0,
                       "args": {"parent": None}}]
     assert [e["name"] for e in device] == list(profiling.STAGES)
     assert device[0]["ts"] == pytest.approx(1.1) and device[0]["dur"] == pytest.approx(0.1)
     assert device[-1]["ts"] + device[-1]["dur"] == pytest.approx(1.9)
-    assert counters == [{"name": "drains", "ph": "C", "pid": 1, "ts": 1.5,
-                         "args": {"drains": 1}}]
+    assert counters == [{"name": "summary_waits", "ph": "C", "pid": 1, "ts": 1.5,
+                         "args": {"summary_waits": 1}}]
     assert trace["otherData"] == {"dropped": 0}
     assert {e["args"]["name"] for e in events if e["ph"] == "M"} >= {"host"}
     with pytest.raises(ValueError, match="log=True"):
@@ -238,14 +238,14 @@ def test_trace_false_records_nothing(frames):
     # on the CPU the step is eager: spans and counters, no stamps
     assert on.stage_device_us == {} and on.stamped_frames == 0
     # a frame, a refine, a solve and a backend read are counted in RunStats'
-    # own fields, not again among the counters; frames on the CPU upload nothing
-    assert on.counters == {"drains": 2} and on.frame_count == 5
+    # own fields, not again among the counters; frames on the CPU upload nothing,
+    # and their summaries are on the host already, so no frame waits for one
+    assert on.counters == {} and on.frame_count == 5
     assert on.upload_frames == 0 and on.upload_device_us == 0.0
-    for name in ("frame.pull", "frame.upload", "frame.pack", "drain", "drain.read",
-                 "drain.process"):
-        assert on.spans[name]["count"] == {"frame.pull": 6, "drain": 2, "drain.read": 2,
-                                           "drain.process": 2}.get(name, 5), name
-    assert on.spans["drain"]["self_s"] <= on.spans["drain"]["total_s"]
+    for name in ("frame.pull", "frame.upload", "frame.pack", "deliver", "deliver.wait",
+                 "deliver.process"):
+        assert on.spans[name]["count"] == {"frame.pull": 6}.get(name, 5), name
+    assert on.spans["deliver"]["self_s"] <= on.spans["deliver"]["total_s"]
     assert json.dumps(dataclasses.asdict(on))     # the CLI's report takes it as it is
 
 
@@ -422,9 +422,11 @@ def test_cli_trace_out_writes_a_chrome_trace(tmp_path, capsys):
     assert f"trace -> {path}" in capsys.readouterr().out
     events = json.loads(path.read_text())["traceEvents"]
     names = {e["name"] for e in events if e["ph"] == "X"}
-    assert {"frame.pull", "frame.upload", "frame.pack", "drain", "drain.read"} <= names
+    assert {"frame.pull", "frame.upload", "frame.pack", "deliver", "deliver.wait"} <= names
     assert sum(e["name"] == "frame.upload" for e in events) == 3
-    assert [e["args"]["drains"] for e in events if e["name"] == "drains"] == [1, 2]
+    assert sum(e["name"] == "deliver" for e in events) == 3
+    # the CPU's summaries are on the host already: no frame waits for one
+    assert not [e for e in events if e["name"] == "summary_waits"]
 
 
 # ---------------------------------------------------------------------------

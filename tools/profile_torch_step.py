@@ -19,8 +19,8 @@ counts, device syncs and host reads per frame, and ``pose_opt``'s device time
 and kernels split into the hypotheses' LM, P3P, scoring and the refit with its
 Monte-Carlo covariance (``POSE_STAGES``; the two LM ranges hold the LM's
 preparation and packing, and the LM kernels themselves, which the profiler
-charges to no range, are ``lm_kernels``: ``OWN_KERNELS``).  Eight more frames (one batch
-of the runner's summary reads) run under ``torch.cuda.set_sync_debug_mode`` to
+charges to no range, are ``lm_kernels``: ``OWN_KERNELS``).  Eight more frames (one group
+of the backend's cadence, ``runner.SUMMARY_BATCH``) run under ``torch.cuda.set_sync_debug_mode`` to
 name the package line of every host sync.  With planes on, ``PRIMITIVE_FRAMES``
 more frames run under the profiler with every op of ``find_primitives`` in a
 range of its part (``PRIMITIVE_STAGES``: cells, components, regions,
@@ -512,8 +512,8 @@ def main() -> int:
         cfg.mapping, max_tracked_points=args.tracked))
     with_planes = not args.no_planes
     run_kw = dict(with_planes=with_planes, with_lines=args.lines, ba_every=args.ba_every)
-    # the sync sites are found over one more batch of summary reads, and the
-    # parts of plane_extract over PRIMITIVE_FRAMES more
+    # the sync sites are found over one more group of the backend's cadence,
+    # and the parts of plane_extract over PRIMITIVE_FRAMES more
     n_sync = runner.SUMMARY_BATCH
     n_prim = PRIMITIVE_FRAMES if with_planes else 0
     if args.stripe_wall:
