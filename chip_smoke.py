@@ -1888,6 +1888,18 @@ def run_backend_graph_phase(cam, device, card):
         graphs[0].close()
 
 
+def replay_order_problems(events, frames: int) -> list[str]:
+    """The run's event log against its frames: one device entry
+    (``("device", stages, stamps)``, ``profiling.StageTimer.device_stages``) a
+    frame, each replay's first stamp no earlier than the last of the replay
+    before it.  Returns the problems found."""
+    replays = [event[2] for event in events if event[0] == "device"]
+    if len(replays) != frames or any(b[0] < a[-1] for a, b in zip(replays, replays[1:])):
+        return [f"{len(replays)} replays' stamps handed over for {frames} frames, or a "
+                "replay's stamps before the replay's before it"]
+    return []
+
+
 def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=True,
              with_lines=False, ba_every=None, reference=None):
     """Drive ``runner.run_frames`` over ``frames`` with the launch counts set to 0
@@ -1963,11 +1975,7 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
     if stats.stamped_frames != stats.frame_count - 1:
         problems.append(f"{stats.stamped_frames} stamped replays of {stats.frame_count} "
                         "frames")
-    replays = [event[1] for event in timer.events if event[0] == "device"]
-    if len(replays) != stats.frame_count or any(
-            b[0] < a[-1] for a, b in zip(replays, replays[1:])):
-        problems.append(f"{len(replays)} replays' stamps handed over for {stats.frame_count} "
-                        "frames, or a replay's stamps before the replay's before it")
+    problems += replay_order_problems(timer.events, stats.frame_count)
     stages_us = sum(stats.stage_device_us.values())
     if not (min(stats.stage_device_us.values(), default=-1) >= 0
             and math.isclose(stages_us, stats.graph_span_us, rel_tol=1e-9)):

@@ -624,8 +624,12 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
     q_obs_depth_ok = pinhole.is_depth_valid(q_obs_z, cfg.engine.min_depth_mm,
                                             cfg.engine.max_depth_mm)
 
-    # lines: detection, endpoint depths and matching at the predicted pose
+    # lines: detection, endpoint depths and matching at the predicted pose, in
+    # sections of their own (``profiling.stages``): the tile pass through the
+    # reach closure ends at ``line_tiles`` (in ``detect_lines``), the rest at
+    # ``lines``; with lines off ``associate`` ends here
     if with_lines:
+        profiling.stamp("associate")
         line_obs = _observe_lines(gray, depth, cfg)
         n_lines = i32(line_obs.det.valid.sum())
         l_match_idx, _, _ = _match_lines(state.lines, line_obs.det, w2c, cam, cfg)
@@ -633,7 +637,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
         n_lines = full((), 0, torch.int32)
         l_match_idx = full((ml,), -1, torch.int32)
     l_matched = l_match_idx >= 0
-    profiling.stamp("associate")
+    profiling.stamp("lines" if with_lines else "associate")
 
     # planes + cylinders (cylinders surface only in the step output)
     n_grid_cells = (cam.height // det_cfg.depth_patch_size_px) \

@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import profiling
 from ..ops.image import gradients
 
 MAX_LINES = 32
@@ -202,6 +203,9 @@ def detect_lines(gray, mag_threshold: float = 15.0, min_edge_frac: float = 0.06,
     # see the module docstring: the closure rows are the seeds' growth only
     # while every consumed set is forward-closed
     reach = _reach_closure(edges, shifts, gh, gw) if min_tiles <= 2 else None
+    # the end of the step's section ``line_tiles``: gradients, tiles, edges and
+    # the closure (a stamp node under a recorded capture, else nothing)
+    profiling.stamp("line_tiles")
 
     # the seeds in turn: each takes the heaviest available line tile and
     # consumes what it reaches (or itself alone when that is under min_tiles)

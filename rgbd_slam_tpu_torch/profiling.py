@@ -19,7 +19,7 @@ count with :func:`count` without being handed it; with no active recorder both
 do nothing.
 
 The step's device stamps: :func:`stamp` is called at ``engine.step``'s section
-boundaries, in the order of ``STAMPS``.  It does nothing unless a
+boundaries, in the order of the path's :func:`stamps`.  It does nothing unless a
 ``step_graph.StepGraph`` capture with an active recorder is under way
 (:func:`stamping`); there each call records a node into the graph that writes
 the card's ``%globaltimer`` (ns) into the next slot of the graph's stamp buffer.
@@ -35,12 +35,33 @@ from collections import defaultdict
 
 import torch
 
-#: the step's stages in their order; each ends at a stamp of its name
-#: (``commit``: ``StepGraph._commit``'s copies into the static state)
+#: the step's stages in their order with lines off; each ends at a stamp of its
+#: name (``commit``: ``StepGraph._commit``'s copies into the static state).  With
+#: planes off ``plane_extract`` stays, and holds only the empty plane rows
 STAGES = ("flow", "detect", "associate", "plane_extract", "pose_opt", "map_update",
           "insert", "next_track", "commit")
-#: the stamps of one replay: its start, then the end of each stage
-STAMPS = ("start",) + STAGES
+#: the line path's own sections, after ``associate``: the tile pass through the
+#: reach closure (``features.lines.detect_lines``), then the seeds, the
+#: segments, the endpoint depths and the matching to the line map
+LINE_STAGES = ("line_tiles", "lines")
+
+
+def stages(with_lines: bool) -> tuple:
+    """The step's stages on a path, in their order: ``STAGES``, and with lines
+    on ``LINE_STAGES`` after ``associate``.  Planes keep their section either
+    way, so the path's lines alone set the list."""
+    if not with_lines:
+        return STAGES
+    k = STAGES.index("associate") + 1
+    return STAGES[:k] + LINE_STAGES + STAGES[k:]
+
+
+def stamps(with_lines: bool) -> tuple:
+    """The stamps of one replay on a path: its start, then the end of each of
+    :func:`stages`."""
+    return ("start",) + stages(with_lines)
+
+
 #: entries the event log holds; later ones are counted in ``dropped``
 LOG_LIMIT = 1_000_000
 
@@ -138,12 +159,13 @@ class StageTimer:
         if self.events is not None:
             self._log(("counter", name, time.perf_counter_ns(), self.counters[name]))
 
-    def device_stages(self, stamps, offset_ns: int):
-        """One replay's stamps (``STAMPS``, ns of the card's ``%globaltimer``)
-        into the event log, as stages on the host clock: ``offset_ns`` is the
-        card's clock less ``time.perf_counter_ns``."""
+    def device_stages(self, names, stamps, offset_ns: int):
+        """One replay's stamps (ns of the card's ``%globaltimer``) of the
+        stages ``names`` (the path's :func:`stages`) into the event log, as
+        stages on the host clock: ``offset_ns`` is the card's clock less
+        ``time.perf_counter_ns``."""
         if self.events is not None:
-            self._log(("device", [int(t) - offset_ns for t in stamps]))
+            self._log(("device", names, [int(t) - offset_ns for t in stamps]))
 
     def _log(self, entry):
         if len(self.events) < LOG_LIMIT:
@@ -176,8 +198,8 @@ class StageTimer:
                 out.append({"name": name, "ph": "X", "pid": pid, "tid": 1, "ts": 1e-3 * start,
                             "dur": 1e-3 * (end - start), "args": {"parent": parent}})
             elif kind == "device":
-                times = entry[1]
-                for stage, start, end in zip(STAGES, times, times[1:]):
+                _, names, times = entry
+                for stage, start, end in zip(names, times, times[1:]):
                     out.append({"name": stage, "ph": "X", "pid": pid, "tid": 2,
                                 "ts": 1e-3 * start, "dur": 1e-3 * (end - start)})
             else:
@@ -243,7 +265,7 @@ def stamping(stamper):
 
 
 def stamp(name: str):
-    """The end of the step's section ``name`` (``STAMPS``): a stamp node in the
+    """The end of the step's section ``name`` (:func:`stamps`): a stamp node in the
     step graph under capture, and nothing anywhere else."""
     stamper = _stamper.get()
     if stamper is not None:

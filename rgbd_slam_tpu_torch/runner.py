@@ -48,8 +48,8 @@ class RunStats:
     span and ``counters`` {name: count} (``profiling.StageTimer``); and, where
     the step runs as a CUDA graph, its device stamps over the frames past the
     first, as µs summed over ``stamped_frames`` replays: each stage
-    (``stage_device_us``, ``profiling.STAGES``), a replay from its first stamp
-    to its last (``graph_span_us``), and from the last stamp of the replay
+    (``stage_device_us``, the path's ``profiling.stages``), a replay from its
+    first stamp to its last (``graph_span_us``), and from the last stamp of the replay
     before to its first (``replay_gap_us``: what the card spends between
     replays, idle or on other work).  Where a frame crosses from the host to
     the card, ``upload_device_us`` sums, over ``upload_frames`` frames, the
@@ -91,6 +91,11 @@ class RunStats:
     # features the streamed map export wrote when they died, and at the end
     map_streamed: int = 0
     map_alive_at_end: int = 0
+    # line segments detected and line matches kept (RANSAC inliers of tracked
+    # frames), summed over the frames; lines alive in the map after the last
+    lines_detected: int = 0
+    line_matches: int = 0
+    lines_alive: int = 0
     # the run's trace
     spans: dict = field(default_factory=dict)
     counters: dict = field(default_factory=dict)
@@ -145,7 +150,7 @@ class RunStats:
 #: the frame that closes its group has been issued, before the next one is
 SUMMARY_BATCH = 8
 #: float32 entries of a frame's summary before the step's stamps
-SUMMARY_WIDTH = 12
+SUMMARY_WIDTH = 15
 #: what a frame source's ``next`` gives at its end
 _END = object()
 
@@ -197,14 +202,16 @@ def stage_frames(frames, chunk: int = 32, device=None):
 def _pack_summary(out: engine.StepOutput, stamps=None):
     """Everything the frame loop reads every frame, as one float32 tensor:
     position, quaternion, success, is_lost, n_evicted, n_plane_merge_dropped,
-    n_point_inliers (``SUMMARY_WIDTH``), then the int64 ``stamps`` of the
-    step's graph, if given, as their bit patterns (two entries a stamp), so
-    that they reach the host in the summary's read and keep every ns."""
+    n_point_inliers (the JAX runner's summary), n_lines, n_line_matches,
+    n_lines_alive (``SUMMARY_WIDTH``), then the int64 ``stamps`` of the step's
+    graph, if given, as their bit patterns (two entries a stamp), so that they
+    reach the host in the summary's read and keep every ns."""
     f32 = torch.float32
     parts = [out.position.to(f32), out.quat.to(f32),
              torch.stack([out.success.to(f32), out.is_lost.to(f32),
                           out.n_evicted.to(f32), out.n_plane_merge_dropped.to(f32),
-                          out.n_point_inliers.to(f32)])]
+                          out.n_point_inliers.to(f32), out.n_lines.to(f32),
+                          out.n_line_matches.to(f32), out.n_lines_alive.to(f32)])]
     if stamps is not None:
         parts.append(stamps.view(f32))
     return torch.cat(parts)
@@ -219,20 +226,21 @@ def _split_summaries(raw: np.ndarray):
     return rows, np.ascontiguousarray(raw[:, SUMMARY_WIDTH:]).view(np.int64)
 
 
-def _add_stamps(stats: RunStats, stamps, last_end, uploaded: bool = False):
-    """Add one replay's stamps (``profiling.STAMPS``, ns of the card's clock) to
-    the device sums of ``stats``, and with ``uploaded`` its frame's upload
-    (``step_graph.UPLOAD_SLOTS``).  ``last_end`` is the replay before's last
-    stamp; None for a sequence's first frame, which is left out (its capture
-    runs before it).  Returns this replay's last stamp."""
-    times = [int(t) for t in stamps[:len(profiling.STAMPS)]]
-    if uploaded:
-        start, end = (int(stamps[k]) for k in step_graph.UPLOAD_SLOTS)
+def _add_stamps(stats: RunStats, names, stamps, last_end, upload_slots=None):
+    """Add one replay's stamps (``names``: the path's ``profiling.stamps``, ns
+    of the card's clock) to the device sums of ``stats``, each stage by its
+    name, and with ``upload_slots`` (``step_graph.stamp_slots``) its frame's
+    upload.  ``last_end`` is the replay before's last stamp; None for a
+    sequence's first frame, which is left out (its capture runs before it).
+    Returns this replay's last stamp."""
+    times = [int(t) for t in stamps[:len(names)]]
+    if upload_slots is not None:
+        start, end = (int(stamps[k]) for k in upload_slots)
         stats.upload_device_us += 1e-3 * (end - start)
         stats.upload_frames += 1
     if last_end is not None:
         sums = stats.stage_device_us
-        for stage, start, end in zip(profiling.STAGES, times, times[1:]):
+        for stage, start, end in zip(names[1:], times, times[1:]):
             sums[stage] = sums.get(stage, 0.0) + 1e-3 * (end - start)
         stats.graph_span_us += 1e-3 * (times[-1] - times[0])
         stats.replay_gap_us += 1e-3 * (times[0] - last_end)
@@ -519,6 +527,9 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
             stats.warmup_steps = stepper.warmup_steps
         stats.success_count += int(success)
         stats.lost_count += int(summary[8] > 0.5)
+        stats.lines_detected += int(summary[12])
+        stats.line_matches += int(summary[13])
+        stats.lines_alive = int(summary[14])
         traj.append(ts, pos_np, quat_np)
 
         if map_writer is not None and summary[9] > 0.5:   # n_evicted
@@ -627,10 +638,12 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
         nonlocal last_stamp
         if i == 0:
             before, after = stepper.clock_bracket
-            stats.clock_offset_ns = int(stamps[step_graph.OFFSET_SLOT]) - (before + after) // 2
+            stats.clock_offset_ns = int(stamps[stepper.offset_slot]) - (before + after) // 2
             stats.clock_offset_err_ns = (after - before + 1) // 2
-        last_stamp = _add_stamps(stats, stamps, last_stamp, uploaded)
-        timer.device_stages(stamps[:len(profiling.STAMPS)], stats.clock_offset_ns)
+        names = stepper.stamp_names
+        last_stamp = _add_stamps(stats, names, stamps, last_stamp,
+                                 stepper.upload_slots if uploaded else None)
+        timer.device_stages(names[1:], stamps[:len(names)], stats.clock_offset_ns)
 
     def _keep(frame_state, out):
         """Copies of what the next replay overwrites, where they are read."""
@@ -665,12 +678,12 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                     uploaded = stamps is not None and (_on_host(gray, device)
                                                        or _on_host(depth, device))
                     if uploaded:
-                        stamps_cuda.stamp(stamps, step_graph.UPLOAD_SLOTS[0])
+                        stamps_cuda.stamp(stamps, stepper.upload_slots[0])
                     gray, depth = _upload(gray, device), _upload(depth, device)
                     if rectify is not None:
                         depth = rectify(depth)
                     if uploaded:
-                        stamps_cuda.stamp(stamps, step_graph.UPLOAD_SLOTS[1])
+                        stamps_cuda.stamp(stamps, stepper.upload_slots[1])
                 frame_state, out = stepper.step(gray, depth)
                 if i == 0 and timer is not None:
                     stamps = getattr(stepper, "stamps", None)

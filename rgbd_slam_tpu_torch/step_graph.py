@@ -28,12 +28,13 @@ recorded.
   again on every replay.
 * Stamps: recorded while a ``profiling`` recorder is active (``run_frames``'
   ``trace``), the graph holds one stamp node at the start of the step and one
-  at the end of each stage (``profiling.STAMPS``), each writing the card's
-  clock into its slot of ``stamps``; a replay overwrites them.  Before the
-  capture one stamp between two host clock reads gives the card's clock
-  against the host's (``clock_bracket``, into ``OFFSET_SLOT``).  The runner
-  stamps a frame's upload from the host into ``UPLOAD_SLOTS``.  The stamps
-  write only their own buffer.
+  at the end of each stage of its path (``profiling.stamps(with_lines)``),
+  each writing the card's clock into its slot of ``stamps``; a replay
+  overwrites them.  Before the capture one stamp between two host clock reads
+  gives the card's clock against the host's (``clock_bracket``, into the
+  path's offset slot, :func:`stamp_slots`).  The runner stamps a frame's
+  upload from the host into the path's two upload slots.  The stamps write
+  only their own buffer.
 
 :func:`stepper` gives the runner a :class:`StepGraph` on a card and an
 :class:`EagerStep` (``engine.step`` as it is) on the CPU.
@@ -51,13 +52,18 @@ from .ops import cells_cuda, components_cuda, cylinders_cuda, lk_cuda, lm_cuda, 
 
 #: eager steps (on a copy of the state) before the step is recorded
 WARMUP_STEPS = 1
-#: the stamp buffer's last slots: the stamp taken between two host clock reads,
-#: then the two that the runner takes before and after a frame's upload
-OFFSET_SLOT = len(profiling.STAMPS)
-UPLOAD_SLOTS = (OFFSET_SLOT + 1, OFFSET_SLOT + 2)
 #: the launch counts of the kernels a step can launch
 _COUNTERS = (lk_cuda.LAUNCHES, components_cuda.LAUNCHES, cells_cuda.LAUNCHES,
              cylinders_cuda.LAUNCHES, lm_cuda.LAUNCHES)
+
+
+def stamp_slots(with_lines: bool) -> tuple[int, tuple[int, int]]:
+    """The last slots of a path's stamp buffer, after the replay's stamps
+    (``profiling.stamps(with_lines)``): the stamp taken between two host clock
+    reads, then the two that the runner takes before and after a frame's
+    upload.  Returns (that offset slot, the two upload slots)."""
+    offset = len(profiling.stamps(with_lines))
+    return offset, (offset + 1, offset + 2)
 
 
 def tree_map(fn, tree):
@@ -161,10 +167,14 @@ class StepGraph:
         #: the capture took
         self.warmup_steps = 0
         self.record_s = 0.0
-        #: with a recorder at the capture: the replay's stamps (int64 [13] ns on
-        #: the card's clock, ``profiling.STAMPS``, ``OFFSET_SLOT`` and
-        #: ``UPLOAD_SLOTS``), and the host's ``perf_counter_ns`` before and after
-        #: the stamp in ``OFFSET_SLOT``
+        #: the stamps of the path's replay, and its buffer's last slots
+        #: (:func:`stamp_slots`)
+        self.stamp_names = profiling.stamps(with_lines)
+        self.offset_slot, self.upload_slots = stamp_slots(with_lines)
+        #: with a recorder at the capture: the replay's stamps (int64 ns on the
+        #: card's clock, ``stamp_names`` then the offset and upload slots: 13
+        #: with lines off, 15 with lines on), and the host's ``perf_counter_ns``
+        #: before and after the stamp in the offset slot
         self.stamps = None
         self.clock_bracket = None
 
@@ -234,7 +244,8 @@ class StepGraph:
         self._draws = tree_map(torch.empty_like, draws)
         stamper = None
         if profiling.active() is not None:
-            self.stamps = torch.zeros(UPLOAD_SLOTS[-1] + 1, dtype=torch.int64, device=device)
+            self.stamps = torch.zeros(self.upload_slots[-1] + 1, dtype=torch.int64,
+                                      device=device)
             self.clock_bracket = self._read_clocks(device)
             stamper = _Stamper(self.stamps)
         graph = torch.cuda.CUDAGraph()
@@ -242,21 +253,21 @@ class StepGraph:
             self._out, self._launches = capture(graph, lambda: self._commit(*engine.step(
                 self._state, *self._frame, cam, cfg, with_planes=with_planes,
                 with_lines=with_lines, draws=self._draws)))
-        if stamper is not None and tuple(stamper.names) != profiling.STAMPS:
-            raise RuntimeError(f"the step stamped {stamper.names}, not {profiling.STAMPS}")
+        if stamper is not None and tuple(stamper.names) != self.stamp_names:
+            raise RuntimeError(f"the step stamped {stamper.names}, not {self.stamp_names}")
         self._graph = graph
         profiling.count("captures")
         self.record_s = time.perf_counter() - t0
 
     def _read_clocks(self, device):
-        """One stamp into ``OFFSET_SLOT`` between two host clock reads, the card
+        """One stamp into the offset slot between two host clock reads, the card
         drained before and after (a first stamp, unread, loads the kernel).
         Returns the host's ``perf_counter_ns`` (before, after); the stamp stays
         in the slot, for the runner's read with the first frame's summary."""
-        stamps_cuda.stamp(self.stamps, OFFSET_SLOT)
+        stamps_cuda.stamp(self.stamps, self.offset_slot)
         torch.cuda.synchronize(device)
         before = time.perf_counter_ns()
-        stamps_cuda.stamp(self.stamps, OFFSET_SLOT)
+        stamps_cuda.stamp(self.stamps, self.offset_slot)
         torch.cuda.synchronize(device)
         return before, time.perf_counter_ns()
 

@@ -20,7 +20,8 @@ import torch
 
 from rgbd_slam_tpu_torch import cli, config, engine, profiling, runner, step_graph
 from rgbd_slam_tpu_torch.ops import stamps_cuda
-from rgbd_slam_tpu_torch.synthetic import RoomScene, lateral_trajectory, orbit_trajectory
+from rgbd_slam_tpu_torch.synthetic import (RoomScene, StripeWallScene, lateral_trajectory,
+                                           orbit_trajectory)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -37,6 +38,9 @@ CFG = config.SlamConfig(
                                  max_lines=4, max_tracked_points=64),
     engine=config.EngineConfig(pose_covariance_mc_iterations=16, ransac_hypothesis_batch=16,
                                p3p_hypothesis_batch=8))
+#: the four on/off paths of planes and lines
+PATHS = [(True, False), (False, False), (True, True), (False, True)]
+PATH_IDS = ["planes", "points", "lines", "points_lines"]
 #: the readers this trace feeds, and what each reads of ``RunStats``
 STAGE_READERS = {f"graph_{s}_us": s for s in profiling.STAGES}
 READERS = ["graph_span_us", "replay_gap_us", *STAGE_READERS, "upload_us", "backend_us"]
@@ -172,7 +176,7 @@ def test_export_is_chrome_json_with_the_offset_applied(clock, tmp_path):
     offset = 10_000_000_000
     stamps = offset + np.array([1_100, 1_200, 1_250, 1_300, 1_400, 1_500, 1_600, 1_700,
                                 1_800, 1_900])
-    timer.device_stages(stamps, offset)
+    timer.device_stages(profiling.STAGES, stamps, offset)
     path = tmp_path / "trace.json"
     timer.export(str(path))
     trace = json.loads(path.read_text())
@@ -193,28 +197,67 @@ def test_export_is_chrome_json_with_the_offset_applied(clock, tmp_path):
         profiling.StageTimer().export(str(path))
 
 
+@pytest.mark.parametrize("second_start, frames, found", [
+    (2_000, 2, False), (1_050, 2, True), (2_000, 3, True)],
+    ids=["in_order", "out_of_order", "a_replay_missing"])
+def test_the_smoke_test_holds_the_logged_replays_in_order(clock, second_start, frames,
+                                                          found):
+    """``chip_smoke.py``'s check of the event log reads each device entry's
+    stamps, not its stage names: a replay whose first stamp lies before the
+    last of the replay before, or a frame with no replay, is a problem."""
+    timer = profiling.StageTimer(log=True)
+    stages = profiling.stages(True)
+    for start in (1_000, second_start):
+        timer.device_stages(stages, start + 10 * np.arange(len(stages) + 1), 0)
+    assert bool(chip_smoke.replay_order_problems(timer.events, frames)) is found
+
+
 # ---------------------------------------------------------------------------
 # the step's stamp hooks
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("with_planes, with_lines", [(True, False), (False, False),
-                                                     (True, True)],
-                         ids=["planes", "points", "lines"])
+@pytest.mark.parametrize("with_planes, with_lines", PATHS, ids=PATH_IDS)
 def test_the_step_stamps_each_stage_in_order(frames, with_planes, with_lines, monkeypatch):
     """Under a capture's stamper, ``engine.step`` calls the hook at the start
-    and at the end of each of its stages, in ``STAMPS``' order (``commit`` is
-    ``StepGraph._commit``'s); outside one it launches no stamp."""
+    and at the end of each of its stages, in the order of the path's
+    ``profiling.stamps`` (``commit`` is ``StepGraph._commit``'s); outside one
+    it launches no stamp."""
     monkeypatch.setattr(stamps_cuda, "stamp", _refuse)
     state = engine.init_state(CAM, CFG, seed=0, device="cpu")
     called = []
     with profiling.stamping(called.append):
         state, _ = engine.step(state, *map(torch.as_tensor, frames[0]), CAM, CFG,
                                with_planes=with_planes, with_lines=with_lines)
-    assert tuple(called) == profiling.STAMPS[:-1]
+    assert tuple(called) == profiling.stamps(with_lines)[:-1]
     with profiling.recording(profiling.StageTimer()):
         engine.step(state, *map(torch.as_tensor, frames[1]), CAM, CFG,
                     with_planes=with_planes, with_lines=with_lines)
-    assert len(called) == len(profiling.STAMPS) - 1
+    assert len(called) == len(profiling.stamps(with_lines)) - 1
+
+
+#: the stamps and the offset slot of the tree before the line sections: every
+#: path with lines off keeps them
+LINES_OFF_STAMPS = ("start", "flow", "detect", "associate", "plane_extract", "pose_opt",
+                    "map_update", "insert", "next_track", "commit")
+LINES_OFF_OFFSET_SLOT = 10
+
+
+@pytest.mark.parametrize("with_planes, with_lines", PATHS, ids=PATH_IDS)
+def test_each_path_has_its_stage_list_and_stamp_slots(with_planes, with_lines):
+    """A path's stamps are its start and its stages; with lines off they are
+    the stamps of the tree before the line sections, and with lines on the
+    two line sections follow ``associate``.  The stamp buffer's offset slot
+    and its two upload slots follow the path's stamps."""
+    names = profiling.stamps(with_lines)
+    assert names == ("start",) + profiling.stages(with_lines)
+    if with_lines:
+        assert names == LINES_OFF_STAMPS[:4] + ("line_tiles", "lines") + LINES_OFF_STAMPS[4:]
+    else:
+        assert names == LINES_OFF_STAMPS and profiling.stages(with_lines) == profiling.STAGES
+    offset, upload = step_graph.stamp_slots(with_lines)
+    assert offset == len(names) and upload == (offset + 1, offset + 2)
+    if not with_lines:
+        assert offset == LINES_OFF_OFFSET_SLOT
 
 
 def test_stamps_cuda_takes_an_int64_buffer_on_a_card_only():
@@ -251,45 +294,66 @@ def test_trace_false_records_nothing(frames):
 
 class StampedStep(step_graph.EagerStep):
     """``engine.step`` with a stamp buffer as ``StepGraph`` keeps it: each step
-    writes ``STAMPS`` as made-up card times (frame ``f`` starts at ``T0 + 10,000
-    f`` ns, its stages take ``STAGE_NS``) and ``OFFSET_SLOT`` the stamp between
-    ``clock_bracket``'s reads; the step's outputs are overwritten at every
-    frame, as a replay overwrites them."""
+    writes the path's stamps as made-up card times (frame ``f`` starts at ``T0
+    + 10,000 f`` ns, its stages take ``STAGE_NS``, and with lines on the two
+    line stages ``LINE_NS`` after ``associate``) and the offset slot the stamp
+    between ``clock_bracket``'s reads; the step's outputs are overwritten at
+    every frame, as a replay overwrites them."""
 
     T0 = 5_000_000_000_000
     STAGE_NS = np.array([100, 200, 300, 400, 500, 600, 700, 800, 900])
+    LINE_NS = np.array([1_000, 1_100])
     reuses_outputs = True
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        self.stamps = torch.zeros(step_graph.UPLOAD_SLOTS[-1] + 1, dtype=torch.int64)
+        with_lines = self._args[3]
+        self.stamp_names = profiling.stamps(with_lines)
+        self.offset_slot, self.upload_slots = step_graph.stamp_slots(with_lines)
+        self.stage_ns = self.stage_times(with_lines)
+        self.stamps = torch.zeros(self.upload_slots[-1] + 1, dtype=torch.int64)
         self.clock_bracket = (1_000, 1_400)
-        self.stamps[step_graph.OFFSET_SLOT] = self.T0 - 777
+        self.stamps[self.offset_slot] = self.T0 - 777
         self.frame = 0
+
+    @classmethod
+    def stage_times(cls, with_lines):
+        """{stage: ns} of the path, in its order."""
+        times = dict(zip(profiling.STAGES, cls.STAGE_NS.tolist()))
+        if with_lines:
+            times.update(zip(profiling.LINE_STAGES, cls.LINE_NS.tolist()))
+        return {s: times[s] for s in profiling.stages(with_lines)}
 
     def step(self, gray, depth):
         start = self.T0 + 10_000 * self.frame
-        times = np.concatenate([[start], start + np.cumsum(self.STAGE_NS)])
+        times = np.concatenate([[start], start + np.cumsum(list(self.stage_ns.values()))])
         self.stamps[:len(times)] = torch.from_numpy(times)
         self.frame += 1
         state, out = super().step(gray, depth)
         return step_graph.clone_tree(state), step_graph.clone_tree(out)
 
 
-def test_run_stats_from_summaries_that_carry_stamps(frames, monkeypatch, tmp_path):
+@pytest.mark.parametrize("with_lines", [False, True], ids=["lines_off", "lines_on"])
+def test_run_stats_from_summaries_that_carry_stamps(frames, monkeypatch, tmp_path,
+                                                    with_lines):
     """The stamps ride in the summary rows as float32 bit patterns; the runner
-    sums the stages and the replay's span and gap over the frames past the
-    first, and takes the clock offset from the first frame's row."""
+    sums the path's stages by name and the replay's span and gap over the
+    frames past the first, and takes the clock offset from the first frame's
+    row; the Chrome export names every stage of the path."""
     monkeypatch.setattr(step_graph, "stepper", StampedStep)
     timer = profiling.StageTimer(log=True)
-    _, traj, stats = runner.run_frames(frames, CAM, CFG, with_planes=False, device="cpu",
-                                       trace=timer, on_frame=lambda *a: None)
+    _, traj, stats = runner.run_frames(frames, CAM, CFG, with_planes=False,
+                                       with_lines=with_lines, device="cpu", trace=timer,
+                                       on_frame=lambda *a: None)
     n = len(frames) - 1
+    stage_ns = StampedStep.stage_times(with_lines)
     assert stats.stamped_frames == n
-    assert stats.stage_device_us == {s: pytest.approx(1e-3 * ns * n) for s, ns in
-                                     zip(profiling.STAGES, StampedStep.STAGE_NS)}
-    span = StampedStep.STAGE_NS.sum()
+    assert stats.stage_device_us == {s: pytest.approx(1e-3 * ns * n)
+                                     for s, ns in stage_ns.items()}
+    assert list(stats.stage_device_us) == list(profiling.stages(with_lines))
+    span = sum(stage_ns.values())
     assert stats.graph_span_us == pytest.approx(1e-3 * span * n)
+    assert sum(stats.stage_device_us.values()) == pytest.approx(stats.graph_span_us)
     assert stats.replay_gap_us == pytest.approx(1e-3 * (10_000 - span) * n)
     assert stats.clock_offset_ns == StampedStep.T0 - 777 - 1_200
     assert stats.clock_offset_err_ns == 200
@@ -298,7 +362,7 @@ def test_run_stats_from_summaries_that_carry_stamps(frames, monkeypatch, tmp_pat
     timer.export(str(path))
     device = [e for e in json.loads(path.read_text())["traceEvents"]
               if e["ph"] == "X" and e["tid"] == 2]
-    assert len(device) == len(frames) * len(profiling.STAGES)
+    assert [e["name"] for e in device] == list(profiling.stages(with_lines)) * len(frames)
     # on the host clock: the card's stamp less the offset, in µs
     assert device[0]["ts"] == pytest.approx(1e-3 * (StampedStep.T0 - stats.clock_offset_ns))
 
@@ -311,11 +375,13 @@ def test_summary_rows_keep_every_ns_of_the_stamps():
     out = types.SimpleNamespace(position=torch.ones(3), quat=torch.ones(4),
                                 success=torch.tensor(True), is_lost=torch.tensor(False),
                                 n_evicted=torch.tensor(3), n_plane_merge_dropped=torch.tensor(0),
-                                n_point_inliers=torch.tensor(42))
+                                n_point_inliers=torch.tensor(42), n_lines=torch.tensor(7),
+                                n_line_matches=torch.tensor(5), n_lines_alive=torch.tensor(9))
     rows = torch.stack([runner._pack_summary(out, stamps)] * 2).numpy()
     summary, got = runner._split_summaries(rows)
     np.testing.assert_array_equal(got, np.stack([stamps.numpy()] * 2))
     assert summary.shape == (2, runner.SUMMARY_WIDTH) and summary[0, 11] == 42.0
+    assert list(summary[0, 12:]) == [7.0, 5.0, 9.0]
     plain, none = runner._split_summaries(torch.stack([runner._pack_summary(out)]).numpy())
     assert none is None and np.array_equal(plain, summary[:1])
 
@@ -335,7 +401,7 @@ def test_a_frame_from_the_host_is_stamped_around_its_upload(frames, monkeypatch)
     def fake_stamp(slots, slot):
         # 300 ns and 100 ns before the start of the step that follows
         start = StampedStep.T0 + 10_000 * holder["step"].frame
-        slots[slot] = start - (300 if slot == step_graph.UPLOAD_SLOTS[0] else 100)
+        slots[slot] = start - (300 if slot == step_graph.stamp_slots(False)[1][0] else 100)
 
     monkeypatch.setattr(step_graph, "stepper", Stepper)
     monkeypatch.setattr(runner, "_on_host", lambda x, device: True)
@@ -469,7 +535,7 @@ def test_stamps_change_no_bit_of_the_step(cuda):
                 s_state, s_out = stamped.step(gray, depth)
             _leaves_equal(p_state, s_state, f"frame {i} state")
             _leaves_equal(p_out, s_out, f"frame {i} output")
-            times = stamped.stamps.cpu().numpy()[:len(profiling.STAMPS)]
+            times = stamped.stamps.cpu().numpy()[:len(profiling.stamps(False))]
             assert (np.diff(times) >= 0).all() and times[0] > 0, (i, times)
         assert plain.stamps is None
     finally:
@@ -491,10 +557,56 @@ def test_run_frames_stamps_ten_a_replay_on_the_card(cuda):
     assert all(v >= 0 for v in stats.stage_device_us.values())
     device = [e for e in timer.events if e[0] == "device"]
     assert len(device) == 20
-    for _, times in device:
+    for _, names, times in device:
+        assert names == profiling.STAGES
         assert len(times) == 10 and (np.diff(times) >= 0).all()
     wall_us = 1e6 * (stats.total_step_s - stats.compile_s)
     assert stats.graph_span_us + stats.replay_gap_us == pytest.approx(wall_us, rel=0.05)
+
+
+def _wall_frames(n, device):
+    cam = config.TUM_FR1
+    scene = StripeWallScene(cam, texture_scale=0.03, stripe_period_z=2400.0)
+    return [tuple(torch.as_tensor(a, device=device) for a in scene.render(q, p))
+            for q, p in lateral_trajectory(n, speed_mm=4.0)]
+
+
+@pytest.mark.cuda
+def test_the_line_sections_are_stamped_on_the_card(cuda):
+    """Points and lines on the low-texture striped wall at 640x480: a step
+    graph recorded with stamps equals one recorded without to the bit over
+    10 frames, with twelve stamps a replay in order; ``run_frames`` over 20
+    frames sums ``line_tiles`` and ``lines`` with the other stages, which add
+    up to the graph's span, and counts the lines it detected and matched."""
+    cam, cfg = config.TUM_FR1, config.SlamConfig()
+    frames = _wall_frames(20, cuda)
+    kw = dict(with_planes=False, with_lines=True)
+    plain = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=cuda), cam, cfg,
+                                 **kw)
+    stamped = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=cuda), cam, cfg,
+                                   **kw)
+    names = profiling.stamps(True)
+    try:
+        for i, (gray, depth) in enumerate(frames[:10]):
+            p_state, p_out = plain.step(gray, depth)
+            with profiling.recording(profiling.StageTimer()):
+                s_state, s_out = stamped.step(gray, depth)
+            _leaves_equal(p_state, s_state, f"frame {i} state")
+            _leaves_equal(p_out, s_out, f"frame {i} output")
+            times = stamped.stamps.cpu().numpy()[:len(names)]
+            assert (np.diff(times) >= 0).all() and times[0] > 0, (i, times)
+        assert stamped.stamp_names == names and len(names) == 12
+    finally:
+        plain.close()
+        stamped.close()
+    timer = profiling.StageTimer(log=True)
+    _, _, stats = runner.run_frames(frames, cam, cfg, device=cuda, trace=timer, **kw)
+    assert stats.stamped_frames == 19
+    assert list(stats.stage_device_us) == list(profiling.stages(True))
+    assert sum(stats.stage_device_us.values()) == pytest.approx(stats.graph_span_us)
+    assert stats.stage_device_us["line_tiles"] > 0 and stats.stage_device_us["lines"] > 0
+    assert [len(e[2]) for e in timer.events if e[0] == "device"] == [12] * 20
+    assert stats.lines_detected > 0 and stats.line_matches > 0 and stats.lines_alive > 0
 
 
 @pytest.mark.cuda
