@@ -67,8 +67,8 @@ import numpy as np
 import torch
 
 from rgbd_slam_tpu_torch import config, engine, runner, step_graph, synthetic
-from rgbd_slam_tpu_torch.ops import (cells_cuda, components_cuda, cylinders_cuda, lk_cuda,
-                                     lm_cuda)
+from rgbd_slam_tpu_torch.ops import (cells_cuda, components_cuda, cylinders_cuda,
+                                     line_grow_cuda, lk_cuda, lm_cuda)
 from rgbd_slam_tpu_torch.synthetic import _quat_from_euler
 
 #: (ate_frames, hard_frames, lines_frames, tunnel_frames): the default, and
@@ -231,6 +231,7 @@ def main() -> int:
     cells_cuda.reset_launches()
     cylinders_cuda.reset_launches()
     lm_cuda.reset_launches()
+    line_grow_cuda.reset_launches()
     t_start = time.perf_counter()
 
     frames_np, gt = room_orbit(cam, n_ate)
@@ -367,6 +368,7 @@ def main() -> int:
         "cells_launches": dict(cells_cuda.LAUNCHES),
         "cylinders_launches": dict(cylinders_cuda.LAUNCHES),
         "lm_launches": dict(lm_cuda.LAUNCHES),
+        "line_grow_launches": dict(line_grow_cuda.LAUNCHES),
         "card": card,
         "torch": torch.__version__,
         "total_s": time.perf_counter() - t_start,

@@ -206,12 +206,12 @@ import torch.distributed as dist
 from bench_torch import hard_orbit, room_roll, tunnel_flight
 from rgbd_slam_tpu_torch import (config, dryrun, engine, profiling, runner, solve_graph,
                                  step_graph, synthetic)
-from rgbd_slam_tpu_torch.features import primitives
+from rgbd_slam_tpu_torch.features import lines, primitives
 from rgbd_slam_tpu_torch.geometry import pinhole, se3
 from rgbd_slam_tpu_torch.io import checkpoint
 from rgbd_slam_tpu_torch.io.trajectory import ate_rmse
 from rgbd_slam_tpu_torch.ops import (cells_cuda, components_cuda, cylinders_cuda, fast, image,
-                                     lk_cuda, lm_cuda)
+                                     line_grow_cuda, lk_cuda, lm_cuda)
 from rgbd_slam_tpu_torch.ops.depth_cloud import depth_to_cloud
 from rgbd_slam_tpu_torch.parallel import ba, keyframes, pose_graph
 from rgbd_slam_tpu_torch.parallel.pose_graph import _np_quat_rotate
@@ -277,10 +277,12 @@ SHORT_RUN_FRAMES = 30
 RIG_BASELINE_MM = 25.0
 #: one fused forward-backward launch a frame (every path but the forward-only
 #: one), one components, one cells and one cylinders launch a frame with
-#: planes on, and two LM launches a frame (the hypothesis batch and the refit
-#: + Monte-Carlo batch)
+#: planes on, two LM launches a frame (the hypothesis batch and the refit +
+#: Monte-Carlo batch), and a line growth launch a frame with lines on
+#: (``LINE_PATH``)
 FUSED_ONLY = {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0, "components": 1,
-              "cells": 1, "cylinders": 1, "lm_solve": 2}
+              "cells": 1, "cylinders": 1, "lm_solve": 2, "line_grow": 0}
+LINE_PATH = {**FUSED_ONLY, "line_grow": 1}
 #: the kernel the profiler sees for one launch a wrapper counts, by the start
 #: of its name (the LM's count covers ``lm_solve_kernel`` and
 #: ``lm_solve_kernel_warp``, one a call; the cells' is the fit kernel of the
@@ -298,14 +300,17 @@ REPLACES = {"lk_fwd_bwd": "rgbd_slam_tpu/ops/pallas_lk.py:408",
                      "87, :111, :197, :271 (XLA: the jitted find_primitives, :441)",
             "cylinders": "rgbd_slam_tpu/features/primitives.py:301, :319, :496-525 (XLA: the "
                          "jitted find_primitives, :441)",
-            "lm_solve": "rgbd_slam_tpu/pose/optimizer.py:50 (XLA: lax.scan over jax.linearize)"}
+            "lm_solve": "rgbd_slam_tpu/pose/optimizer.py:50 (XLA: lax.scan over jax.linearize)",
+            "line_grow": "rgbd_slam_tpu/features/lines.py:153-170 (XLA: the seed_step loop over "
+                         "_propagate's lax.while_loop; the port's dense reach closure before)"}
 SOURCES = {"lk_fwd_bwd": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "lk_pyramid": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "lk_level": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "components": "rgbd_slam_tpu_torch/csrc/components.cu",
            "cells": "rgbd_slam_tpu_torch/csrc/cells.cu",
            "cylinders": "rgbd_slam_tpu_torch/csrc/cylinders.cu",
-           "lm_solve": "rgbd_slam_tpu_torch/csrc/lm.cu"}
+           "lm_solve": "rgbd_slam_tpu_torch/csrc/lm.cu",
+           "line_grow": "rgbd_slam_tpu_torch/csrc/line_grow.cu"}
 #: the two lm_solve calls of a plane step, in their order
 LM_CALLS = ("hypotheses", "refit_mc")
 #: the lm phase's tolerances.  A linearization's cost and normal equations
@@ -414,8 +419,8 @@ def ptxas_usage(log: str):
     for name, body in re.findall(
             r"Function properties for (\w+)\n(.*?)(?=ptxas info\s*: Compiling|\Z)", log,
             flags=re.S):
-        kernel = re.search(r"(?:lk_\w+|components|cells_\w+|cylinders|lm_solve)_kernel"
-                           r"(?:_warp)?", name)
+        kernel = re.search(r"(?:lk_\w+|components|cells_\w+|cylinders|lm_solve|line_grow)"
+                           r"_kernel(?:_warp)?", name)
         regs = re.search(r"Used (\d+) registers", body)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         if kernel and regs and spills:
@@ -431,11 +436,12 @@ def reset_launches():
     cells_cuda.reset_launches()
     cylinders_cuda.reset_launches()
     lm_cuda.reset_launches()
+    line_grow_cuda.reset_launches()
 
 
 def launch_counts() -> dict:
     return {**lk_cuda.LAUNCHES, **components_cuda.LAUNCHES, **cells_cuda.LAUNCHES,
-            **cylinders_cuda.LAUNCHES, **lm_cuda.LAUNCHES}
+            **cylinders_cuda.LAUNCHES, **lm_cuda.LAUNCHES, **line_grow_cuda.LAUNCHES}
 
 
 def _room_pair(cam, device):
@@ -663,6 +669,41 @@ def random_grid(gh, gw, seed, planar_ends=True):
     return edges, planar
 
 
+def random_line_graph(gh, gw, seed, density, line_share=0.7, weight_levels=None):
+    """(edges [8, gh, gw], is_line [T], weight [T] float32) numpy drawn from
+    ``seed``, as ``lines._line_edge_maps`` and ``_tile_stats`` give them: a
+    ``line_share`` of the tiles line tiles, a ``density`` share of the
+    directed edges between two line tiles set, none across the border; line
+    tiles weigh over 0, drawn from ``weight_levels`` whole numbers when given
+    (many equal weights), and the other tiles anything."""
+    rng = np.random.default_rng(seed)
+    is_line = rng.random(gh * gw) < line_share
+    ok = is_line.reshape(gh, gw)
+    edges = np.zeros((8, gh, gw), bool)
+    for s, (dy, dx) in enumerate(line_grow_cuda.SHIFTS):
+        e = (rng.random((gh, gw)) < density) & ok & np.roll(ok, (dy, dx), (0, 1))
+        e[:, 0] &= dx != 1
+        e[:, -1] &= dx != -1
+        e[0, :] &= dy != 1
+        e[-1, :] &= dy != -1
+        edges[s] = e
+    if weight_levels:
+        weight = rng.integers(1, weight_levels + 1, gh * gw).astype(np.float32)
+    else:
+        weight = rng.uniform(1.0, 5000.0, gh * gw).astype(np.float32)
+    weight[~is_line] = rng.uniform(-5.0, 5000.0, int((~is_line).sum()))
+    return edges, is_line, weight
+
+
+def line_graph(gray, device):
+    """(edges, is_line, weight) on ``device``: the tile graph ``detect_lines``
+    builds from a gray image with its default gates, the line growth
+    kernel's input."""
+    grid, gh, gw = lines._tile_stats(torch.as_tensor(gray, device=device), 15.0, 0.06, 0.7)
+    edges, _ = lines._line_edge_maps(grid, gh, gw, math.cos(math.radians(25.0)), 6.0)
+    return edges, grid.is_line, grid.weight
+
+
 def grid_tensors(grid, device):
     """(edges, planar, gh, gw) on ``device`` of a numpy (edges, planar)."""
     edges, planar = grid
@@ -745,6 +786,153 @@ def check_components(cam, cfg, device, frames):
         elif name == "serpentine":
             fields["device_us"] = graph_launch_us(
                 lambda: components_cuda.connected_components(edges, planar, gh, gw))
+        _say("kernel", **fields)
+    return result
+
+
+#: 240x320 images of straight lines drawn on a flat gray (the line tests'
+#: images): name -> [(x0, y0), (x1, y1)] of each line
+DRAWN_LINES = {"horizontal": [((40, 120), (280, 120))], "diagonal": [((50, 50), (250, 200))],
+               "two_lines": [((30, 60), (290, 60)), ((160, 20), (160, 220))], "flat": []}
+
+
+def drawn_lines_image(name):
+    """A 240x320 float32 image of ``DRAWN_LINES[name]``: 2 px lines of value
+    200 on 50 (100 for the flat one)."""
+    img = np.full((240, 320), 100.0 if name == "flat" else 50.0, np.float32)
+    for (x0, y0), (x1, y1) in DRAWN_LINES[name]:
+        for t in np.linspace(0, 1, max(int(np.hypot(x1 - x0, y1 - y0)) * 2, 2)):
+            xi, yi = int(round(x0 + t * (x1 - x0))), int(round(y0 + t * (y1 - y0)))
+            img[max(yi - 1, 0): yi + 2, max(xi - 1, 0): xi + 2] = 200.0
+    return img
+
+
+def stripe_wall_frames(cam, n):
+    """The first ``n`` frames of the ``lines_lowtex`` path's low-texture
+    striped wall (the cell ``fr1_lines.stripe_wall``'s scene) on the lateral
+    run, and their ground-truth positions."""
+    wall = synthetic.StripeWallScene(cam, texture_scale=0.03, stripe_period_z=2400.0)
+    poses = synthetic.lateral_trajectory(JAX_REFERENCE["lines_lowtex"]["frames"],
+                                         speed_mm=4.0)[:n]
+    return ([wall.render(q, p) for q, p in poses],
+            np.stack([p for _, p in poses]).astype(np.float64))
+
+
+def line_grow_cases(cam, device):
+    """(name, edges, is_line, weight) of the line growth kernel's checks: the
+    tile graphs of striped-wall frames 3, 15 and 29 (the main case first) and
+    of a room frame, the drawn-lines images and noise at 240x320, and random
+    graphs: a maze at 40x30 (long winding paths), the full 40x30 grid (one
+    seed takes it all), equal weights, a sparse 7x5, one column of 70 and
+    1920x1080's 120x67 (past the 48 KB of shared memory a CTA gets without
+    the opt-in, three chunks of 32 rows)."""
+    walls = stripe_wall_frames(cam, 30)[0]
+    room = room_frames(cam, 1)[0][0][0]
+    noise = np.random.default_rng(1000).uniform(0, 255, (240, 320)).astype(np.float32)
+    cases = [(f"stripe_wall{i}", *line_graph(walls[i][0], device)) for i in (3, 15, 29)]
+    cases.append(("room0", *line_graph(room, device)))
+    cases += [(name, *line_graph(drawn_lines_image(name), device)) for name in DRAWN_LINES]
+    cases.append(("noise", *line_graph(noise, device)))
+    for name, (gh, gw, density, kw) in {
+            "maze_40x30": (30, 40, 0.45, {}), "full_40x30": (30, 40, 1.0, {"line_share": 1.0}),
+            "equal_weights_40x30": (30, 40, 0.45, {"weight_levels": 3}),
+            "sparse_7x5": (5, 7, 0.1, {}), "column_1x70": (70, 1, 0.8, {}),
+            "maze_120x67": (67, 120, 0.45, {})}.items():
+        graph = random_line_graph(gh, gw, SEED, density, **kw)
+        cases.append((name, *(torch.as_tensor(x, device=device) for x in graph)))
+    return cases
+
+
+def _device_ops(fn):
+    """The names of the device operations ``fn()`` runs, under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def line_grow_in_graph_us(cam, cfg, device, n_frames=16, profiled=8):
+    """The line growth kernel where the main path runs it: inside the points +
+    lines step's CUDA graph (``StepGraph``, planes off) over the striped
+    wall's first ``n_frames`` frames, the last ``profiled`` under the
+    profiler, with the step's other kernels around it (as
+    ``tools/profile_plane_kernels.in_graph_step_us`` times the plane
+    kernels): its device µs and launches a frame, and the step's matrix
+    products a frame (the pose's and the maps' small ones)."""
+    staged = runner.stage_frames(stripe_wall_frames(cam, n_frames)[0], device=device)
+    graph = step_graph.StepGraph(engine.init_state(cam, cfg, seed=SEED, device=device), cam,
+                                 cfg, with_planes=False, with_lines=True)
+    try:
+        for gray, depth in staged[:-profiled]:
+            graph.step(gray, depth)
+        torch.cuda.synchronize()
+        ops = _device_ops(lambda: [graph.step(gray, depth) for gray, depth in staged[-profiled:]])
+    finally:
+        graph.close()
+    mark = LAUNCH_MARKS["line_grow"]
+    return dict(us=sum(us for name, us in ops if name.startswith(mark)) / profiled,
+                launches=sum(name.startswith(mark) for name, _ in ops) / profiled,
+                step_gemms=sum("gemm" in name for name, _ in ops) / profiled)
+
+
+def check_line_grow(cam, cfg, device):
+    """The line growth kernel against its plain version on each case of
+    ``line_grow_cases`` (members and proceed equal, min_tiles 2 and 3, the
+    closure rows and the loop), each case's rounds a seed printed; the main
+    case (striped-wall frame 3) then timed as the other kernels are, and
+    inside the lines step's graph, where it must run once a frame; the matrix
+    products ``detect_lines`` runs on its frame are printed (the moments'
+    einsum).  The bound
+    counts bytes (the eight edge planes, is_line and the weights read once,
+    the member rows written once, ``grow_work``) over 3.35 TB/s.  No PyTorch
+    call computes it: ``library_ms`` is null."""
+    result = None
+    for name, edges, is_line, weight in line_grow_cases(cam, device):
+        fields = dict(name=name, grid=f"{edges.shape[2]}x{edges.shape[1]}",
+                      line_tiles=int(is_line.sum()))
+        for min_tiles in (2, 3):
+            members, proceed, rounds = line_grow_cuda.grow_seeds_cuda(edges, is_line, weight,
+                                                                      min_tiles, details=True)
+            torch.cuda.synchronize()
+            want_m, want_p = line_grow_cuda.grow_seeds_reference(edges, is_line, weight,
+                                                                 min_tiles)
+            differ = int((members != want_m).sum()) + int((proceed != want_p).sum())
+            fields[f"min_tiles_{min_tiles}"] = dict(
+                seeds=int(proceed.sum()), members=members.sum(dim=1).tolist(),
+                rounds=rounds.tolist(), differ=differ)
+            if differ:
+                _say("kernel", **fields)
+                raise RuntimeError(f"line growth kernel disagrees with its plain version on "
+                                   f"{name}, min_tiles {min_tiles}")
+        if result is None:
+            gh, gw = edges.shape[1:]
+            work = line_grow_cuda.grow_work(gh, gw)
+
+            def grow():
+                return line_grow_cuda.grow_seeds_cuda(edges, is_line, weight, 2)
+
+            result = dict(
+                max_abs_err=0.0, ms=_median_ms(grow),
+                plain_ms=_median_ms(lambda: line_grow_cuda.grow_seeds_reference(
+                    edges, is_line, weight, 2)),
+                device_us=graph_launch_us(grow),
+                bound_ms=work["bytes"] / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None)
+            in_graph = line_grow_in_graph_us(cam, cfg, device)
+            result["in_graph_us_a_frame"] = in_graph["us"]
+            gray = torch.as_tensor(stripe_wall_frames(cam, 4)[0][3][0], device=device)
+            fields.update(bytes=work["bytes"], in_graph=in_graph, detect_lines_gemms=[
+                name for name, _ in _device_ops(lambda: lines.detect_lines(gray))
+                if "gemm" in name],
+                **{k: result[k] for k in ("ms", "plain_ms", "device_us", "bound_ms")})
+            if in_graph["launches"] != 1:
+                _say("kernel", **fields)
+                raise RuntimeError(f"the lines step's graph ran {in_graph['launches']} line "
+                                   "growth launches a frame")
         _say("kernel", **fields)
     return result
 
@@ -2069,10 +2257,10 @@ def write_tum_directory(root: str, cam, grays, poses):
         w, x, y, z = quat
         gt_lines.append(f"{ts:.4f} {pos[0] / 1000} {pos[1] / 1000} {pos[2] / 1000} "
                         f"{x} {y} {z} {w}")
-    for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
-                        ("groundtruth.txt", gt_lines)):
+    for name, rows in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
+                       ("groundtruth.txt", gt_lines)):
         with open(os.path.join(dataset, name), "w") as f:
-            f.write("\n".join(lines))
+            f.write("\n".join(rows))
     yaml = os.path.join(root, "camera.yaml")
     with open(yaml, "w") as f:
         for n in (1, 2):
@@ -2116,7 +2304,7 @@ def run_tum_cli(cam, frames, poses, gt):
     stats = report["stats"]
     launches = {**report["lk_launches"], **report["components_launches"],
                 **report["cells_launches"], **report["cylinders_launches"],
-                **report["lm_launches"]}
+                **report["lm_launches"], **report["line_grow_launches"]}
     ate_file = ate_rmse(traj[:, 1:4], gt)
     vertices = sum(ln.startswith("v ") for ln in map_lines)
     features = sum(ln.startswith(("p ", "l ", "f ")) for ln in map_lines)
@@ -2301,15 +2489,16 @@ def main() -> int:
     _say("device", card=card, torch=torch.__version__, cuda=torch.version.cuda)
 
     # one nvcc a source, started together
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         builds = {"csrc/lk.cu": pool.submit(lk_cuda.build),
                   "csrc/components.cu": pool.submit(components_cuda.build),
                   "csrc/cells.cu": pool.submit(cells_cuda.build),
                   "csrc/cylinders.cu": pool.submit(cylinders_cuda.build),
-                  "csrc/lm.cu": pool.submit(lm_cuda.build)}
+                  "csrc/lm.cu": pool.submit(lm_cuda.build),
+                  "csrc/line_grow.cu": pool.submit(line_grow_cuda.build)}
         _say("build", **{src: f"{job.result():.1f} s" for src, job in builds.items()})
     for log in (lk_cuda.BUILD_LOG, components_cuda.BUILD_LOG, cells_cuda.BUILD_LOG,
-                cylinders_cuda.BUILD_LOG, lm_cuda.BUILD_LOG):
+                cylinders_cuda.BUILD_LOG, lm_cuda.BUILD_LOG, line_grow_cuda.BUILD_LOG):
         for kernel, usage in ptxas_usage(log).items():
             _say("ptxas", kernel=kernel, **usage)
 
@@ -2323,6 +2512,7 @@ def main() -> int:
     kernels["cells"] = check_cells(cam, cfg, device, frames, tunnel_depths)
     kernels["cylinders"] = check_cylinders(cam, cfg, device, frames, tunnel_depths)
     kernels["lm_solve"] = check_lm(cam, cfg, device, frames)
+    kernels["line_grow"] = check_line_grow(cam, cfg, device)
     run_graph_phase(cam, cfg, device, frames, card)
     run_backend_graph_phase(cam, device, card)
     cfg_fwd = dataclasses.replace(cfg, mapping=dataclasses.replace(
@@ -2339,16 +2529,12 @@ def main() -> int:
     ]
     n_lines = JAX_REFERENCE["lines"]["frames"]
     paths.append(run_path("lines", cam, cfg, device, frames[:n_lines], gt[:n_lines],
-                          FUSED_ONLY, with_lines=True, reference="lines"))
-    wall = synthetic.StripeWallScene(cam, texture_scale=0.03, stripe_period_z=2400.0)
-    wall_poses = synthetic.lateral_trajectory(JAX_REFERENCE["lines_lowtex"]["frames"],
-                                              speed_mm=4.0)
-    wall_frames = [wall.render(q, p) for q, p in wall_poses]
-    wall_gt = np.stack([p for _, p in wall_poses]).astype(np.float64)
+                          LINE_PATH, with_lines=True, reference="lines"))
+    wall_frames, wall_gt = stripe_wall_frames(cam, JAX_REFERENCE["lines_lowtex"]["frames"])
     # lines off on the same wall gates nothing: half the frames show the gap
     paths.append(run_path("lines_lowtex_off", cam, cfg, device, wall_frames[:15],
                           wall_gt[:15], FUSED_ONLY, with_planes=False))
-    paths.append(run_path("lines_lowtex", cam, cfg, device, wall_frames, wall_gt, FUSED_ONLY,
+    paths.append(run_path("lines_lowtex", cam, cfg, device, wall_frames, wall_gt, LINE_PATH,
                           with_planes=False, with_lines=True, reference="lines_lowtex"))
     paths.append(run_path("ba", cam, cfg, device, frames, gt, FUSED_ONLY, ba_every=8,
                           reference="ba"))

@@ -34,7 +34,7 @@ from .config import TUM_FR1, CameraIntrinsics, SlamConfig, load_camera_yaml
 from .io import datasets
 from .io.map_writer import export_slam_map
 from .io.trajectory import ate_rmse
-from .ops import cells_cuda, components_cuda, cylinders_cuda, lk_cuda, lm_cuda
+from .ops import cells_cuda, components_cuda, cylinders_cuda, line_grow_cuda, lk_cuda, lm_cuda
 
 CAMERAS = {
     "tum_fr1": TUM_FR1,
@@ -149,7 +149,8 @@ def main(argv=None) -> int:
                        "components_launches": dict(components_cuda.LAUNCHES),
                        "cells_launches": dict(cells_cuda.LAUNCHES),
                        "cylinders_launches": dict(cylinders_cuda.LAUNCHES),
-                       "lm_launches": dict(lm_cuda.LAUNCHES)}, f)
+                       "lm_launches": dict(lm_cuda.LAUNCHES),
+                       "line_grow_launches": dict(line_grow_cuda.LAUNCHES)}, f)
     return 0
 
 

@@ -626,7 +626,7 @@ def step(state: SlamState, gray, depth, cam: CameraIntrinsics, cfg: SlamConfig,
 
     # lines: detection, endpoint depths and matching at the predicted pose, in
     # sections of their own (``profiling.stages``): the tile pass through the
-    # reach closure ends at ``line_tiles`` (in ``detect_lines``), the rest at
+    # seeds' growth ends at ``line_tiles`` (in ``detect_lines``), the rest at
     # ``lines``; with lines off ``associate`` ends here
     if with_lines:
         profiling.stamp("associate")

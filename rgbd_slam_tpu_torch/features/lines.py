@@ -13,18 +13,11 @@ The detector works on 16 px tiles, like the plane extractor one dimension down:
    extent along the principal direction.
 
 Growth without host reads.  The JAX package grows each seed with a
-``lax.while_loop``; a loop to a fixpoint costs a host read per test here
-(:func:`_propagate` keeps that form, with one read per ``GROW_CHUNK`` rounds).
-``detect_lines`` instead takes the reflexive-transitive closure of the directed
-tile graph once (:func:`_reach_closure`: ``ceil(log2(T))`` boolean squarings of
-the [T, T] adjacency, which cover every path of a T-node graph, so it is the
-fixpoint for any image) and reads a seed's members off its row.  That is exact
-because every set a seed consumes is forward-closed: with ``min_tiles <= 2`` a
-seed consumes either all it reaches or, when it reaches nothing else, itself,
-so a path that enters a consumed set never leaves it, and what a later seed
-reaches among the available tiles is its closure row less the consumed tiles.
-With ``min_tiles > 2`` a seed can consume itself alone and cut paths through
-it, so ``detect_lines`` then grows each seed with :func:`_propagate`.
+``lax.while_loop``; here ``ops.line_grow_cuda.grow_seeds`` runs the seeds: on
+the card one kernel searches the tile graph from each seed in turn, on the CPU
+the plain version reads each seed's members off the graph's reach closure (or
+grows it with a chunked loop when ``min_tiles > 2``).  Both give the same
+member sets; every float after them is the same tensor code.
 """
 
 from __future__ import annotations
@@ -36,14 +29,10 @@ import torch
 
 from .. import profiling
 from ..ops.image import gradients
+from ..ops.line_grow_cuda import MAX_LINE_SEEDS, SHIFTS, _shifted, grow_seeds  # noqa: F401
 
 MAX_LINES = 32
-MAX_LINE_SEEDS = 16
 TILE = 16
-#: growth rounds of :func:`_propagate` between two host reads
-GROW_CHUNK = 8
-
-SHIFTS = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
 
 
 class DetectedLines(NamedTuple):
@@ -112,11 +101,6 @@ def _tile_direction(cos2, sin2):
     return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
 
 
-def _shifted(x, dy: int, dx: int):
-    """``x`` rolled by (dy, dx) along its first two axes (wrapping around)."""
-    return torch.roll(x, shifts=(dy, dx), dims=(0, 1))
-
-
 def _line_edge_maps(grid: _TileGrid, gh: int, gw: int, max_angle_cos: float,
                     max_offset_px: float):
     """Directed mergeability between 8-adjacent line tiles, [8, gh, gw] bool:
@@ -152,83 +136,21 @@ def _line_edge_maps(grid: _TileGrid, gh: int, gw: int, max_angle_cos: float,
     return torch.stack(edges), SHIFTS
 
 
-def _propagate(seed_idx, edges, shifts, available, gh, gw):
-    """Tiles reached from ``seed_idx`` along ``edges`` through ``available``
-    tiles, [T] bool (the seed included), grown round by round to the fixpoint;
-    the host reads whether the last of ``GROW_CHUNK`` rounds changed a tile."""
-    active = torch.zeros((gh * gw,), dtype=torch.bool, device=edges.device)
-    active[seed_idx] = True
-    active = active.reshape(gh, gw)
-    avail = available.reshape(gh, gw)
-    while True:
-        for _ in range(GROW_CHUNK):
-            prev = active
-            grow = torch.zeros_like(active)
-            for e, (dy, dx) in zip(edges, shifts):
-                grow = grow | (_shifted(active, dy, dx) & e)
-            active = active | (grow & avail)
-        if not bool((active != prev).any().item()):
-            return active.reshape(-1)
-
-
-def _reach_closure(edges, shifts, gh, gw):
-    """Reflexive-transitive closure of the directed tile graph, [T, T] bool:
-    row s marks the tiles reached from tile s.  ``ceil(log2(T))`` squarings of
-    (I + adjacency) cover every path of a T-node graph (a simple path has fewer
-    than T edges), so no convergence test and no host read is needed.  The
-    products count paths in float32; the counts are clamped to {0, 1} after
-    each squaring, so they stay exact."""
-    t = gh * gw
-    dev = edges.device
-    idx = torch.arange(t, device=dev).reshape(gh, gw)
-    reach = torch.eye(t, dtype=torch.float32, device=dev)
-    for e, (dy, dx) in zip(edges, shifts):
-        src = _shifted(idx, dy, dx)          # the neighbour each tile joins from
-        reach[src.reshape(-1), idx.reshape(-1)] += e.reshape(-1).to(torch.float32)
-    for _ in range(max(1, math.ceil(math.log2(t)))):
-        reach = torch.clamp_max(reach @ reach, 1.0)
-    return reach > 0
-
-
 def detect_lines(gray, mag_threshold: float = 15.0, min_edge_frac: float = 0.06,
                  min_coherence: float = 0.7, min_tiles: int = 2) -> DetectedLines:
     """Detect up to MAX_LINES line segments in a gray image [H, W] float32."""
     dev = gray.device
     dt = gray.dtype
     grid, gh, gw = _tile_stats(gray, mag_threshold, min_edge_frac, min_coherence)
-    t = gh * gw
     # double-angle cos gate ~ 2x the angular tolerance (12.5 deg -> cos(25 deg))
-    edges, shifts = _line_edge_maps(grid, gh, gw, math.cos(math.radians(25.0)),
-                                    max_offset_px=6.0)
-    # see the module docstring: the closure rows are the seeds' growth only
-    # while every consumed set is forward-closed
-    reach = _reach_closure(edges, shifts, gh, gw) if min_tiles <= 2 else None
-    # the end of the step's section ``line_tiles``: gradients, tiles, edges and
-    # the closure (a stamp node under a recorded capture, else nothing)
-    profiling.stamp("line_tiles")
-
+    edges, _ = _line_edge_maps(grid, gh, gw, math.cos(math.radians(25.0)), max_offset_px=6.0)
     # the seeds in turn: each takes the heaviest available line tile and
     # consumes what it reaches (or itself alone when that is under min_tiles)
-    available = grid.is_line
-    tiles = torch.arange(t, device=dev)
-    members, proceeds = [], []
-    for _ in range(MAX_LINE_SEEDS):
-        seed_w = torch.where(available & grid.is_line, grid.weight,
-                             torch.full_like(grid.weight, -1.0))
-        seed_idx = torch.argmax(seed_w, dim=0, keepdim=True)     # [1]: no host read
-        proceed = seed_w[seed_idx] > 0                            # [1]
-        if reach is None:
-            active = _propagate(seed_idx, edges, shifts, available, gh, gw)
-        else:
-            active = reach[seed_idx][0]
-        active = active & grid.is_line & available
-        big_enough = proceed & (active.sum() >= min_tiles)
-        consumed = torch.where(big_enough, active, (tiles == seed_idx) & proceed)
-        available = available & ~consumed
-        members.append(active)
-        proceeds.append(proceed[0])
-    active = torch.stack(members)                                 # [S, T]
-    proceed = torch.stack(proceeds)                               # [S]
+    active, proceed = grow_seeds(edges, grid.is_line, grid.weight, min_tiles)  # [S, T], [S]
+    # the end of the step's section ``line_tiles``: gradients, tiles, the tile
+    # graph and its search from the seeds (a stamp node under a recorded
+    # capture, else nothing)
+    profiling.stamp("line_tiles")
     n_tiles = active.sum(dim=-1).to(torch.int32)
 
     # combined weighted moments over each seed's member tiles (Chan combination)

@@ -40,9 +40,9 @@ import torch
 #: planes off ``plane_extract`` stays, and holds only the empty plane rows
 STAGES = ("flow", "detect", "associate", "plane_extract", "pose_opt", "map_update",
           "insert", "next_track", "commit")
-#: the line path's own sections, after ``associate``: the tile pass through the
-#: reach closure (``features.lines.detect_lines``), then the seeds, the
-#: segments, the endpoint depths and the matching to the line map
+#: the line path's own sections, after ``associate``: the tile pass, the tile
+#: graph and its search from the seeds (``features.lines.detect_lines``), then
+#: the segments, the endpoint depths and the matching to the line map
 LINE_STAGES = ("line_tiles", "lines")
 
 

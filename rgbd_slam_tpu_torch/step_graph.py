@@ -48,13 +48,14 @@ import torch
 
 from . import engine, profiling
 from .config import CameraIntrinsics, SlamConfig
-from .ops import cells_cuda, components_cuda, cylinders_cuda, lk_cuda, lm_cuda, stamps_cuda
+from .ops import (cells_cuda, components_cuda, cylinders_cuda, line_grow_cuda, lk_cuda, lm_cuda,
+                  stamps_cuda)
 
 #: eager steps (on a copy of the state) before the step is recorded
 WARMUP_STEPS = 1
 #: the launch counts of the kernels a step can launch
 _COUNTERS = (lk_cuda.LAUNCHES, components_cuda.LAUNCHES, cells_cuda.LAUNCHES,
-             cylinders_cuda.LAUNCHES, lm_cuda.LAUNCHES)
+             cylinders_cuda.LAUNCHES, lm_cuda.LAUNCHES, line_grow_cuda.LAUNCHES)
 
 
 def stamp_slots(with_lines: bool) -> tuple[int, tuple[int, int]]:

@@ -316,10 +316,11 @@ def test_lk_pyramid_kernel_on_levels_off_the_16_byte_grid(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("min_tiles", [2, 3], ids=["closure", "loop"])
 def test_detect_lines_on_the_card_matches_the_cpu(cuda, min_tiles):
-    """A 640x480 StripeWallScene frame through the line detector on the card and
-    on the CPU, by the closure rows and by the per-seed loop: the same tiles and
-    counts, endpoints to 1e-2 px (a vertical segment may come in either
-    orientation, see test_torch_lines.py)."""
+    """A 640x480 StripeWallScene frame through the line detector on the card
+    (the seeds grown by the kernel) and on the CPU (by the closure rows, or
+    the per-seed loop for min_tiles 3): the same tiles and counts, endpoints
+    and directions to 1e-2 px, strengths to 1e-5 (a vertical segment may come
+    in either orientation, see test_torch_lines.py)."""
     from rgbd_slam_tpu_torch.features import lines
 
     cam = config.TUM_FR1
@@ -335,6 +336,191 @@ def test_detect_lines_on_the_card_matches_the_cpu(cuda, min_tiles):
     p1 = torch.where(flip, card.p0.cpu(), card.p1.cpu())
     np.testing.assert_allclose(p0.numpy(), cpu.p0.numpy(), atol=1e-2)
     np.testing.assert_allclose(p1.numpy(), cpu.p1.numpy(), atol=1e-2)
+    direction = torch.where(flip, -card.direction.cpu(), card.direction.cpu())
+    np.testing.assert_allclose(direction.numpy(), cpu.direction.numpy(), atol=1e-2)
+    np.testing.assert_allclose(card.strength.cpu().numpy(), cpu.strength.numpy(), rtol=1e-5)
+
+
+def _line_grow_case(name):
+    """(edges, is_line, weight) numpy of a line growth case: a random graph
+    (``chip_smoke.random_line_graph``, size and density in the name), a
+    drawn-lines test image or a 640x480 striped-wall frame's tile graph."""
+    import chip_smoke
+
+    kind, _, size = name.rpartition("_")
+    if kind in chip_smoke.DRAWN_LINES:
+        graph = chip_smoke.line_graph(chip_smoke.drawn_lines_image(kind), "cpu")
+    elif kind == "stripe_wall":
+        frames = chip_smoke.stripe_wall_frames(config.TUM_FR1, int(size) + 1)[0]
+        graph = chip_smoke.line_graph(frames[int(size)][0], "cpu")
+    else:
+        gw, gh = (int(n) for n in size.split("x"))
+        density = {"sparse": 0.1, "maze": 0.45, "dense": 0.8, "full": 1.0,
+                   "equal": 0.45}[kind]
+        return chip_smoke.random_line_graph(
+            gh, gw, 5, density, line_share=1.0 if kind == "full" else 0.7,
+            weight_levels=3 if kind == "equal" else None)
+    return tuple(x.numpy() for x in graph)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sparse_40x30", "maze_40x30", "dense_40x30", "full_40x30",
+                                  "equal_40x30", "maze_120x67", "dense_120x67",
+                                  "maze_37x29", "sparse_7x5", "dense_1x70", "dense_65x1",
+                                  "horizontal_320", "diagonal_320", "two_lines_320",
+                                  "flat_320", "stripe_wall_3", "stripe_wall_29"])
+def test_line_grow_kernel_matches_its_plain_version(cuda, name):
+    """The kernel's members and proceed equal the plain version's on the same
+    card tensors to the bit for min_tiles 1-4 (the closure rows up to 2, the
+    loop above), and its
+    rounds a seed the numpy model's (``tests/test_torch_line_grow.py``), on
+    random directed 8-neighbour graphs from sparse to full (1920x1080's
+    120x67 among them, past the 48 KB a CTA gets without the opt-in), with
+    equal weights, on the drawn-lines images and on striped-wall frames.
+    One launch a call."""
+    from rgbd_slam_tpu_torch.ops import line_grow_cuda
+    from test_torch_line_grow import kernel_model
+
+    edges, is_line, weight = _line_grow_case(name)
+    on_card = [torch.from_numpy(x).to(cuda) for x in (edges, is_line, weight)]
+    for min_tiles in (1, 2, 3, 4):
+        before = line_grow_cuda.LAUNCHES["line_grow"]
+        members, proceed, rounds = line_grow_cuda.grow_seeds_cuda(*on_card, min_tiles,
+                                                                  details=True)
+        torch.cuda.synchronize()
+        assert line_grow_cuda.LAUNCHES["line_grow"] == before + 1
+        want_m, want_p = line_grow_cuda.grow_seeds_reference(*on_card, min_tiles)
+        assert torch.equal(proceed, want_p) and torch.equal(members, want_m)
+        model_m, model_p, model_rounds = kernel_model(edges, is_line, weight, min_tiles)
+        np.testing.assert_array_equal(members.cpu().numpy(), model_m)
+        np.testing.assert_array_equal(proceed.cpu().numpy(), model_p)
+        np.testing.assert_array_equal(rounds.cpu().numpy(), model_rounds)
+
+
+@pytest.mark.cuda
+def test_line_grow_kernel_repeats_and_replays_bit_equal(cuda):
+    """32 launches on a maze give the first's outputs; the kernel recorded in
+    a CUDA graph and replayed on new inputs copied into the captured ones
+    gives the eager launch's outputs on each."""
+    from rgbd_slam_tpu_torch.ops import line_grow_cuda
+
+    cases = [[torch.from_numpy(x).to(cuda) for x in _line_grow_case(n)]
+             for n in ("maze_40x30", "stripe_wall_3", "full_40x30", "equal_40x30")]
+    first = line_grow_cuda.grow_seeds_cuda(*cases[0], 2)
+    for _ in range(31):
+        again = line_grow_cuda.grow_seeds_cuda(*cases[0], 2)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+    inputs = [x.clone() for x in cases[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        line_grow_cuda.grow_seeds_cuda(*inputs, 2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = line_grow_cuda.grow_seeds_cuda(*inputs, 2)
+    for case in cases:
+        for x, y in zip(inputs, case):
+            x.copy_(y)
+        graph.replay()
+        want = line_grow_cuda.grow_seeds_cuda(*case, 2)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", [3, 15, 29])
+@pytest.mark.parametrize("min_tiles", [2, 3])
+def test_detect_lines_with_the_kernel_equals_its_plain_growth(cuda, monkeypatch, frame,
+                                                              min_tiles):
+    """``detect_lines`` on the card on a 640x480 striped-wall frame: every
+    field of ``DetectedLines`` equal to the bit whether the kernel grows the
+    seeds or the plain version does on the same card tensors (every float
+    after the growth is the same tensor code)."""
+    import chip_smoke
+    from rgbd_slam_tpu_torch.features import lines
+    from rgbd_slam_tpu_torch.ops import line_grow_cuda
+
+    gray = torch.as_tensor(chip_smoke.stripe_wall_frames(config.TUM_FR1, frame + 1)[0][frame][0],
+                           device=cuda)
+    before = line_grow_cuda.LAUNCHES["line_grow"]
+    kernel = lines.detect_lines(gray, min_tiles=min_tiles)
+    assert line_grow_cuda.LAUNCHES["line_grow"] == before + 1
+    monkeypatch.setattr(lines, "grow_seeds", line_grow_cuda.grow_seeds_reference)
+    plain = lines.detect_lines(gray, min_tiles=min_tiles)
+    assert int(plain.valid.sum()) >= 4
+    _assert_bit_equal(kernel, plain, f"frame {frame}")
+
+
+@pytest.mark.cuda
+def test_lines_step_graph_runs_the_line_growth_kernel_once_a_frame(cuda, monkeypatch):
+    """The points + lines step (planes off) as one CUDA graph over 6
+    striped-wall frames with the plain growth patched to raise: every replay
+    equal to the eager step to the bit, no host sync while the graph replays
+    (``set_sync_debug_mode("error")``), one kernel launch a frame and one in
+    the warm-up step, in a profiled replay the kernel once; ``detect_lines``
+    alone runs the kernel once and no product of [T, T] matrices."""
+    import chip_smoke
+    from torch.autograd import DeviceType
+    from torch.overrides import TorchFunctionMode
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbd_slam_tpu_torch import step_graph
+    from rgbd_slam_tpu_torch.features import lines
+    from rgbd_slam_tpu_torch.ops import line_grow_cuda
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain growth ran on the card")
+
+    monkeypatch.setattr(line_grow_cuda, "grow_seeds_reference", refuse)
+    cam, cfg = config.TUM_FR1, config.SlamConfig()
+    frames = [tuple(torch.as_tensor(a, device=cuda) for a in f)
+              for f in chip_smoke.stripe_wall_frames(cam, 6)[0]]
+    eager = engine.init_state(cam, cfg, seed=0, device=cuda)
+    graph = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=cuda), cam, cfg,
+                                 with_planes=False, with_lines=True)
+    launches = 0
+    try:
+        for i, (gray, depth) in enumerate(frames):
+            before = line_grow_cuda.LAUNCHES["line_grow"]
+            if i == 3:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    g_state, g_out = graph.step(gray, depth)
+                    torch.cuda.synchronize()
+            elif i > 0:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    g_state, g_out = graph.step(gray, depth)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            else:
+                g_state, g_out = graph.step(gray, depth)
+            launches += line_grow_cuda.LAUNCHES["line_grow"] - before
+            eager, e_out = engine.step(eager, gray, depth, cam, cfg, with_planes=False,
+                                       with_lines=True)
+            _assert_bit_equal(g_out, e_out, f"frame {i} output")
+            _assert_bit_equal(g_state, eager, f"frame {i} state")
+    finally:
+        graph.close()
+    assert graph.warmup_steps == 1
+    assert launches == len(frames) + 1
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert sum(n.startswith("line_grow_kernel") for n in names) == 1
+    # the detector alone: the kernel once, and no product of tile-by-tile
+    # matrices (its one product is the moments' einsum over the 16 seeds)
+    products = []
+
+    class Products(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in ("__matmul__", "matmul", "mm", "bmm", "einsum"):
+                products.append([tuple(a.shape) for a in args if isinstance(a, torch.Tensor)])
+            return func(*args, **(kwargs or {}))
+
+    before = line_grow_cuda.LAUNCHES["line_grow"]
+    with Products():
+        lines.detect_lines(frames[3][0])
+    assert line_grow_cuda.LAUNCHES["line_grow"] == before + 1
+    assert products == [[(16, 1200), (16, 1200, 2), (16, 1200, 2)]], products
 
 
 def _small_backend_setup():
@@ -604,31 +790,30 @@ def test_step_graph_equals_the_eager_step(cuda, with_lines):
     every frame, and the launch counts those of the eager steps (one warm-up
     step more)."""
     from rgbd_slam_tpu_torch import step_graph
-    from rgbd_slam_tpu_torch.ops import components_cuda
+    from rgbd_slam_tpu_torch.ops import components_cuda, line_grow_cuda
 
     cam, cfg = config.TUM_FR1, config.SlamConfig()
     frames = _room_frames(cam, 10, cuda)
     eager = engine.init_state(cam, cfg, seed=0, device=cuda)
     graph = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=cuda), cam, cfg,
                                  with_lines=with_lines)
-    counts = [0, 0, 0]
+    counters = ((lk_cuda.LAUNCHES, "lk_fwd_bwd"), (components_cuda.LAUNCHES, "components"),
+                (lm_cuda.LAUNCHES, "lm_solve"), (line_grow_cuda.LAUNCHES, "line_grow"))
+    counts = [0, 0, 0, 0]
     try:
         for i, (gray, depth) in enumerate(frames):
-            before = (lk_cuda.LAUNCHES["lk_fwd_bwd"], components_cuda.LAUNCHES["components"],
-                      lm_cuda.LAUNCHES["lm_solve"])
+            before = [c[k] for c, k in counters]
             g_state, g_out = graph.step(gray, depth)
-            counts[0] += lk_cuda.LAUNCHES["lk_fwd_bwd"] - before[0]
-            counts[1] += components_cuda.LAUNCHES["components"] - before[1]
-            counts[2] += lm_cuda.LAUNCHES["lm_solve"] - before[2]
+            counts = [n + c[k] - b for n, (c, k), b in zip(counts, counters, before)]
             eager, e_out = engine.step(eager, gray, depth, cam, cfg, with_lines=with_lines)
             _assert_bit_equal(g_out, e_out, f"frame {i} output")
             _assert_bit_equal(g_state, eager, f"frame {i} state")
             assert torch.equal(g_state.generator.get_state(), eager.generator.get_state())
     finally:
         graph.close()
-    # one launch of each kernel a replay (two of the LM kernel), and as many in
-    # the warm-up step
-    assert graph.warmup_steps == 1 and counts == [11, 11, 22], counts
+    # one launch of each kernel a replay (two of the LM kernel; the line
+    # growth kernel with lines on), and as many in the warm-up step
+    assert graph.warmup_steps == 1 and counts == [11, 11, 22, 11 * with_lines], counts
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@
 Images: the five of tests/test_lines.py at 240x320 (horizontal, diagonal, two
 lines, flat, noise) and one RoomScene and one StripeWallScene frame at 480x640.
 Each stage is compared: the tile statistics, the directed edge maps, every
-seed's member tiles (the JAX ``lax.while_loop`` growth against both of the
-port's forms: the chunked loop and the closure rows), and the segments.
+seed's member tiles (the JAX ``lax.while_loop`` growth against both forms of
+the port's plain version, ``ops.line_grow_cuda``: the chunked loop and the
+closure rows), and the segments.
 
 Tolerances.  The tile sums are taken in a different order and ``atan2``, ``cos``,
 ``sin`` differ in the last bits between XLA's CPU code and PyTorch, so tile
@@ -48,6 +49,7 @@ from rgbd_slam_tpu_torch import engine
 from rgbd_slam_tpu_torch.features import lines
 from rgbd_slam_tpu_torch.geometry import se3
 from rgbd_slam_tpu_torch.mapping import maps
+from rgbd_slam_tpu_torch.ops import line_grow_cuda
 from test_lines import draw_line
 
 torch.set_num_threads(2)
@@ -190,10 +192,10 @@ def test_edges_and_seed_members_match_jax(name):
                                          jnp.asarray(av), gh, gw), np.asarray)
     loop = _seed_members(
         st["t_grid"], st["t_edges"], shifts, gh, gw,
-        lambda s, av: lines._propagate(torch.tensor([s]), st["t_edges"], shifts,
-                                       torch.from_numpy(av), gh, gw),
+        lambda s, av: line_grow_cuda._propagate(torch.tensor([s]), st["t_edges"], shifts,
+                                                torch.from_numpy(av), gh, gw),
         lambda x: x.numpy())
-    reach = lines._reach_closure(st["t_edges"], shifts, gh, gw)
+    reach = line_grow_cuda._reach_closure(st["t_edges"], shifts, gh, gw)
     closure = _seed_members(st["t_grid"], st["t_edges"], shifts, gh, gw,
                             lambda s, av: reach[s], lambda x: x.numpy())
     np.testing.assert_array_equal(loop, j_members)
@@ -243,8 +245,9 @@ def test_min_tiles_over_two_grows_each_seed(name):
 
 
 def test_growth_reads_the_host_only_in_the_loop(monkeypatch):
-    """The default detector takes every seed's members from the closure: no
-    host read; min_tiles = 3 reads once per GROW_CHUNK rounds of each seed."""
+    """On the CPU the default detector takes every seed's members from the
+    closure: no host read; min_tiles = 3 reads once per GROW_CHUNK rounds of
+    each seed."""
     reads = []
     real = torch.Tensor.item
     monkeypatch.setattr(torch.Tensor, "item", lambda self: reads.append(1) or real(self))
