@@ -67,8 +67,7 @@ import numpy as np
 import torch
 
 from rgbd_slam_tpu_torch import config, engine, runner, step_graph, synthetic
-from rgbd_slam_tpu_torch.ops import (cells_cuda, components_cuda, cylinders_cuda,
-                                     line_grow_cuda, lk_cuda, lm_cuda)
+from rgbd_slam_tpu_torch.ops import nvcc
 from rgbd_slam_tpu_torch.synthetic import _quat_from_euler
 
 #: (ate_frames, hard_frames, lines_frames, tunnel_frames): the default, and
@@ -226,12 +225,7 @@ def main() -> int:
     cam, cfg = config.TUM_FR1, config.SlamConfig()
     cfg_pred = dataclasses.replace(cfg, engine=dataclasses.replace(
         cfg.engine, use_motion_model_prediction=True))
-    lk_cuda.reset_launches()
-    components_cuda.reset_launches()
-    cells_cuda.reset_launches()
-    cylinders_cuda.reset_launches()
-    lm_cuda.reset_launches()
-    line_grow_cuda.reset_launches()
+    nvcc.reset_launches()
     t_start = time.perf_counter()
 
     frames_np, gt = room_orbit(cam, n_ate)
@@ -363,12 +357,8 @@ def main() -> int:
         "ba_runs": stats.ba_runs,
         "ba_accepted": stats.ba_accepted,
         **stats.backend_ms(),
-        "lk_launches": dict(lk_cuda.LAUNCHES),
-        "components_launches": dict(components_cuda.LAUNCHES),
-        "cells_launches": dict(cells_cuda.LAUNCHES),
-        "cylinders_launches": dict(cylinders_cuda.LAUNCHES),
-        "lm_launches": dict(lm_cuda.LAUNCHES),
-        "line_grow_launches": dict(line_grow_cuda.LAUNCHES),
+        **{f"{library.stem}_launches": dict(library.launches)
+           for library in nvcc.LIBRARIES if library.launches},
         "card": card,
         "torch": torch.__version__,
         "total_s": time.perf_counter() - t_start,

@@ -7,12 +7,14 @@ Phases, one line of output each (any failure raises, so the last line, the
 
 1. device: a CUDA card must be present (no CPU run); prints
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. build: compiles the LK kernels (``rgbd_slam_tpu_torch/csrc/lk.cu``), the
-   components kernel (``csrc/components.cu``), the plane extraction's cells
-   and cylinders kernels (``csrc/cells.cu``, ``csrc/cylinders.cu``) and the
-   LM kernel (``csrc/lm.cu``) with nvcc from the sources in this checkout, one
-   ``nvcc`` a source, started together; prints the seconds and what ptxas says
-   of each kernel's registers and spills.
+2. build: compiles every kernel library the package registers
+   (``ops.nvcc.LIBRARIES``: the LK kernels, ``rgbd_slam_tpu_torch/csrc/lk.cu``;
+   the components kernel, ``csrc/components.cu``; the plane extraction's cells
+   and cylinders kernels, ``csrc/cells.cu``, ``csrc/cylinders.cu``; the LM
+   kernel, ``csrc/lm.cu``; the line growth, ``csrc/line_grow.cu``; the step's
+   stamps, ``csrc/stamps.cu``) with nvcc from the sources in this checkout,
+   one ``nvcc`` a source, started together; prints the seconds and what ptxas
+   says of each kernel's registers and spills.
 3. kernels, each against its plain PyTorch version on the card, on a 640x480
    RoomScene frame pair with the default windows and levels:
    * fused forward-backward LK, 128 FAST points;
@@ -211,7 +213,7 @@ from rgbd_slam_tpu_torch.geometry import pinhole, se3
 from rgbd_slam_tpu_torch.io import checkpoint
 from rgbd_slam_tpu_torch.io.trajectory import ate_rmse
 from rgbd_slam_tpu_torch.ops import (cells_cuda, components_cuda, cylinders_cuda, fast, image,
-                                     line_grow_cuda, lk_cuda, lm_cuda)
+                                     line_grow_cuda, lk_cuda, lm_cuda, nvcc)
 from rgbd_slam_tpu_torch.ops.depth_cloud import depth_to_cloud
 from rgbd_slam_tpu_torch.parallel import ba, keyframes, pose_graph
 from rgbd_slam_tpu_torch.parallel.pose_graph import _np_quat_rotate
@@ -428,20 +430,6 @@ def ptxas_usage(log: str):
                                       "spill_store_bytes": int(spills.group(1)),
                                       "spill_load_bytes": int(spills.group(2))}
     return usage
-
-
-def reset_launches():
-    lk_cuda.reset_launches()
-    components_cuda.reset_launches()
-    cells_cuda.reset_launches()
-    cylinders_cuda.reset_launches()
-    lm_cuda.reset_launches()
-    line_grow_cuda.reset_launches()
-
-
-def launch_counts() -> dict:
-    return {**lk_cuda.LAUNCHES, **components_cuda.LAUNCHES, **cells_cuda.LAUNCHES,
-            **cylinders_cuda.LAUNCHES, **lm_cuda.LAUNCHES, **line_grow_cuda.LAUNCHES}
 
 
 def _room_pair(cam, device):
@@ -1827,12 +1815,12 @@ def profile_replays(graph, frames):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    before = launch_counts()
+    before = nvcc.launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for gray, depth in frames:
             graph.step(gray, depth)
         torch.cuda.synchronize()
-    counted = {k: v - before[k] for k, v in launch_counts().items()}
+    counted = {k: v - before[k] for k, v in nvcc.launch_counts().items()}
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     seen = {k: sum(e.name.startswith(LAUNCH_MARKS[k]) for e in on_card)
             for k in counted}
@@ -2108,14 +2096,14 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
         line_matches.append(out.n_line_matches)
         cylinders.append(out.n_cylinders)
 
-    reset_launches()
+    nvcc.reset_launches()
     primitives.FIXPOINT_READS["components"] = 0
     timer = profiling.StageTimer(log=True)
     with traced_solves() as traced:
         state, traj, stats = runner.run_frames(
             frames, cam, cfg, with_planes=with_planes, with_lines=with_lines,
             ba_every=ba_every, seed=SEED, device=device, on_frame=on_frame, trace=timer)
-    launches = launch_counts()
+    launches = nvcc.launch_counts()
     fixpoint_reads = primitives.FIXPOINT_READS["components"]
 
     ate = runner.evaluate_against_ground_truth(traj, gt)["ate_rmse_mm"]
@@ -2302,9 +2290,8 @@ def run_tum_cli(cam, frames, poses, gt):
         with open(report_path) as f:
             report = json.load(f)
     stats = report["stats"]
-    launches = {**report["lk_launches"], **report["components_launches"],
-                **report["cells_launches"], **report["cylinders_launches"],
-                **report["lm_launches"], **report["line_grow_launches"]}
+    launches = {name: n for key, counts in report.items() if key.endswith("_launches")
+                for name, n in counts.items()}
     ate_file = ate_rmse(traj[:, 1:4], gt)
     vertices = sum(ln.startswith("v ") for ln in map_lines)
     features = sum(ln.startswith(("p ", "l ", "f ")) for ln in map_lines)
@@ -2351,7 +2338,7 @@ def run_checkpoint(cam, cfg, device, frames):
     last bit.  Returns the launch counts."""
     n, half = len(frames), len(frames) // 2
     timed = [(g, d, float(i)) for i, (g, d) in enumerate(frames)]
-    reset_launches()
+    nvcc.reset_launches()
     torch.use_deterministic_algorithms(True)
     try:
         with tempfile.TemporaryDirectory() as work:
@@ -2377,7 +2364,7 @@ def run_checkpoint(cam, cfg, device, frames):
                     finals.append({k: data[k] for k in data.files})
     finally:
         torch.use_deterministic_algorithms(False)
-    launches = launch_counts()
+    launches = nvcc.launch_counts()
     warmups = stats_a.warmup_steps + stats_b.warmup_steps + stats_c.warmup_steps
     a = np.concatenate([traj_a.positions_array(), np.array(traj_a.quaternions)], axis=1)
     b = np.concatenate([np.concatenate([traj_b.positions_array(), traj_c.positions_array()]),
@@ -2405,13 +2392,13 @@ def _sharded_backend_rank(rank, world_size, init_method, out_path, n_frames):
         frames, gt = [], None
         if rank == 0:
             frames, gt = room_frames(cam, n_frames)
-        reset_launches()
+        nvcc.reset_launches()
         _, traj, stats = runner.run_frames(frames, cam, cfg, seed=SEED, ba_every=8,
                                            ba_mesh=dist.group.WORLD, device="cuda")
         if rank == 0:
             report = dataclasses.asdict(stats)
             report.update(ate_rmse_mm=runner.evaluate_against_ground_truth(
-                traj, gt)["ate_rmse_mm"], launches=launch_counts())
+                traj, gt)["ate_rmse_mm"], launches=nvcc.launch_counts())
             with open(out_path, "w") as f:
                 json.dump(report, f)
         else:
@@ -2489,17 +2476,12 @@ def main() -> int:
     _say("device", card=card, torch=torch.__version__, cuda=torch.version.cuda)
 
     # one nvcc a source, started together
-    with ThreadPoolExecutor(6) as pool:
-        builds = {"csrc/lk.cu": pool.submit(lk_cuda.build),
-                  "csrc/components.cu": pool.submit(components_cuda.build),
-                  "csrc/cells.cu": pool.submit(cells_cuda.build),
-                  "csrc/cylinders.cu": pool.submit(cylinders_cuda.build),
-                  "csrc/lm.cu": pool.submit(lm_cuda.build),
-                  "csrc/line_grow.cu": pool.submit(line_grow_cuda.build)}
+    with ThreadPoolExecutor(len(nvcc.LIBRARIES)) as pool:
+        builds = {f"csrc/{library.source}": pool.submit(library.build)
+                  for library in nvcc.LIBRARIES}
         _say("build", **{src: f"{job.result():.1f} s" for src, job in builds.items()})
-    for log in (lk_cuda.BUILD_LOG, components_cuda.BUILD_LOG, cells_cuda.BUILD_LOG,
-                cylinders_cuda.BUILD_LOG, lm_cuda.BUILD_LOG, line_grow_cuda.BUILD_LOG):
-        for kernel, usage in ptxas_usage(log).items():
+    for library in nvcc.LIBRARIES:
+        for kernel, usage in ptxas_usage(library.log).items():
             _say("ptxas", kernel=kernel, **usage)
 
     cam = config.TUM_FR1

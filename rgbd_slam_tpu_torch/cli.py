@@ -34,7 +34,7 @@ from .config import TUM_FR1, CameraIntrinsics, SlamConfig, load_camera_yaml
 from .io import datasets
 from .io.map_writer import export_slam_map
 from .io.trajectory import ate_rmse
-from .ops import cells_cuda, components_cuda, cylinders_cuda, line_grow_cuda, lk_cuda, lm_cuda
+from .ops import nvcc
 
 CAMERAS = {
     "tum_fr1": TUM_FR1,
@@ -145,12 +145,8 @@ def main(argv=None) -> int:
     if report:
         with open(report, "w") as f:
             json.dump({"stats": dataclasses.asdict(stats),
-                       "lk_launches": dict(lk_cuda.LAUNCHES),
-                       "components_launches": dict(components_cuda.LAUNCHES),
-                       "cells_launches": dict(cells_cuda.LAUNCHES),
-                       "cylinders_launches": dict(cylinders_cuda.LAUNCHES),
-                       "lm_launches": dict(lm_cuda.LAUNCHES),
-                       "line_grow_launches": dict(line_grow_cuda.LAUNCHES)}, f)
+                       **{f"{library.stem}_launches": dict(library.launches)
+                          for library in nvcc.LIBRARIES if library.launches}}, f)
     return 0
 
 

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import time
 from typing import NamedTuple
 
 import torch
@@ -33,12 +32,6 @@ from ..config import CameraIntrinsics, DepthNoiseModel, DetectionConfig
 from . import nvcc
 from .depth_cloud import depth_to_cloud
 
-#: launches of the kernel pair since import (or since :func:`reset_launches`)
-LAUNCHES = {"cells": 0}
-#: what nvcc printed when the loaded library was built
-BUILD_LOG = ""
-#: nvcc flags of this library beside ``nvcc.FLAGS``
-EXTRA_FLAGS = ("-fmad=false",)
 #: the depth range ``depth_to_cloud`` keeps (its defaults)
 MIN_DEPTH_MM = 40.0
 MAX_DEPTH_MM = 6000.0
@@ -55,8 +48,6 @@ FLOPS_PER_PAIR = 8
 #: mse 4, score 4, planar 1, tolerance 4, four edges 4, bin 4, centre 12, its
 #: valid flag 1
 BYTES_PER_CELL = 102
-
-_lib = None
 
 
 class CellPass(NamedTuple):
@@ -89,22 +80,14 @@ class _Args(ctypes.Structure):
             "q_floor", "sin_merge", "max_merge_dist", "cos_max")])
 
 
-def reset_launches():
-    LAUNCHES["cells"] = 0
-
-
-def build() -> float:
-    """Compile and load the kernel library if none is loaded yet.  Returns the
-    seconds spent (0.0 when already loaded)."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    lib, BUILD_LOG = nvcc.load_library("cells.cu", "cells", EXTRA_FLAGS)
+def _bind(lib):
     lib.cells_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
     lib.cells_launch.restype = ctypes.c_int
-    _lib = lib
-    return time.perf_counter() - t0
+
+
+LIBRARY = nvcc.Library("cells.cu", _bind, launches=("cells",), extra_flags=("-fmad=false",))
+#: launches of the kernel pair since import (``LIBRARY.launches``)
+LAUNCHES = LIBRARY.launches
 
 
 def merge_angle_cos(cfg: DetectionConfig) -> float:
@@ -175,7 +158,7 @@ def cells_cuda(depth_mm, cam: CameraIntrinsics,
     patch = cfg.depth_patch_size_px
     h, w = depth_mm.shape
     gh, gw = grid_shape(depth_mm, cfg)
-    build()
+    LIBRARY.build()
     dev = depth_mm.device
     c = gh * gw
 
@@ -197,7 +180,7 @@ def cells_cuda(depth_mm, cam: CameraIntrinsics,
                  noise.constant, noise.linear, noise.quadratic, noise.floor_mm,
                  math.sin(angle), cfg.max_plane_merge_distance_mm, math.cos(angle))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib.cells_launch(ctypes.byref(args), stream)
+    err = LIBRARY.lib.cells_launch(ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"cells kernel launch failed: cudaError {err}")
     LAUNCHES["cells"] += 1

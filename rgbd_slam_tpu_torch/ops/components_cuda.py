@@ -20,7 +20,6 @@ CUDA graph can record it.
 from __future__ import annotations
 
 import ctypes
-import time
 
 import torch
 
@@ -31,35 +30,21 @@ CC_CHUNK = 8
 #: convergence reads the plain version has made on the host (one a chunk); a
 #: caller sets it to 0 and reads it after a run.  The kernel makes none.
 FIXPOINT_READS = {"components": 0}
-#: launches of the CUDA kernel since import (or since :func:`reset_launches`)
-LAUNCHES = {"components": 0}
 #: shared memory a CTA may hold on Hopper (227 KB), the kernel's limit on the
 #: grid: an int32 label and uint16 flags a cell (``CC_SMEM_BYTES_PER_CELL``)
 MAX_SMEM_BYTES = 232448
 SMEM_BYTES_PER_CELL = 6
-#: what nvcc printed when the loaded library was built
-BUILD_LOG = ""
-
-_lib = None
 
 
-def reset_launches():
-    LAUNCHES["components"] = 0
-
-
-def build() -> float:
-    """Compile and load the kernel library if none is loaded yet.  Returns the
-    seconds spent (0.0 when already loaded)."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    lib, BUILD_LOG = nvcc.load_library("components.cu", "components")
+def _bind(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.components_launch.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
     lib.components_launch.restype = ctypes.c_int
-    _lib = lib
-    return time.perf_counter() - t0
+
+
+LIBRARY = nvcc.Library("components.cu", _bind, launches=("components",))
+#: launches of the CUDA kernel since import (``LIBRARY.launches``)
+LAUNCHES = LIBRARY.launches
 
 
 def check_grid(gh: int, gw: int):
@@ -95,11 +80,11 @@ def components_cuda(edges, planar, gh: int, gw: int):
             raise ValueError(f"{name} must be a bool tensor {shape} on {device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     edges, planar = edges.contiguous(), planar.contiguous()
-    build()
+    LIBRARY.build()
     labels = torch.empty((gh * gw,), dtype=torch.int64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _lib.components_launch(edges.data_ptr(), planar.data_ptr(), gh, gw,
-                                 labels.data_ptr(), stream)
+    err = LIBRARY.lib.components_launch(edges.data_ptr(), planar.data_ptr(), gh, gw,
+                                        labels.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"components kernel launch failed: cudaError {err}")
     LAUNCHES["components"] += 1

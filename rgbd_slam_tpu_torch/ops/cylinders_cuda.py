@@ -24,7 +24,6 @@ reads nothing back, so a CUDA graph can record it.
 from __future__ import annotations
 
 import ctypes
-import time
 from typing import NamedTuple
 
 import torch
@@ -32,12 +31,6 @@ import torch
 from ..config import DetectionConfig
 from . import nvcc
 
-#: launches of the kernel since import (or since :func:`reset_launches`)
-LAUNCHES = {"cylinders": 0}
-#: what nvcc printed when the loaded library was built
-BUILD_LOG = ""
-#: nvcc flags of this library beside ``nvcc.FLAGS``
-EXTRA_FLAGS = ("-fmad=false",)
 #: the kernel's limits (``CYL_MAX_*`` in ``csrc/cylinders.cu``)
 MAX_REGIONS = 64
 MAX_HYPOTHESES = 256
@@ -56,8 +49,6 @@ FLOPS_PROJECT_CELL = 30
 FLOPS_HYPOTHESIS = 60
 FLOPS_DISTANCE = 23
 FLOPS_REFIT_CELL = 59
-
-_lib = None
 
 
 class CylinderStage(NamedTuple):
@@ -83,22 +74,14 @@ class _Args(ctypes.Structure):
         + [(name, ctypes.c_float) for name in ("trunc", "min_score")])
 
 
-def reset_launches():
-    LAUNCHES["cylinders"] = 0
-
-
-def build() -> float:
-    """Compile and load the kernel library if none is loaded yet.  Returns the
-    seconds spent (0.0 when already loaded)."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    lib, BUILD_LOG = nvcc.load_library("cylinders.cu", "cylinders", EXTRA_FLAGS)
+def _bind(lib):
     lib.cylinders_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
     lib.cylinders_launch.restype = ctypes.c_int
-    _lib = lib
-    return time.perf_counter() - t0
+
+
+LIBRARY = nvcc.Library("cylinders.cu", _bind, launches=("cylinders",), extra_flags=("-fmad=false",))
+#: launches of the kernel since import (``LIBRARY.launches``)
+LAUNCHES = LIBRARY.launches
 
 
 def _sizes():
@@ -204,7 +187,7 @@ def cylinders_cuda(grid, member, try_cyl, cfg: DetectionConfig, min_activated: i
     k, c = member.shape
     if max_cyl > k:
         raise ValueError(f"{max_cyl} slots for {k} candidate regions")
-    build()
+    LIBRARY.build()
     dev = member.device
 
     def empty(*shape, dtype=torch.float32):
@@ -220,7 +203,7 @@ def cylinders_cuda(grid, member, try_cyl, cfg: DetectionConfig, min_activated: i
                  c, k, s_, n_hyp, min_activated, cfg.cylinder_ransac_sqrt_max_distance,
                  cfg.cylinder_ransac_min_score)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib.cylinders_launch(ctypes.byref(args), max_cyl, stream)
+    err = LIBRARY.lib.cylinders_launch(ctypes.byref(args), max_cyl, stream)
     if err != 0:
         raise RuntimeError(f"cylinders kernel launch failed: cudaError {err}")
     LAUNCHES["cylinders"] += 1

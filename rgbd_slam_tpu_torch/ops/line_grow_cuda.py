@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import time
 
 import torch
 
@@ -55,8 +54,6 @@ MAX_LINE_SEEDS = 16
 GROW_CHUNK = 8
 #: edge plane s: tile (y, x) may join from (y, x) - SHIFTS[s]
 SHIFTS = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
-#: launches of the CUDA kernel since import (or since :func:`reset_launches`)
-LAUNCHES = {"line_grow": 0}
 #: the largest grid the kernel takes: a lane of its warp holds a row of each
 #: chunk of 32 rows, in 32-tile words (1920x1080's 120x67 tiles among them)
 MAX_ROWS = 3 * 32
@@ -67,29 +64,17 @@ MAX_COLS = 4 * 32
 MAX_SMEM_BYTES = 232448
 PLANES = 9 + MAX_LINE_SEEDS
 HEAD_BYTES = 8 * MAX_LINE_SEEDS
-#: what nvcc printed when the loaded library was built
-BUILD_LOG = ""
-
-_lib = None
 
 
-def reset_launches():
-    LAUNCHES["line_grow"] = 0
-
-
-def build() -> float:
-    """Compile and load the kernel library if none is loaded yet.  Returns the
-    seconds spent (0.0 when already loaded)."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    lib, BUILD_LOG = nvcc.load_library("line_grow.cu", "line_grow")
+def _bind(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.line_grow_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
     lib.line_grow_launch.restype = ctypes.c_int
-    _lib = lib
-    return time.perf_counter() - t0
+
+
+LIBRARY = nvcc.Library("line_grow.cu", _bind, launches=("line_grow",))
+#: launches of the CUDA kernel since import (``LIBRARY.launches``)
+LAUNCHES = LIBRARY.launches
 
 
 def smem_bytes(gh: int, gw: int) -> int:
@@ -145,15 +130,16 @@ def grow_seeds_cuda(edges, is_line, weight, min_tiles: int, details: bool = Fals
     edges, is_line, weight = (x.contiguous() for x in (edges, is_line, weight))
     edges, is_line, weight = (x.clone() if x.data_ptr() % 16 else x
                               for x in (edges, is_line, weight))
-    build()
+    LIBRARY.build()
     members = torch.empty((MAX_LINE_SEEDS, t), dtype=torch.bool, device=device)
     proceed = torch.empty((MAX_LINE_SEEDS,), dtype=torch.bool, device=device)
     rounds = torch.empty((MAX_LINE_SEEDS,), dtype=torch.int32, device=device) \
         if details else None
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _lib.line_grow_launch(edges.data_ptr(), is_line.data_ptr(), weight.data_ptr(), gh,
-                                gw, int(min_tiles), members.data_ptr(), proceed.data_ptr(),
-                                rounds.data_ptr() if details else None, stream)
+    err = LIBRARY.lib.line_grow_launch(edges.data_ptr(), is_line.data_ptr(), weight.data_ptr(),
+                                       gh, gw, int(min_tiles), members.data_ptr(),
+                                       proceed.data_ptr(), rounds.data_ptr() if details else None,
+                                       stream)
     if err != 0:
         raise RuntimeError(f"line growth kernel launch failed: cudaError {err}")
     LAUNCHES["line_grow"] += 1

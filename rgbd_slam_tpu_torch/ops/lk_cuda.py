@@ -25,7 +25,6 @@ roofline bounds.
 from __future__ import annotations
 
 import ctypes
-import time
 
 import torch
 
@@ -33,34 +32,13 @@ from . import nvcc
 
 _MAX_LEVELS = 8  # LK_MAX_LEVELS in the kernel source
 
-#: launches of each CUDA kernel since import (or since :func:`reset_launches`)
-LAUNCHES = {"lk_fwd_bwd": 0, "lk_pyramid": 0, "lk_level": 0}
-
-#: what nvcc printed when the loaded library was built (ptxas -v: registers,
-#: shared memory and spills of each kernel); kept in a file beside the library
-BUILD_LOG = ""
-
-_lib = None
-_lib_profiled = False
+#: the nvcc flag of the phase-profile build (see :func:`profile_attach`):
+#: ``LIBRARY.build(PROFILE_FLAGS)`` takes the normal build's place and then
+#: stays, as it launches the same kernels
+PROFILE_FLAGS = ("-DLK_PHASE_PROFILE",)
 
 
-def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def build(profile: bool = False) -> float:
-    """Compile and load the kernel library if none is loaded yet
-    (:func:`nvcc.load_library`).  ``profile`` asks for the
-    ``-DLK_PHASE_PROFILE`` build (see :func:`profile_attach`), which takes the
-    normal one's place and then stays: it launches the same kernels.  Returns
-    the seconds spent (0.0 when already loaded)."""
-    global _lib, _lib_profiled, BUILD_LOG
-    if _lib is not None and (_lib_profiled or not profile):
-        return 0.0
-    t0 = time.perf_counter()
-    lib, BUILD_LOG = nvcc.load_library(
-        "lk.cu", "lk", ["-DLK_PHASE_PROFILE"] if profile else [])
+def _bind(lib):
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.lk_fwd_bwd_launch.argtypes = [ptrs, ptrs, ctypes.POINTER(ctypes.c_int), i32, i32,
@@ -71,23 +49,26 @@ def build(profile: bool = False) -> float:
                                     ptr, ptr, i32, ptr]
     for fn in (lib.lk_fwd_bwd_launch, lib.lk_pyramid_launch, lib.lk_level_launch):
         fn.restype = ctypes.c_int
-    if profile:
-        lib.lk_profile_attach.argtypes = [ptr, i32, i32]
-        lib.lk_profile_attach.restype = ctypes.c_int
-    _lib, _lib_profiled = lib, profile
-    return time.perf_counter() - t0
+
+
+LIBRARY = nvcc.Library("lk.cu", _bind, launches=("lk_fwd_bwd", "lk_pyramid", "lk_level"))
+#: launches of each CUDA kernel since import (``LIBRARY.launches``)
+LAUNCHES = LIBRARY.launches
 
 
 def profile_attach(buffer, ctas: int, capacity: int):
     """Point the phase marks of a ``LK_PHASE_PROFILE`` build at ``buffer``, a
     zeroed int64 CUDA tensor [ctas, capacity, 3] of (tag, clock64, global timer
     ns) records, one row per CTA; the tags are listed in the kernel source."""
-    if not _lib_profiled:
-        raise RuntimeError("load the profiled library first: build(profile=True)")
+    if not set(PROFILE_FLAGS) <= set(LIBRARY.flags):
+        raise RuntimeError("load the profiled library first: LIBRARY.build(PROFILE_FLAGS)")
     _check("buffer", buffer, buffer.device, torch.int64, shape=(ctas, capacity, 3))
     if buffer.device.type != "cuda":
         raise ValueError("the profile buffer must be a CUDA tensor")
-    err = _lib.lk_profile_attach(buffer.data_ptr(), ctas, capacity)
+    attach = LIBRARY.lib.lk_profile_attach
+    attach.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    attach.restype = ctypes.c_int
+    err = attach(buffer.data_ptr(), ctas, capacity)
     if err != 0:
         raise RuntimeError(f"lk_profile_attach failed: cudaError {err}")
 
@@ -228,12 +209,12 @@ def lk_fwd_bwd_cuda(prev_pyramid, next_pyramid, points, valid, levels: int = 4,
         raise ValueError(f"bwd_levels must be in [0, {levels}], got {bwd_levels}")
     prev, nxt, dims = _check_pyramids(prev_pyramid, next_pyramid, levels, device, win_h,
                                       win_w, coarse_win, coarse_from_level)
-    build()
+    LIBRARY.build()
     out_points = torch.empty((n, 2), dtype=torch.float32, device=device)
     out_ok = torch.empty((n,), dtype=torch.bool, device=device)
     if n:
-        _launch("lk_fwd_bwd", _lib.lk_fwd_bwd_launch, prev, nxt, dims, levels, bwd_top,
-                iterations, float(eps * eps), float(max_roundtrip * max_roundtrip),
+        _launch("lk_fwd_bwd", LIBRARY.lib.lk_fwd_bwd_launch, prev, nxt, dims, levels,
+                bwd_top, iterations, float(eps * eps), float(max_roundtrip * max_roundtrip),
                 points.data_ptr(), valid.data_ptr(), out_points.data_ptr(),
                 out_ok.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
     return out_points, out_ok
@@ -247,13 +228,14 @@ def lk_pyramid_cuda(prev_pyramid, next_pyramid, points, valid, levels: int = 4,
     device, n = _check_points(points, valid)
     prev, nxt, dims = _check_pyramids(prev_pyramid, next_pyramid, levels, device, win_h,
                                       win_w, coarse_win, coarse_from_level)
-    build()
+    LIBRARY.build()
     out_flow = torch.empty((n, 2), dtype=torch.float32, device=device)
     out_ok = torch.empty((n,), dtype=torch.bool, device=device)
     if n:
-        _launch("lk_pyramid", _lib.lk_pyramid_launch, prev, nxt, dims, levels, iterations,
-                float(eps * eps), points.data_ptr(), valid.data_ptr(), out_flow.data_ptr(),
-                out_ok.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
+        _launch("lk_pyramid", LIBRARY.lib.lk_pyramid_launch, prev, nxt, dims, levels,
+                iterations, float(eps * eps), points.data_ptr(), valid.data_ptr(),
+                out_flow.data_ptr(), out_ok.data_ptr(), n,
+                torch.cuda.current_stream(device).cuda_stream)
     return out_flow, out_ok
 
 
@@ -271,14 +253,14 @@ def lk_level_cuda(prev_img, next_img, points, guesses, valid, win_h: int, win_w:
     _check("prev_img", prev_img, device, torch.float32, ndim=2)
     _check("next_img", next_img, device, torch.float32, shape=prev_img.shape)
     _check_level_window(prev_img.shape, win_h, win_w)
-    build()
+    LIBRARY.build()
     out_guesses = torch.empty((n, 2), dtype=torch.float32, device=device)
     out_ok = torch.empty((n,), dtype=torch.bool, device=device)
     lh, lw = prev_img.shape
     if n:
-        _launch("lk_level", _lib.lk_level_launch, prev_img.data_ptr(), next_img.data_ptr(),
-                lh, lw, win_h, win_w, iterations, float(eps * eps), points.data_ptr(),
-                guesses.data_ptr(), valid.data_ptr(), out_guesses.data_ptr(),
+        _launch("lk_level", LIBRARY.lib.lk_level_launch, prev_img.data_ptr(),
+                next_img.data_ptr(), lh, lw, win_h, win_w, iterations, float(eps * eps),
+                points.data_ptr(), guesses.data_ptr(), valid.data_ptr(), out_guesses.data_ptr(),
                 out_ok.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
     return out_guesses, out_ok
 

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import time
 from typing import NamedTuple
 
 import torch
@@ -39,10 +38,6 @@ from ..pose.linalg6 import solve6_spd
 from ..pose.residuals import PreparedFeatures, residual_vector_prepared
 from . import nvcc
 
-#: launches of the CUDA kernel since import (or since :func:`reset_launches`)
-LAUNCHES = {"lm_solve": 0}
-#: what nvcc printed when the loaded library was built
-BUILD_LOG = ""
 #: each block's scale, alpha / parts (``residual_vector_prepared``)
 SCALES = (POINT_ALPHA / 2.0, POINT2D_ALPHA / 2.0, PLANE_ALPHA / 3.0, LINE_ALPHA / 2.0)
 
@@ -65,8 +60,6 @@ MAX_THREADS = 128
 #: most features a member: the kernel lists a member's live features in shared
 #: memory, 4 bytes each, within ``LM_MAX_LIST_BYTES``
 MAX_FEATURES = 8192
-
-_lib = None
 
 
 class LMInputs(NamedTuple):
@@ -148,10 +141,6 @@ def prepared(inputs: LMInputs) -> PreparedFeatures:
         line_mask=mask(inputs.line_mask))
 
 
-def reset_launches():
-    LAUNCHES["lm_solve"] = 0
-
-
 class _Args(ctypes.Structure):
     """``LMArgs`` of ``csrc/lm.cu``, field for field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
@@ -164,19 +153,15 @@ class _Args(ctypes.Structure):
         + [("scale", ctypes.c_float * 4)])
 
 
-def build() -> float:
-    """Compile and load the kernel library if none is loaded yet.  Returns the
-    seconds spent (0.0 when already loaded)."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    lib, BUILD_LOG = nvcc.load_library("lm.cu", "lm")
+def _bind(lib):
     lib.lm_solve_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int,
                                     ctypes.c_void_p]
     lib.lm_solve_launch.restype = ctypes.c_int
-    _lib = lib
-    return time.perf_counter() - t0
+
+
+LIBRARY = nvcc.Library("lm.cu", _bind, launches=("lm_solve",))
+#: launches of the CUDA kernel since import (``LIBRARY.launches``)
+LAUNCHES = LIBRARY.launches
 
 
 def lm_solve(inputs: LMInputs, coeffs0, iterations: int, damping0: float,
@@ -352,7 +337,7 @@ def lm_solve_cuda(inputs: LMInputs, coeffs0, iterations: int, damping0: float,
              torch.empty((b, iterations + 1, TRACE_ROW), dtype=torch.float32, device=device)
              ) if details else None
     if b > 0:
-        build()
+        LIBRARY.build()
         ptrs = [t.data_ptr() for t in flat] + [coeffs.data_ptr(), out.data_ptr(),
                                                cost.data_ptr()]
         ptrs += [t.data_ptr() for t in extra] if details else [None] * 4
@@ -360,7 +345,7 @@ def lm_solve_cuda(inputs: LMInputs, coeffs0, iterations: int, damping0: float,
                      iterations, inputs.fx, inputs.fy, inputs.cx, inputs.cy, damping0,
                      (ctypes.c_float * 4)(*SCALES))
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _lib.lm_solve_launch(ctypes.byref(args), threads, list_bytes, stream)
+        err = LIBRARY.lib.lm_solve_launch(ctypes.byref(args), threads, list_bytes, stream)
         if err != 0:
             raise RuntimeError(f"LM kernel launch failed: cudaError {err}")
         LAUNCHES["lm_solve"] += 1

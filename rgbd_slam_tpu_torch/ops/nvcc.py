@@ -2,6 +2,11 @@
 package into a shared library with a plain C interface under
 ``rgbd_slam_tpu_torch/_build/``, loaded with ctypes.
 
+Each kernel wrapper makes one :class:`Library` of its source when it is
+imported, and every library registers in :data:`LIBRARIES`: the helpers below
+count, reset and take back the launches of every kernel through it, so that
+no other module lists the kernels.
+
 The library's name carries the hash of its source, of the headers beside it
 (``csrc/*.cuh``) and of its flags, so an edited source or header is rebuilt and an unchanged one is loaded as it is.  What ``nvcc``
 printed (``-Xptxas -v``: each kernel's registers, shared memory and spills) is
@@ -15,10 +20,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "..", "csrc")
 BUILD_DIR = os.path.join(_HERE, "..", "_build")
+#: every kernel library made so far, in the order their wrappers were imported
+LIBRARIES: list[Library] = []
 #: Hopper with its architecture-specific features (``sm_90a``)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -62,3 +70,74 @@ def load_library(source: str, stem: str, extra_flags=()):
     with open(log_path) as f:
         log = f.read()
     return ctypes.CDLL(so_path), log
+
+
+class Library:
+    """``csrc/<source>`` as a ctypes library, built on first use, and the
+    launch counts of its kernels.  ``bind(lib)`` declares the argument and
+    result types of the library's functions; ``launches`` names the kernels
+    whose launches the wrapper counts (into :attr:`launches`); ``extra_flags``
+    go to every build, beside ``FLAGS``.  Made once by its wrapper, at import,
+    and registered in :data:`LIBRARIES`."""
+
+    def __init__(self, source: str, bind, launches=(), extra_flags=()):
+        self.source = source
+        self.stem = os.path.splitext(source)[0]
+        self.extra_flags = tuple(extra_flags)
+        self._bind = bind
+        #: the loaded ``ctypes.CDLL`` (None until :meth:`build`), the flags its
+        #: build took beside ``FLAGS`` and ``extra_flags``, and what nvcc
+        #: printed for it (``-Xptxas -v``: each kernel's registers, shared
+        #: memory and spills)
+        self.lib = None
+        self.flags = ()
+        self.log = ""
+        #: launches of each kernel since import (or since :func:`reset_launches`)
+        self.launches = dict.fromkeys(launches, 0)
+        LIBRARIES.append(self)
+
+    def build(self, extra_flags=()) -> float:
+        """Compile and load the library (:func:`load_library`) unless one built
+        with every flag of ``extra_flags`` is loaded: a build with more flags
+        takes the loaded one's place and then stays.  Returns the seconds
+        spent (0.0 when already loaded)."""
+        if self.lib is not None and set(extra_flags) <= set(self.flags):
+            return 0.0
+        t0 = time.perf_counter()
+        lib, log = load_library(self.source, self.stem, (*self.extra_flags, *extra_flags))
+        self._bind(lib)
+        self.lib, self.flags, self.log = lib, tuple(extra_flags), log
+        return time.perf_counter() - t0
+
+
+def launch_counts() -> dict:
+    """{kernel: launches} over every library."""
+    return {name: n for library in LIBRARIES for name, n in library.launches.items()}
+
+
+def reset_launches():
+    """Every kernel's launch count back to 0."""
+    for library in LIBRARIES:
+        for name in library.launches:
+            library.launches[name] = 0
+
+
+def take_back(fn):
+    """``fn()``, with the launches it counted taken back off every library's
+    counts: what a CUDA graph's capture needs, since a wrapper counts its
+    launches when Python calls it and a replay calls none.  Returns (``fn``'s
+    result, the launches taken back, for :func:`add_launches`)."""
+    before = [(library, dict(library.launches)) for library in LIBRARIES]
+    out = fn()
+    added = [(library, {name: library.launches[name] - n for name, n in counts.items()})
+             for library, counts in before]
+    for library, counts in before:
+        library.launches.update(counts)
+    return out, added
+
+
+def add_launches(added):
+    """Add launches that :func:`take_back` took back: one replay's."""
+    for library, counts in added:
+        for name, n in counts.items():
+            library.launches[name] += n

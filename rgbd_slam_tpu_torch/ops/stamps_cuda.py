@@ -11,27 +11,18 @@ CUDA events would not do there: every replay of a graph overwrites them.
 from __future__ import annotations
 
 import ctypes
-import time
 
 import torch
 
 from . import nvcc
 
-_lib = None
 
-
-def build() -> float:
-    """Compile and load the kernel library if none is loaded yet.  Returns the
-    seconds spent (0.0 when already loaded)."""
-    global _lib
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    lib, _ = nvcc.load_library("stamps.cu", "stamps")
+def _bind(lib):
     lib.stamp_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.stamp_launch.restype = ctypes.c_int
-    _lib = lib
-    return time.perf_counter() - t0
+
+
+LIBRARY = nvcc.Library("stamps.cu", _bind)
 
 
 def stamp(slots, slot: int):
@@ -43,8 +34,8 @@ def stamp(slots, slot: int):
                          f"{slots.dtype} on {slots.device}")
     if not 0 <= slot < slots.numel():
         raise IndexError(f"slot {slot} of {slots.numel()}")
-    build()
+    LIBRARY.build()
     stream = torch.cuda.current_stream(slots.device).cuda_stream
-    err = _lib.stamp_launch(slots.data_ptr(), slot, stream)
+    err = LIBRARY.lib.stamp_launch(slots.data_ptr(), slot, stream)
     if err != 0:
         raise RuntimeError(f"stamp kernel launch failed: cudaError {err}")

@@ -10,7 +10,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
-import inspect
 import itertools
 import time
 from dataclasses import dataclass, field
@@ -146,8 +145,7 @@ class RunStats:
 
 
 #: the backend's cadence, the JAX runner's batch: frame 0 forms a group alone,
-#: then frames 1-8, 9-16, ...; a refine decided at a frame runs once the step of
-#: the frame that closes its group has been issued, before the next one is
+#: then frames 1-8, 9-16, ... (``_HandOver``)
 SUMMARY_BATCH = 8
 #: float32 entries of a frame's summary before the step's stamps
 SUMMARY_WIDTH = 15
@@ -158,16 +156,15 @@ _END = object()
 @dataclass
 class _Issued:
     """A frame whose step has been issued and that the loop has not processed:
-    what ``_process`` takes, and its summary on the way to the host (``sent``:
-    a host tensor, or on a card a row of the page-locked ring and the event
-    behind its copy) until ``row`` holds it."""
+    what ``_HandOver``'s consumer takes, its ``summary`` as ``_HandOver.send``
+    sent it, and the summary's ``row`` once it is on the host."""
     i: int
     ts: float
     state: object
     out: object
     kf_obs: object
     uploaded: bool
-    sent: object
+    summary: object
     row: np.ndarray | None = None
 
 
@@ -217,35 +214,13 @@ def _pack_summary(out: engine.StepOutput, stamps=None):
     return torch.cat(parts)
 
 
-def _split_summaries(raw: np.ndarray):
-    """Read summaries [n, SUMMARY_WIDTH (+ 2 a stamp)] float32: (the summaries
-    as float64 [n, SUMMARY_WIDTH], the stamps int64 [n, k] or None)."""
-    rows = raw[:, :SUMMARY_WIDTH].astype(np.float64)
-    if raw.shape[1] == SUMMARY_WIDTH:
-        return rows, None
-    return rows, np.ascontiguousarray(raw[:, SUMMARY_WIDTH:]).view(np.int64)
-
-
-def _add_stamps(stats: RunStats, names, stamps, last_end, upload_slots=None):
-    """Add one replay's stamps (``names``: the path's ``profiling.stamps``, ns
-    of the card's clock) to the device sums of ``stats``, each stage by its
-    name, and with ``upload_slots`` (``step_graph.stamp_slots``) its frame's
-    upload.  ``last_end`` is the replay before's last stamp; None for a
-    sequence's first frame, which is left out (its capture runs before it).
-    Returns this replay's last stamp."""
-    times = [int(t) for t in stamps[:len(names)]]
-    if upload_slots is not None:
-        start, end = (int(stamps[k]) for k in upload_slots)
-        stats.upload_device_us += 1e-3 * (end - start)
-        stats.upload_frames += 1
-    if last_end is not None:
-        sums = stats.stage_device_us
-        for stage, start, end in zip(names[1:], times, times[1:]):
-            sums[stage] = sums.get(stage, 0.0) + 1e-3 * (end - start)
-        stats.graph_span_us += 1e-3 * (times[-1] - times[0])
-        stats.replay_gap_us += 1e-3 * (times[0] - last_end)
-        stats.stamped_frames += 1
-    return times[-1]
+def _split_summary(row: np.ndarray):
+    """Read one summary row [SUMMARY_WIDTH (+ 2 a stamp)] float32: (the summary
+    as float64 [SUMMARY_WIDTH], the stamps int64 [k] or None)."""
+    summary = row[:SUMMARY_WIDTH].astype(np.float64)
+    if row.shape[0] == SUMMARY_WIDTH:
+        return summary, None
+    return summary, np.ascontiguousarray(row[SUMMARY_WIDTH:]).view(np.int64)
 
 
 def _on_host(x, device) -> bool:
@@ -324,34 +299,278 @@ def _apply_graph_correction(traj: Trajectory, node_fids, new_quats, new_pos):
             traj.quaternions[f] = _np_quat_mul(q_d, traj.quaternions[f])
 
 
-def _with_refine_servers(run):
-    """``run_frames`` over a process group: rank 0 runs ``run`` and, whatever
-    happens in it, tells the other ranks to stop at the end; the other ranks
-    serve its refines and return ``(None, None, stats)``."""
-    signature = inspect.signature(run)
-
-    @functools.wraps(run)
-    def wrapper(*args, **kw):
-        bound = signature.bind(*args, **kw)
-        bound.apply_defaults()
-        group = bound.arguments["ba_mesh"]
-        if group is None:
-            return run(*args, **kw)
-        device = resolve_device(bound.arguments["device"])
-        if dist.get_rank(group) != 0:
-            served = serve_refines(group, bound.arguments["cam"],
-                                   anchor_weights=bound.arguments["ba_anchor_weights"],
-                                   device=device)
-            return None, None, RunStats(ba_runs=served)
-        try:
-            return run(*args, **kw)
-        finally:
-            stop_serving(group, device)
-
-    return wrapper
+def _receive(frame: _Issued) -> np.ndarray:
+    """``frame``'s summary row on the host; where its copy is still under
+    way, the host waits on its event (``summary_waits``), which leaves the
+    steps queued behind it running."""
+    if frame.row is None:
+        with profiling.span("deliver.wait"):
+            if isinstance(frame.summary, torch.Tensor):
+                frame.row = frame.summary.numpy()
+            else:
+                row, event = frame.summary
+                if not event.query():
+                    profiling.count("summary_waits")
+                    event.synchronize()
+                frame.row = row.numpy().copy()
+    return frame.row
 
 
-@_with_refine_servers
+class _HandOver:
+    """The frames whose step has been issued, on their way to the host, handed
+    in order to ``consumer.process(frame, row, dt)`` (``dt``: the host's time
+    since the frame before was handed over), which returns whether a refine is
+    due at the frame; ``consumer.refine()`` runs it once the frame that closes
+    its group of ``SUMMARY_BATCH`` has been issued and received, the frames
+    after it waiting with it.  ``refine_every``: the backend's cadence or None."""
+
+    def __init__(self, consumer, refine_every: int | None):
+        self._consumer, self._refine_every = consumer, refine_every
+        self._issued = collections.deque()   # frames whose step is issued, not yet processed
+        self._ring = []     # on a card, (page-locked row, event) pairs the summaries come back in
+        self._held = None   # the frame that closes a due refine's group, until the refine runs
+        self._t_prev = time.perf_counter()
+
+    def send(self, i: int, summary):
+        """Start frame ``i``'s summary towards the host (elsewhere than on a
+        card it is there already): an asynchronous copy into a row of the
+        page-locked ring, an event recorded behind it.  A held refine keeps at
+        most ``SUMMARY_BATCH`` frames unprocessed, so a row of the ring's
+        ``SUMMARY_BATCH + 1`` is written again only after its frame's read."""
+        if summary.device.type != "cuda":
+            return summary
+        if not self._ring:
+            rows = torch.empty((SUMMARY_BATCH + 1, summary.numel()), dtype=summary.dtype,
+                               pin_memory=True)
+            self._ring.extend((row, torch.cuda.Event()) for row in rows)
+        row, event = self._ring[i % len(self._ring)]
+        row.copy_(summary, non_blocking=True)
+        event.record()
+        return row, event
+
+    def issue(self, frame: _Issued):
+        """Queue a frame whose step has been issued, and hand over what is due."""
+        self._issued.append(frame)
+        self.deliver(frame.i)
+
+    def deliver(self, j: int, end: bool = False):
+        """Process the issued frames once frame ``j``'s step has been issued:
+        those before ``j``, and ``j`` itself where it is frame 0 or closes its
+        group with a refine possibly due at it (the refine must write back
+        before the next step); at the ``end``, every one."""
+        closes = (self._refine_every is not None and j % SUMMARY_BATCH == 0
+                  and (j + 1) % self._refine_every == 0)
+        bound = j + 1 if end or j == 0 or closes else j
+        while True:
+            if self._held is not None:
+                if self._held > j and not end:
+                    return
+                if self._issued:
+                    _receive(self._issued[-1])   # the frame that closes the group
+                self._consumer.refine()
+                self._held = None
+            if not self._issued or self._issued[0].i >= bound:
+                return
+            frame = self._issued.popleft()
+            with profiling.span("deliver"):
+                row = _receive(frame)
+                now = time.perf_counter()
+                dt, self._t_prev = now - self._t_prev, now
+                with profiling.span("deliver.process"):
+                    if self._consumer.process(frame, row, dt):
+                        self._held = -(-frame.i // SUMMARY_BATCH) * SUMMARY_BATCH
+
+
+class _Consumer:
+    """What a frame handed over goes into: the counts and the device stamps'
+    sums of ``RunStats``, the trajectory, the map export, ``on_frame`` and,
+    with a ``_Backend``, its keyframe gate and refines."""
+
+    def __init__(self, stats: RunStats, traj: Trajectory, stepper, timer, map_writer,
+                 on_frame, backend):
+        self._stats, self._traj, self._stepper, self._timer = stats, traj, stepper, timer
+        self._map_writer, self._on_frame, self._backend = map_writer, on_frame, backend
+        self._last_stamp = None    # the last stamp of the replay before
+        self._clone_bytes = None   # what a frame's copies out of the graph's buffers hold
+
+    def keep(self, frame_state, out):
+        """Copies of what the next replay overwrites, where they are read."""
+        keep_out = self._on_frame is not None or self._map_writer is not None
+        with profiling.span("frame.clone"):
+            frame_state = (step_graph.clone_tree(frame_state) if self._on_frame is not None
+                           else None)
+            out = step_graph.clone_tree(out) if keep_out else None
+        if self._timer is not None and (frame_state is not None or out is not None):
+            if self._clone_bytes is None:
+                self._clone_bytes = sum(
+                    t.nbytes for t in step_graph.tensor_leaves((frame_state, out)))
+            profiling.count("clone_bytes", self._clone_bytes)
+        return frame_state, out
+
+    def process(self, frame: _Issued, row: np.ndarray, dt: float) -> bool:
+        """Consume one frame's summary row.  ``frame.state`` is the state of the
+        same step as ``frame.out`` (its slots align with ``out``'s records) and
+        ``frame.kf_obs`` its keyframe observation record; each is None where
+        nothing reads it.  Returns whether a refine is due at this frame."""
+        summary, stamps = _split_summary(row)
+        if stamps is not None:
+            self._add_stamps(frame.i, stamps, frame.uploaded)
+        stats = self._stats
+        stats.frame_count += 1
+        stats.total_step_s += dt
+        if frame.i == 0:
+            stats.compile_s = dt
+            stats.warmup_steps = self._stepper.warmup_steps
+        stats.success_count += int(summary[7] > 0.5)
+        stats.lost_count += int(summary[8] > 0.5)
+        stats.lines_detected += int(summary[12])
+        stats.line_matches += int(summary[13])
+        stats.lines_alive = int(summary[14])
+        self._traj.append(frame.ts, summary[0:3], summary[3:7])
+        if self._map_writer is not None and summary[9] > 0.5:   # n_evicted
+            with profiling.span("map_export"):
+                stats.map_streamed += append_dying_features(self._map_writer, frame.out)
+        if self._on_frame is not None:
+            # before the backend: a refine delays the frames after it, not its
+            # own, whose copies it does not touch
+            with profiling.span("on_frame"):
+                self._on_frame(frame.i, frame.state, frame.out, dt)
+        return self._backend is not None and self._backend.observe(
+            frame.i, frame.ts, summary, frame.kf_obs, self._stats)
+
+    def refine(self):
+        self._backend.refine(self._stepper, self._traj, self._stats)
+
+    def _add_stamps(self, i: int, stamps, uploaded: bool):
+        """Add one replay's stamps (the path's ``profiling.stamps``, ns of the
+        card's clock) to the device sums of ``RunStats``, each stage by its name,
+        and where the frame crossed from the host its upload.  A sequence's first
+        frame gives the clock offset and is left out (its capture runs before)."""
+        stats, stepper = self._stats, self._stepper
+        if i == 0:
+            before, after = stepper.clock_bracket
+            stats.clock_offset_ns = int(stamps[stepper.offset_slot]) - (before + after) // 2
+            stats.clock_offset_err_ns = (after - before + 1) // 2
+        names = stepper.stamp_names
+        times = [int(t) for t in stamps[:len(names)]]
+        if uploaded:
+            start, end = (int(stamps[k]) for k in stepper.upload_slots)
+            stats.upload_device_us += 1e-3 * (end - start)
+            stats.upload_frames += 1
+        if self._last_stamp is not None:
+            sums = stats.stage_device_us
+            for stage, start, end in zip(names[1:], times, times[1:]):
+                sums[stage] = sums.get(stage, 0.0) + 1e-3 * (end - start)
+            stats.graph_span_us += 1e-3 * (times[-1] - times[0])
+            stats.replay_gap_us += 1e-3 * (times[0] - self._last_stamp)
+            stats.stamped_frames += 1
+        self._last_stamp = times[-1]
+        self._timer.device_stages(names[1:], stamps[:len(names)], stats.clock_offset_ns)
+
+
+class _Backend:
+    """The keyframe backend of a run (``run_frames``' ``ba_*``, ``kf_*`` and
+    pose-graph options): the ``KeyframeWindow`` of the keyframes the motion
+    gate selects, and with ``with_pose_graph`` a ``PoseGraph`` over their
+    chain.  A keyframe's observation pack stays on the device until a refine."""
+
+    def __init__(self, cam: CameraIntrinsics, device, every: int, window: int, iterations: int,
+                 mesh, anchor_weights, min_trans_mm: float, min_rot_deg: float,
+                 pose_graph: bool, update_map: bool, correct_traj: bool):
+        self._cam, self._mesh, self._every, self._iterations = cam, mesh, every, iterations
+        self._min_trans_mm, self._min_rot_deg = min_trans_mm, min_rot_deg
+        self._update_map, self._correct_traj = update_map, correct_traj
+        self._window = KeyframeWindow(max_keyframes=window, anchor_weights=anchor_weights,
+                                      device=device)
+        self._graph = PoseGraph(device=device) if pose_graph else None
+        self._pending = []   # keyframe packs read by the host only when a refine needs them
+        self._last_quat = self._last_pos = None
+
+    def observe(self, i: int, ts: float, summary, kf_obs, stats: RunStats) -> bool:
+        """The keyframe gate: a tracked frame that moved far enough from the
+        last keyframe becomes one.  Returns whether a refine is due at it."""
+        if not summary[7] > 0.5:   # success
+            return False
+        pos, quat = summary[0:3], summary[3:7]
+        is_kf = self._last_quat is None
+        if not is_kf:
+            trans_mm = float(np.linalg.norm(pos - self._last_pos))
+            dot = min(abs(float(np.dot(quat, self._last_quat))), 1.0)
+            rot_deg = float(np.degrees(2.0 * np.arccos(dot)))
+            is_kf = trans_mm >= self._min_trans_mm or rot_deg >= self._min_rot_deg
+        if is_kf:
+            stats.keyframe_count += 1
+            self._last_quat, self._last_pos = quat, pos
+            self._pending.append((quat, pos, *kf_obs, ts, i))
+            if self._graph is not None:
+                self._graph.add_keyframe(i, quat, pos)
+        return self._window.n_keyframes + len(self._pending) >= 3 and (i + 1) % self._every == 0
+
+    def refine(self, stepper, traj: Trajectory, stats: RunStats):
+        """Refine the window; an accepted refinement corrects the live map and
+        the trajectory, through the pose graph where there is one."""
+        window, graph = self._window, self._graph
+        with profiling.span("backend"):
+            if self._pending:
+                with profiling.span("backend.keyframes"):
+                    # every waiting keyframe's pack in two reads
+                    fobs = torch.stack([kf[2] for kf in self._pending]).cpu().numpy()
+                    kf_fids = torch.stack([kf[3] for kf in self._pending]).cpu().numpy()
+                    profiling.count("device_reads.keyframes", 2)
+                    for (q_, p_, _, _, ts_, i_), fo_, fi_ in zip(self._pending, fobs, kf_fids):
+                        window.add_keyframe_packed(q_, p_, fo_, fi_, timestamp=ts_, frame_id=i_)
+                    self._pending.clear()
+            t_ba = time.perf_counter()
+            with profiling.span("backend.refine"):
+                res = window.refine(self._cam, iterations=self._iterations, mesh=self._mesh)
+            if res is None:
+                return
+            refined, device_lm, costs = res
+            stats.ba_runs += 1
+            dt_ba = time.perf_counter() - t_ba
+            stats.ba_total_s += dt_ba
+            if stats.ba_runs == 1:
+                stats.ba_compile_s = dt_ba
+            stats.ba_total_iters += self._iterations
+            if np.isfinite(costs).all() and costs[-1] < costs[0]:
+                stats.ba_accepted += 1
+                if self._update_map:
+                    with profiling.span("backend.apply"):
+                        window.apply_refinement(refined, device_lm)
+                        # the live state may be up to a group past the frame the
+                        # refine was decided at: the scatter is guarded by feature id
+                        stepper.state = _scatter_ba_landmarks(stepper.state, device_lm)
+                if self._correct_traj and graph is None:
+                    with profiling.span("backend.correct"):
+                        for kf, fi in enumerate(window.frame_ids):
+                            q, p = refined[kf]
+                            traj.positions[fi] = np.asarray(p, np.float64)
+                            traj.quaternions[fi] = np.asarray(q, np.float64)
+                if graph is not None:
+                    with profiling.span("backend.graph_solve"):
+                        graph.add_ba_window(window.frame_ids[:len(refined)], refined)
+                        t_graph = time.perf_counter()
+                        solved = graph.solve()
+                        dt_graph = time.perf_counter() - t_graph
+                    stats.graph_solves += 1
+                    stats.graph_total_s += dt_graph
+                    if stats.graph_solves == 1:
+                        stats.graph_first_s = dt_graph
+                    if solved is not None:
+                        with profiling.span("backend.correct"):
+                            _apply_graph_correction(traj, *solved)
+            stats.ba_dropped_landmarks = window.dropped_landmarks
+            stats.ba_dropped_obs = window.dropped_obs
+            moved = [window.transfers] + ([graph.transfers] if graph is not None else [])
+            stats.backend_uploads = sum(t["uploads"] for t in moved)
+            stats.backend_readbacks = sum(t["readbacks"] for t in moved)
+
+    def close(self):
+        self._window.close()
+        if self._graph is not None:
+            self._graph.close()
+
+
 def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
                with_planes: bool = True, with_lines: bool = False, seed: int = 0,
                state: engine.SlamState | None = None, on_frame=None,
@@ -421,294 +640,74 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
 
     Returns (final_state, Trajectory, RunStats)."""
     device = resolve_device(device)
-    if isinstance(trace, profiling.StageTimer):
-        timer = trace
-    else:
-        timer = profiling.StageTimer() if trace else None
-    if state is None:
-        state = engine.init_state(cam, cfg, seed=seed, device=device)
-    stepper = step_graph.stepper(state, cam, cfg, with_planes=with_planes,
-                                 with_lines=with_lines)
-    traj = Trajectory()
-    stats = RunStats()
-
-    rectify = None
-    if camera_setup is not None:
-        ext = np.asarray(camera_setup.depth_to_rgb, np.float64)
-        if not np.allclose(ext, np.eye(4)):
-            ext_dev = torch.tensor(ext, dtype=torch.float32, device=device)
-            depth_cam = camera_setup.depth
-
-            def rectify(d):
-                return rectify_depth(d, depth_cam, cam, ext_dev)
-
-    window = None
-    graph = None
-    last_kf_quat = None
-    last_kf_pos = None
-    pending_kfs = []   # keyframe packs read by the host only when a refine needs them
-    if ba_every:
-        window = KeyframeWindow(max_keyframes=ba_window, anchor_weights=ba_anchor_weights,
-                                device=device)
-        if with_pose_graph:
-            graph = PoseGraph(device=device)
-
-    def _refine(i):
-        with profiling.span("backend"):
-            if pending_kfs:
-                with profiling.span("backend.keyframes"):
-                    # every waiting keyframe's pack in two reads
-                    fobs = torch.stack([kf[2] for kf in pending_kfs]).cpu().numpy()
-                    kf_fids = torch.stack([kf[3] for kf in pending_kfs]).cpu().numpy()
-                    profiling.count("device_reads.keyframes", 2)
-                    for (q_, p_, _, _, ts_, i_), fo_, fi_ in zip(pending_kfs, fobs, kf_fids):
-                        window.add_keyframe_packed(q_, p_, fo_, fi_, timestamp=ts_, frame_id=i_)
-                    pending_kfs.clear()
-            t_ba = time.perf_counter()
-            with profiling.span("backend.refine"):
-                res = window.refine(cam, iterations=ba_iterations, mesh=ba_mesh)
-            if res is None:
-                return
-            refined, device_lm, costs = res
-            stats.ba_runs += 1
-            dt_ba = time.perf_counter() - t_ba
-            stats.ba_total_s += dt_ba
-            if stats.ba_runs == 1:
-                stats.ba_compile_s = dt_ba
-            stats.ba_total_iters += ba_iterations
-            if np.isfinite(costs).all() and costs[-1] < costs[0]:
-                stats.ba_accepted += 1
-                if ba_update_map:
-                    with profiling.span("backend.apply"):
-                        window.apply_refinement(refined, device_lm)
-                        # the live state may be up to a group past frame i: the
-                        # scatter is guarded by feature id
-                        stepper.state = _scatter_ba_landmarks(stepper.state, device_lm)
-                if ba_correct_traj and graph is None:
-                    with profiling.span("backend.correct"):
-                        for kf, fi in enumerate(window.frame_ids):
-                            q, p = refined[kf]
-                            traj.positions[fi] = np.asarray(p, np.float64)
-                            traj.quaternions[fi] = np.asarray(q, np.float64)
-                if graph is not None:
-                    with profiling.span("backend.graph_solve"):
-                        graph.add_ba_window(window.frame_ids[:len(refined)], refined)
-                        t_graph = time.perf_counter()
-                        solved = graph.solve()
-                        dt_graph = time.perf_counter() - t_graph
-                    stats.graph_solves += 1
-                    stats.graph_total_s += dt_graph
-                    if stats.graph_solves == 1:
-                        stats.graph_first_s = dt_graph
-                    if solved is not None:
-                        with profiling.span("backend.correct"):
-                            _apply_graph_correction(traj, *solved)
-            stats.ba_dropped_landmarks = window.dropped_landmarks
-            stats.ba_dropped_obs = window.dropped_obs
-            moved = [window.transfers] + ([graph.transfers] if graph is not None else [])
-            stats.backend_uploads = sum(t["uploads"] for t in moved)
-            stats.backend_readbacks = sum(t["readbacks"] for t in moved)
-
-    def _process(i, ts, frame_state, out, summary, kf_obs, dt):
-        """Consume one frame's summary: stats, trajectory, the map export,
-        ``on_frame`` and the keyframe gate.  ``frame_state`` is the state of the
-        same step as ``out`` (its slots align with ``out``'s records) and
-        ``kf_obs`` its keyframe observation record; each is None where nothing
-        reads it.  Returns whether a refine is due at this frame."""
-        nonlocal last_kf_quat, last_kf_pos
-        pos_np = summary[0:3]
-        quat_np = summary[3:7]
-        success = summary[7] > 0.5
-
-        stats.frame_count += 1
-        stats.total_step_s += dt
-        if i == 0:
-            stats.compile_s = dt
-            stats.warmup_steps = stepper.warmup_steps
-        stats.success_count += int(success)
-        stats.lost_count += int(summary[8] > 0.5)
-        stats.lines_detected += int(summary[12])
-        stats.line_matches += int(summary[13])
-        stats.lines_alive = int(summary[14])
-        traj.append(ts, pos_np, quat_np)
-
-        if map_writer is not None and summary[9] > 0.5:   # n_evicted
+    if ba_mesh is not None and dist.get_rank(ba_mesh) != 0:
+        served = serve_refines(ba_mesh, cam, anchor_weights=ba_anchor_weights, device=device)
+        return None, None, RunStats(ba_runs=served)
+    timer = trace if isinstance(trace, profiling.StageTimer) else (
+        profiling.StageTimer() if trace else None)
+    stats, traj = RunStats(), Trajectory()
+    with contextlib.ExitStack() as closing:
+        if ba_mesh is not None:
+            # whatever happens here, the other ranks stop serving at the end
+            closing.callback(stop_serving, ba_mesh, device)
+        if state is None:
+            state = engine.init_state(cam, cfg, seed=seed, device=device)
+        stepper = step_graph.stepper(state, cam, cfg, with_planes=with_planes,
+                                     with_lines=with_lines)
+        closing.callback(stepper.close)
+        rectify = None
+        if camera_setup is not None:
+            ext = np.asarray(camera_setup.depth_to_rgb, np.float64)
+            if not np.allclose(ext, np.eye(4)):
+                rectify = functools.partial(
+                    rectify_depth, depth_cam=camera_setup.depth, rgb_cam=cam,
+                    depth_to_rgb_44=torch.tensor(ext, dtype=torch.float32, device=device))
+        backend = None
+        if ba_every:
+            backend = _Backend(cam, device, ba_every, ba_window, ba_iterations, ba_mesh,
+                               ba_anchor_weights, kf_min_trans_mm, kf_min_rot_deg,
+                               with_pose_graph, ba_update_map, ba_correct_traj)
+            closing.callback(backend.close)
+        map_writer = (closing.enter_context(OBJWriter(export_map)) if export_map is not None
+                      else None)
+        consumer = _Consumer(stats, traj, stepper, timer, map_writer, on_frame, backend)
+        handover = _HandOver(consumer, ba_every if backend is not None else None)
+        if timer is not None:
+            closing.enter_context(profiling.recording(timer))
+        stamps, frames = None, iter(frames)
+        for i in itertools.count():
+            with profiling.span("frame.pull"):
+                frame = next(frames, _END)
+            if frame is _END:
+                break
+            gray, depth, ts = frame if len(frame) == 3 else (*frame, float(i))
+            with profiling.span("frame.upload"):
+                # on the card's queue, the upload between two stamps
+                uploaded = stamps is not None and (_on_host(gray, device)
+                                                   or _on_host(depth, device))
+                if uploaded:
+                    stamps_cuda.stamp(stamps, stepper.upload_slots[0])
+                gray, depth = _upload(gray, device), _upload(depth, device)
+                if rectify is not None:
+                    depth = rectify(depth)
+                if uploaded:
+                    stamps_cuda.stamp(stamps, stepper.upload_slots[1])
+            frame_state, out = stepper.step(gray, depth)
+            if i == 0 and timer is not None:
+                stamps = getattr(stepper, "stamps", None)
+            with profiling.span("frame.pack"):
+                kf_obs = (_pack_keyframe_obs(out, frame_state.points.pos)
+                          if backend is not None else None)
+                summary = handover.send(i, _pack_summary(out, stamps))
+            if stepper.reuses_outputs:
+                # the next replay overwrites both: keep copies where they are read
+                frame_state, out = consumer.keep(frame_state, out)
+            handover.issue(_Issued(i, ts, frame_state, out, kf_obs, uploaded, summary))
+        handover.deliver(i - 1, end=True)   # i: the frames' count
+        if map_writer is not None:
             with profiling.span("map_export"):
-                stats.map_streamed += append_dying_features(map_writer, out)
-
-        if on_frame is not None:
-            # before the backend: a refine delays the frames after it, not its
-            # own, whose copies it does not touch
-            with profiling.span("on_frame"):
-                on_frame(i, frame_state, out, dt)
-
-        if window is None or not success:
-            return False
-        is_kf = last_kf_quat is None
-        if not is_kf:
-            trans_mm = float(np.linalg.norm(pos_np - last_kf_pos))
-            dot = min(abs(float(np.dot(quat_np, last_kf_quat))), 1.0)
-            rot_deg = float(np.degrees(2.0 * np.arccos(dot)))
-            is_kf = trans_mm >= kf_min_trans_mm or rot_deg >= kf_min_rot_deg
-        if is_kf:
-            stats.keyframe_count += 1
-            last_kf_quat, last_kf_pos = quat_np, pos_np
-            pending_kfs.append((quat_np, pos_np, *kf_obs, ts, i))
-            if graph is not None:
-                graph.add_keyframe(i, quat_np, pos_np)
-        return window.n_keyframes + len(pending_kfs) >= 3 and (i + 1) % ba_every == 0
-
-    issued = collections.deque()   # frames whose step is issued, not yet processed
-    held = None        # (frame, the frame that closes its group): a refine due, not yet run
-    ring = []          # on a card, (page-locked row, event) pairs the summaries come back in
-    t_prev = time.perf_counter()
-    last_stamp = None     # the last stamp of the replay before
-    clone_bytes = None    # what a frame's copies out of the graph's buffers hold
-
-    def _send(i, summary):
-        """Start frame ``i``'s summary towards the host: on a card an
-        asynchronous copy into a row of the page-locked ring with an event
-        recorded behind it; elsewhere it is on the host already.  A held refine
-        keeps at most ``SUMMARY_BATCH`` frames unprocessed, so a row of the
-        ring's ``SUMMARY_BATCH + 1`` is written again only after its frame has
-        been received."""
-        if summary.device.type != "cuda":
-            return summary
-        if not ring:
-            rows = torch.empty((SUMMARY_BATCH + 1, summary.numel()), dtype=summary.dtype,
-                               pin_memory=True)
-            ring.extend((row, torch.cuda.Event()) for row in rows)
-        row, event = ring[i % len(ring)]
-        row.copy_(summary, non_blocking=True)
-        event.record()
-        return row, event
-
-    def _receive(frame):
-        """``frame``'s summary row on the host; where its copy is still under
-        way, the host waits on its event (``summary_waits``), which leaves the
-        steps queued behind it running."""
-        if frame.row is None:
-            with profiling.span("deliver.wait"):
-                if isinstance(frame.sent, torch.Tensor):
-                    frame.row = frame.sent.numpy()
-                else:
-                    row, event = frame.sent
-                    if not event.query():
-                        profiling.count("summary_waits")
-                        event.synchronize()
-                    frame.row = row.numpy().copy()
-            frame.sent = None
-        return frame.row
-
-    def _deliver(j, end=False):
-        """Process the issued frames in order once frame ``j``'s step has been
-        issued: those before ``j``, and ``j`` itself where it is frame 0 or
-        closes its group with a refine possibly due at it (the refine must
-        write back before the next step); at the ``end``, every one.  A refine
-        due at a frame runs once the frame that closes its group (at the
-        ``end``, the last frame) has been issued and received, and the frames
-        after it wait with it."""
-        nonlocal held, t_prev
-        closes = window is not None and j % SUMMARY_BATCH == 0 and (j + 1) % ba_every == 0
-        bound = j + 1 if end or j == 0 or closes else j
-        while True:
-            if held is not None:
-                if held[1] > j and not end:
-                    return
-                if issued:
-                    _receive(issued[-1])   # the frame that closes the group
-                _refine(held[0])
-                held = None
-            if not issued or issued[0].i >= bound:
-                return
-            frame = issued.popleft()
-            with profiling.span("deliver"):
-                row = _receive(frame)
-                now = time.perf_counter()
-                dt, t_prev = now - t_prev, now
-                with profiling.span("deliver.process"):
-                    summary, stamps = _split_summaries(row[None])
-                    if stamps is not None:
-                        _read_stamps(frame.i, stamps[0], frame.uploaded)
-                    if _process(frame.i, frame.ts, frame.state, frame.out, summary[0],
-                                frame.kf_obs, dt):
-                        held = frame.i, -(-frame.i // SUMMARY_BATCH) * SUMMARY_BATCH
-
-    def _read_stamps(i, stamps, uploaded):
-        nonlocal last_stamp
-        if i == 0:
-            before, after = stepper.clock_bracket
-            stats.clock_offset_ns = int(stamps[stepper.offset_slot]) - (before + after) // 2
-            stats.clock_offset_err_ns = (after - before + 1) // 2
-        names = stepper.stamp_names
-        last_stamp = _add_stamps(stats, names, stamps, last_stamp,
-                                 stepper.upload_slots if uploaded else None)
-        timer.device_stages(names[1:], stamps[:len(names)], stats.clock_offset_ns)
-
-    def _keep(frame_state, out):
-        """Copies of what the next replay overwrites, where they are read."""
-        nonlocal clone_bytes
-        keep_out = on_frame is not None or map_writer is not None
-        with profiling.span("frame.clone"):
-            frame_state = (step_graph.clone_tree(frame_state) if on_frame is not None
-                           else None)
-            out = step_graph.clone_tree(out) if keep_out else None
-        if timer is not None and (frame_state is not None or out is not None):
-            if clone_bytes is None:
-                clone_bytes = sum(t.nbytes for t in step_graph.tensor_leaves((frame_state, out)))
-            profiling.count("clone_bytes", clone_bytes)
-        return frame_state, out
-
-    map_writer = OBJWriter(export_map) if export_map is not None else None
-    stamps = None
-    frames = iter(frames)
-    with profiling.recording(timer) if timer is not None else contextlib.nullcontext():
-        try:
-            for i in itertools.count():
-                with profiling.span("frame.pull"):
-                    frame = next(frames, _END)
-                if frame is _END:
-                    break
-                if len(frame) == 3:
-                    gray, depth, ts = frame
-                else:
-                    (gray, depth), ts = frame, float(i)
-                with profiling.span("frame.upload"):
-                    # on the card's queue, the upload between two stamps
-                    uploaded = stamps is not None and (_on_host(gray, device)
-                                                       or _on_host(depth, device))
-                    if uploaded:
-                        stamps_cuda.stamp(stamps, stepper.upload_slots[0])
-                    gray, depth = _upload(gray, device), _upload(depth, device)
-                    if rectify is not None:
-                        depth = rectify(depth)
-                    if uploaded:
-                        stamps_cuda.stamp(stamps, stepper.upload_slots[1])
-                frame_state, out = stepper.step(gray, depth)
-                if i == 0 and timer is not None:
-                    stamps = getattr(stepper, "stamps", None)
-                with profiling.span("frame.pack"):
-                    kf_obs = (_pack_keyframe_obs(out, frame_state.points.pos)
-                              if window is not None else None)
-                    sent = _send(i, _pack_summary(out, stamps))
-                if stepper.reuses_outputs:
-                    # the next replay overwrites both: keep copies where they are read
-                    frame_state, out = _keep(frame_state, out)
-                issued.append(_Issued(i, ts, frame_state, out, kf_obs, uploaded, sent))
-                _deliver(i)
-            _deliver(i - 1, end=True)   # i: the frames' count
-            if map_writer is not None:
-                with profiling.span("map_export"):
-                    stats.map_alive_at_end = append_alive_features(map_writer, stepper.state,
-                                                                   only_local=True)
-        finally:
-            stepper.close()
-            if window is not None:
-                window.close()
-            if graph is not None:
-                graph.close()
-            if map_writer is not None:
-                map_writer.close()
+                stats.map_alive_at_end = append_alive_features(map_writer, stepper.state,
+                                                               only_local=True)
     if timer is not None:
         stats.spans = timer.aggregates()
         stats.counters = dict(timer.counters)

@@ -37,7 +37,8 @@ import time
 import torch
 
 from . import profiling
-from .step_graph import add_launches, capture
+from .ops import nvcc
+from .step_graph import capture
 
 
 class EagerSolve:
@@ -94,7 +95,7 @@ class SolveGraph:
                 self._load(inputs)
         with profiling.span("solve.replay"):
             self._graph.replay()
-        add_launches(self._launches)
+        nvcc.add_launches(self._launches)
         return self._out
 
     def close(self):

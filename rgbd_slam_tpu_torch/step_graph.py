@@ -48,14 +48,10 @@ import torch
 
 from . import engine, profiling
 from .config import CameraIntrinsics, SlamConfig
-from .ops import (cells_cuda, components_cuda, cylinders_cuda, line_grow_cuda, lk_cuda, lm_cuda,
-                  stamps_cuda)
+from .ops import nvcc, stamps_cuda
 
 #: eager steps (on a copy of the state) before the step is recorded
 WARMUP_STEPS = 1
-#: the launch counts of the kernels a step can launch
-_COUNTERS = (lk_cuda.LAUNCHES, components_cuda.LAUNCHES, cells_cuda.LAUNCHES,
-             cylinders_cuda.LAUNCHES, lm_cuda.LAUNCHES, line_grow_cuda.LAUNCHES)
 
 
 def stamp_slots(with_lines: bool) -> tuple[int, tuple[int, int]]:
@@ -94,24 +90,13 @@ def clone_tree(tree):
 def capture(graph: torch.cuda.CUDAGraph, fn):
     """``fn()`` captured into ``graph``.  A kernel wrapper counts its launches
     when Python calls it, which a replay does not: the counts the capture added
-    are taken back and returned, for :func:`add_launches` to add at every
-    replay.  Returns (``fn``'s result, the added counts by counter)."""
-    before = [dict(counter) for counter in _COUNTERS]
-    with torch.cuda.graph(graph):
-        out = fn()
-    added = [{name: counter[name] - b[name] for name in counter}
-             for counter, b in zip(_COUNTERS, before)]
-    for counter, b in zip(_COUNTERS, before):
-        counter.update(b)
-    return out, added
+    are taken back (``nvcc.take_back``) and returned, for ``nvcc.add_launches``
+    to add at every replay.  Returns (``fn``'s result, the added counts)."""
+    def record():
+        with torch.cuda.graph(graph):
+            return fn()
 
-
-def add_launches(added):
-    """Add the launch counts a capture took back (:func:`capture`): one
-    replay's."""
-    for counter, counts in zip(_COUNTERS, added):
-        for name, n in counts.items():
-            counter[name] += n
+    return nvcc.take_back(record)
 
 
 class EagerStep:
@@ -215,7 +200,7 @@ class StepGraph:
                 self._frame[1].copy_(depth)
             with profiling.span("step.replay"):
                 self._graph.replay()
-            add_launches(self._launches)
+            nvcc.add_launches(self._launches)
         return self._state, self._out
 
     def close(self):

@@ -135,7 +135,7 @@ def test_cells_wrapper_raises_and_never_falls_back(monkeypatch):
         raise RuntimeError("nvcc failed on cells.cu")
 
     monkeypatch.setattr(cells_cuda, "cells_reference", refuse)
-    monkeypatch.setattr(cells_cuda, "_lib", None)
+    monkeypatch.setattr(cells_cuda.LIBRARY, "lib", None)
     monkeypatch.setattr(nvcc, "load_library", no_nvcc)
     depth = torch.full((480, 640), 2000.0).as_subclass(_CudaLooking)
     assert depth.device.type == "cuda"

@@ -163,7 +163,7 @@ def test_plane_step_with_99_points_launches_the_forward_only_kernel(cuda):
     cfg = config.SlamConfig(mapping=config.MappingConfig(max_tracked_points=99))
     scene = synthetic.RoomScene(cam)
     state = engine.init_state(cam, cfg, device=cuda)
-    lk_cuda.build()
+    lk_cuda.LIBRARY.build()
     before = dict(lk_cuda.LAUNCHES)
     for q, p in synthetic.orbit_trajectory(3):
         gray, depth = scene.render(q, p)
@@ -1019,14 +1019,14 @@ def test_lm_kernel_raises_and_never_falls_back(cuda, monkeypatch):
         def lm_solve_launch(*args):
             return 1   # cudaErrorInvalidValue
 
-    monkeypatch.setattr(lm_cuda, "_lib", Refusing())
+    monkeypatch.setattr(lm_cuda.LIBRARY, "lib", Refusing())
     with pytest.raises(RuntimeError, match="LM kernel launch failed"):
         optimizer.lm_solve(c_cpu.to(cuda), feats, torch_lm_cases.CAM)
 
     def no_nvcc(*args, **kw):
         raise RuntimeError("nvcc failed on lm.cu")
 
-    monkeypatch.setattr(lm_cuda, "_lib", None)
+    monkeypatch.setattr(lm_cuda.LIBRARY, "lib", None)
     monkeypatch.setattr(nvcc, "load_library", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         optimizer.lm_solve(c_cpu.to(cuda), feats, torch_lm_cases.CAM)
@@ -1254,7 +1254,7 @@ def test_primitive_kernels_raise_and_never_fall_back(cuda, monkeypatch):
 
     for module, what in ((cells_cuda, "cells"), (cylinders_cuda, "cylinders")):
         with monkeypatch.context() as mp:
-            mp.setattr(module, "_lib", Refusing())
+            mp.setattr(module.LIBRARY, "lib", Refusing())
             with pytest.raises(RuntimeError, match=f"{what} kernel launch failed"):
                 primitives.find_primitives(depth, config.TUM_FR1, det)
 
@@ -1262,7 +1262,7 @@ def test_primitive_kernels_raise_and_never_fall_back(cuda, monkeypatch):
             raise RuntimeError(f"nvcc failed on {what}.cu")
 
         with monkeypatch.context() as mp:
-            mp.setattr(module, "_lib", None)
+            mp.setattr(module.LIBRARY, "lib", None)
             mp.setattr(nvcc, "load_library", no_nvcc)
             with pytest.raises(RuntimeError, match=f"nvcc failed on {what}.cu"):
                 primitives.find_primitives(depth, config.TUM_FR1, det)

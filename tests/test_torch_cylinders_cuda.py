@@ -256,7 +256,7 @@ def test_cylinders_wrapper_raises_and_never_falls_back(monkeypatch):
         return t.as_subclass(_CudaLooking)
 
     monkeypatch.setattr(cylinders_cuda, "cylinders_reference", refuse)
-    monkeypatch.setattr(cylinders_cuda, "_lib", None)
+    monkeypatch.setattr(cylinders_cuda.LIBRARY, "lib", None)
     monkeypatch.setattr(nvcc, "load_library", no_nvcc)
     c_grid = grid._replace(normal=card(grid.normal), mean=card(grid.mean),
                            planar=card(grid.planar))

@@ -9,6 +9,7 @@ On the CPU:
   ``i + 2``; with ``ba_every=4`` the refine decided at frame 3 waits for
   step 8, which closes its group, and its landmark write-back lands before
   step 9, as the batched runner's;
+* a run whose ``ba_every`` is None or 0 makes no backend object;
 * the port against the frozen batched runner of the benchmark's reference
   (``slambench/reference/plain/runner.py``), on a short planes-on orbit at the
   160x120 test camera: trajectory, final state and counts equal to the bit,
@@ -118,6 +119,20 @@ def test_a_refine_waits_for_the_step_that_closes_its_group(orbit, monkeypatch):
     for i in range(4, 8):
         assert writes[0] < at[("on_frame", i)] < at[("step", 9)], i
     assert at[("step", 9)] < at[("on_frame", 8)]
+
+
+@pytest.mark.parametrize("ba_every, backends", [(None, 0), (0, 0), (8, 1)])
+def test_a_run_without_a_cadence_makes_no_backend(orbit, monkeypatch, ba_every, backends):
+    made = []
+
+    class Counted(runner._Backend):
+        def __init__(self, *args, **kw):
+            made.append(self)
+            super().__init__(*args, **kw)
+
+    monkeypatch.setattr(runner, "_Backend", Counted)
+    _, traj, stats = runner.run_frames(orbit[:3], CAM, CFG, device="cpu", ba_every=ba_every)
+    assert len(made) == backends and stats.frame_count == len(traj.positions) == 3
 
 
 @pytest.mark.parametrize("ba_every", [None, 3, 4, 8])

@@ -92,7 +92,7 @@ def test_the_sources_kernels_are_the_ones_chip_smoke_knows():
     assert {"lk_fwd_bwd_kernel", "lk_pyramid_kernel", "lk_level_kernel"} \
         <= _globals(_source("lk.cu"))
     assert set(chip_smoke.LAUNCH_MARKS) == set(chip_smoke.FUSED_ONLY) \
-        == set(chip_smoke.SOURCES) == set(chip_smoke.launch_counts())
+        == set(chip_smoke.SOURCES) == set(nvcc.launch_counts())
 
 
 def test_cylinder_limits_match_the_source():

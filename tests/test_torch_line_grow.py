@@ -381,7 +381,7 @@ def test_the_wrapper_raises_and_never_falls_back(monkeypatch):
         raise RuntimeError("nvcc failed on line_grow.cu")
 
     monkeypatch.setattr(line_grow_cuda, "grow_seeds_reference", refuse)
-    monkeypatch.setattr(line_grow_cuda, "_lib", None)
+    monkeypatch.setattr(line_grow_cuda.LIBRARY, "lib", None)
     monkeypatch.setattr(nvcc, "load_library", no_nvcc)
     edges, is_line, weight = (torch.from_numpy(x).as_subclass(_CudaLooking)
                               for x in _graph("40x30", "mid"))

@@ -377,13 +377,12 @@ def test_summary_rows_keep_every_ns_of_the_stamps():
                                 n_evicted=torch.tensor(3), n_plane_merge_dropped=torch.tensor(0),
                                 n_point_inliers=torch.tensor(42), n_lines=torch.tensor(7),
                                 n_line_matches=torch.tensor(5), n_lines_alive=torch.tensor(9))
-    rows = torch.stack([runner._pack_summary(out, stamps)] * 2).numpy()
-    summary, got = runner._split_summaries(rows)
-    np.testing.assert_array_equal(got, np.stack([stamps.numpy()] * 2))
-    assert summary.shape == (2, runner.SUMMARY_WIDTH) and summary[0, 11] == 42.0
-    assert list(summary[0, 12:]) == [7.0, 5.0, 9.0]
-    plain, none = runner._split_summaries(torch.stack([runner._pack_summary(out)]).numpy())
-    assert none is None and np.array_equal(plain, summary[:1])
+    summary, got = runner._split_summary(runner._pack_summary(out, stamps).numpy())
+    np.testing.assert_array_equal(got, stamps.numpy())
+    assert summary.shape == (runner.SUMMARY_WIDTH,) and summary[11] == 42.0
+    assert list(summary[12:]) == [7.0, 5.0, 9.0]
+    plain, none = runner._split_summary(runner._pack_summary(out).numpy())
+    assert none is None and np.array_equal(plain, summary)
 
 
 def test_a_frame_from_the_host_is_stamped_around_its_upload(frames, monkeypatch):

@@ -248,8 +248,8 @@ def run_time():
 
     device = torch.device("cuda", 0)
     print(json.dumps(dict(card=chip_smoke._card_line(), torch=torch.__version__,
-                          build_s=lm_cuda.build(),
-                          ptxas=chip_smoke.ptxas_usage(lm_cuda.BUILD_LOG))), flush=True)
+                          build_s=lm_cuda.LIBRARY.build(),
+                          ptxas=chip_smoke.ptxas_usage(lm_cuda.LIBRARY.log))), flush=True)
     for source, calls in _timed_calls(device).items():
         for name, (inputs, coeffs0, iterations, damping0) in calls.items():
             def launch():
@@ -356,18 +356,18 @@ def run_breakdown(names):
                         text = text.replace(old, new)
                     with open(os.path.join(tmp, "lm.cu"), "w") as f:
                         f.write(text)
-                    nvcc.CSRC, lm_cuda._lib = tmp, None
+                    nvcc.CSRC, lm_cuda.LIBRARY.lib = tmp, None
                     lm_cuda.MAX_THREADS = threads or max_threads
-                    lm_cuda.build()
+                    lm_cuda.LIBRARY.build()
                     out = dict(variant=name, rep=rep)
                     if rep == 0:
-                        out["ptxas"] = chip_smoke.ptxas_usage(lm_cuda.BUILD_LOG)
+                        out["ptxas"] = chip_smoke.ptxas_usage(lm_cuda.LIBRARY.log)
                     for call, (inputs, coeffs0, iterations, damping0) in calls.items():
                         out[f"{call}_us"] = chip_smoke.graph_launch_us(
                             lambda: lm_cuda.lm_solve(inputs, coeffs0, iterations, damping0))
                     print(json.dumps(out), flush=True)
         finally:
-            nvcc.CSRC, lm_cuda.MAX_THREADS, lm_cuda._lib = csrc, max_threads, None
+            nvcc.CSRC, lm_cuda.MAX_THREADS, lm_cuda.LIBRARY.lib = csrc, max_threads, None
 
 
 def run_launch():

@@ -59,7 +59,7 @@ def _profiler_us(fn, launches: int = 20):
 
 
 def time_kernels(cases):
-    out = {"build_s": lk_cuda.build(), "ptxas": smoke.ptxas_usage(lk_cuda.BUILD_LOG),
+    out = {"build_s": lk_cuda.LIBRARY.build(), "ptxas": smoke.ptxas_usage(lk_cuda.LIBRARY.log),
            "kernels": {}}
     for case in cases:
         err, n_both, flag_diffs, _ = smoke.check_case(case)
@@ -74,7 +74,7 @@ def time_kernels(cases):
 def phase_profile(cases):
     """Microseconds by (pass, level, phase) of one launch of the fused and the
     forward-only kernel, from the LK_PHASE_PROFILE build."""
-    lk_cuda.build(profile=True)
+    lk_cuda.LIBRARY.build(lk_cuda.PROFILE_FLAGS)
     device = torch.device("cuda")
     out = {}
     for case in cases:

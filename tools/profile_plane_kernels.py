@@ -293,7 +293,7 @@ def run_time():
 
     device = torch.device("cuda", 0)
     print(json.dumps(dict(card=chip_smoke._card_line(), torch=torch.__version__,
-                          build_s=[m.build() for m in _MODULES.values()],
+                          build_s=[m.LIBRARY.build() for m in _MODULES.values()],
                           ptxas=_ptxas())),
           flush=True)
     _time_kinds(frame_kinds(device))
@@ -309,7 +309,7 @@ def _ptxas() -> dict:
     import chip_smoke
 
     return {kernel: usage for m in _MODULES.values()
-            for kernel, usage in chip_smoke.ptxas_usage(m.BUILD_LOG).items()}
+            for kernel, usage in chip_smoke.ptxas_usage(m.LIBRARY.log).items()}
 
 
 def _sm_cycles_per_us(lib) -> float:
@@ -351,12 +351,12 @@ def _build_edited(module, source: str, edits, tmp: str):
     with open(os.path.join(tmp, source), "w") as f:
         f.write(text)
     csrc = nvcc.CSRC
-    nvcc.CSRC, module._lib = tmp, None
+    nvcc.CSRC, module.LIBRARY.lib = tmp, None
     try:
-        module.build()
+        module.LIBRARY.build()
     finally:
         nvcc.CSRC = csrc
-    return module._lib
+    return module.LIBRARY.lib
 
 
 def _rows(buf, phases, rate):
@@ -420,7 +420,7 @@ def run_split(reps: int = 20):
             print(json.dumps(dict(cells_pass=timed)), flush=True)
         finally:
             for module in _MODULES.values():
-                module._lib = None
+                module.LIBRARY.lib = None
     _time_kinds(kinds, with_hashes=False)
 
 
@@ -478,7 +478,7 @@ def run_variants(names):
                     os.makedirs(sub)
                     _build_edited(module, source, VARIANTS[name][1] if name in VARIANTS else [],
                                   sub)
-                    out[f"{source}_ptxas"] = chip_smoke.ptxas_usage(module.BUILD_LOG)
+                    out[f"{source}_ptxas"] = chip_smoke.ptxas_usage(module.LIBRARY.log)
                     for kind, call in _calls(module, kinds).items():
                         out[f"{source}_{kind}_us"] = chip_smoke.graph_launch_us(call)
                         out[f"{source}_{kind}_bits"] = chip_smoke.output_digest(call())
@@ -486,7 +486,7 @@ def run_variants(names):
                 print(json.dumps(out), flush=True)
         finally:
             for module in modules.values():
-                module._lib = None
+                module.LIBRARY.lib = None
 
 
 def run_graph():
