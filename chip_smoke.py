@@ -11,8 +11,9 @@ Phases, one line of output each (any failure raises, so the last line, the
    (``ops.nvcc.LIBRARIES``: the LK kernels, ``rgbd_slam_tpu_torch/csrc/lk.cu``;
    the components kernel, ``csrc/components.cu``; the plane extraction's cells
    and cylinders kernels, ``csrc/cells.cu``, ``csrc/cylinders.cu``; the LM
-   kernel, ``csrc/lm.cu``; the line growth, ``csrc/line_grow.cu``; the step's
-   stamps, ``csrc/stamps.cu``) with nvcc from the sources in this checkout,
+   kernel, ``csrc/lm.cu``; the line growth, ``csrc/line_grow.cu``; the RANSAC
+   scoring, ``csrc/ransac_score.cu``; the step's stamps, ``csrc/stamps.cu``)
+   with nvcc from the sources in this checkout,
    one ``nvcc`` a source, started together; prints the seconds and what ptxas
    says of each kernel's registers and spills.
 3. kernels, each against its plain PyTorch version on the card, on a 640x480
@@ -78,6 +79,16 @@ Phases, one line of output each (any failure raises, so the last line, the
    result differs from the plain version's printed with their accept
    sequences; timed at both shapes on the plane frame (see ``check_lm``); the
    kernel line sums the two calls of a frame.
+   ransac_score: the scoring kernel (the pose optimizer's RANSAC scores, best
+   hypothesis and inlier masks, no Pallas port) against its plain version run
+   on the card, on the inputs of both scoring calls (the 96 hypotheses, the
+   refit's pose) of the three frames of the lm phase: every tested value
+   (``details``) equal to the bit, decisions, scores, counts, the best
+   hypothesis and its masks equal (a decision may differ only where the plain
+   value lies within ``SCORE_FLIP_ULPS`` of its limit), a repeat to the bit;
+   timed on the plane frame (``ms``, ``plain_ms``, ``device_us`` of each
+   call) and inside the plane step's CUDA graph, where it must launch twice
+   a frame (see ``check_ransac_score``).
    graph: the plane step over 30 staged frames eagerly and as one CUDA graph
    (``StepGraph``): poses and final states equal to the bit, ms a frame of
    both, the warm-up and capture time, 4 replays under the profiler (kernels
@@ -153,7 +164,7 @@ Phases, one line of output each (any failure raises, so the last line, the
     share one card take turns on it, so the times printed beside the
     single-device ones measure what the collectives cost, not a speed-up.
 14. the kernels' JSON line (launches summed over all paths; every path
-    expects two LM launches a frame, and one components, one cells and one
+    expects two LM launches and two scoring launches a frame, and one components, one cells and one
     cylinders launch a frame with planes on), the card line again, and the
     result line.
 
@@ -213,7 +224,8 @@ from rgbd_slam_tpu_torch.geometry import pinhole, se3
 from rgbd_slam_tpu_torch.io import checkpoint
 from rgbd_slam_tpu_torch.io.trajectory import ate_rmse
 from rgbd_slam_tpu_torch.ops import (cells_cuda, components_cuda, cylinders_cuda, fast, image,
-                                     line_grow_cuda, lk_cuda, lm_cuda, nvcc)
+                                     line_grow_cuda, lk_cuda, lm_cuda, nvcc,
+                                     ransac_score_cuda)
 from rgbd_slam_tpu_torch.ops.depth_cloud import depth_to_cloud
 from rgbd_slam_tpu_torch.parallel import ba, keyframes, pose_graph
 from rgbd_slam_tpu_torch.parallel.pose_graph import _np_quat_rotate
@@ -280,10 +292,12 @@ RIG_BASELINE_MM = 25.0
 #: one fused forward-backward launch a frame (every path but the forward-only
 #: one), one components, one cells and one cylinders launch a frame with
 #: planes on, two LM launches a frame (the hypothesis batch and the refit +
-#: Monte-Carlo batch), and a line growth launch a frame with lines on
+#: Monte-Carlo batch), two scoring launches a frame (the hypotheses, the
+#: refit's pose), and a line growth launch a frame with lines on
 #: (``LINE_PATH``)
 FUSED_ONLY = {"lk_fwd_bwd": 1, "lk_pyramid": 0, "lk_level": 0, "components": 1,
-              "cells": 1, "cylinders": 1, "lm_solve": 2, "line_grow": 0}
+              "cells": 1, "cylinders": 1, "lm_solve": 2, "line_grow": 0,
+              "ransac_score": 2}
 LINE_PATH = {**FUSED_ONLY, "line_grow": 1}
 #: the kernel the profiler sees for one launch a wrapper counts, by the start
 #: of its name (the LM's count covers ``lm_solve_kernel`` and
@@ -304,7 +318,10 @@ REPLACES = {"lk_fwd_bwd": "rgbd_slam_tpu/ops/pallas_lk.py:408",
                          "jitted find_primitives, :441)",
             "lm_solve": "rgbd_slam_tpu/pose/optimizer.py:50 (XLA: lax.scan over jax.linearize)",
             "line_grow": "rgbd_slam_tpu/features/lines.py:153-170 (XLA: the seed_step loop over "
-                         "_propagate's lax.while_loop; the port's dense reach closure before)"}
+                         "_propagate's lax.while_loop; the port's dense reach closure before)",
+            "ransac_score": "rgbd_slam_tpu/pose/optimizer.py:224, :293-306, :325 and "
+                            "rgbd_slam_tpu/pose/residuals.py:171 (XLA: the vmapped _score_pose, "
+                            "the rank's argmax, inlier_masks_prepared)"}
 SOURCES = {"lk_fwd_bwd": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "lk_pyramid": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "lk_level": "rgbd_slam_tpu_torch/csrc/lk.cu",
@@ -312,7 +329,8 @@ SOURCES = {"lk_fwd_bwd": "rgbd_slam_tpu_torch/csrc/lk.cu",
            "cells": "rgbd_slam_tpu_torch/csrc/cells.cu",
            "cylinders": "rgbd_slam_tpu_torch/csrc/cylinders.cu",
            "lm_solve": "rgbd_slam_tpu_torch/csrc/lm.cu",
-           "line_grow": "rgbd_slam_tpu_torch/csrc/line_grow.cu"}
+           "line_grow": "rgbd_slam_tpu_torch/csrc/line_grow.cu",
+           "ransac_score": "rgbd_slam_tpu_torch/csrc/ransac_score.cu"}
 #: the two lm_solve calls of a plane step, in their order
 LM_CALLS = ("hypotheses", "refit_mc")
 #: the lm phase's tolerances.  A linearization's cost and normal equations
@@ -336,6 +354,14 @@ LM_SPREAD_DRAWS = 3
 #: launches of the full LM that must each repeat the first to the bit (a race
 #: on the kernel's shared memory would show as a run that differs)
 LM_REPEATS = 32
+#: the two scoring calls of a step, in their order
+SCORE_CALLS = ("hypotheses", "refit")
+#: how far from its limit (ulps of the limit) a tested value of the plain
+#: version may lie where the kernel's decision differs: the two evaluate the
+#: same chain in the same order, so a differing value is an ulp or two off
+SCORE_FLIP_ULPS = 8
+#: launches of the scoring that must each repeat the first to the bit
+SCORE_REPEATS = 16
 #: plane frames the graph phase runs eagerly and as a CUDA graph, and the
 #: replays it profiles
 GRAPH_FRAMES = 30
@@ -1481,35 +1507,53 @@ def check_cylinders(cam, cfg, device, frames, tunnel_depths):
     return result
 
 
-def lm_call_sites(cam, cfg, device, frames, with_planes=True, with_lines=False):
-    """The inputs of the two ``lm_cuda.lm_solve`` calls (the hypothesis batch,
-    then the refit + Monte-Carlo batch) of each of ``frames`` but the first,
-    recorded from an eager ``engine.step`` on the card: a list, a frame each,
-    of {name: (inputs, coeffs0, iterations, damping0)}."""
+def step_calls(module, name, cam, cfg, device, frames, with_planes=True, with_lines=False):
+    """The arguments, cloned, of the two calls a step makes of ``module.name``
+    in each of ``frames`` but the first, recorded from an eager
+    ``engine.step`` on the card: a list, a frame each, of two (args, kwargs)."""
     calls = []
-    solve = lm_cuda.lm_solve
+    fn = getattr(module, name)
 
-    def record(inputs, coeffs0, iterations, damping0, details=False):
-        calls.append((lm_cuda.LMInputs(*(t.clone() if isinstance(t, torch.Tensor) else t
-                                         for t in inputs)),
-                      coeffs0.clone(), iterations, damping0))
-        return solve(inputs, coeffs0, iterations, damping0, details)
+    def record(*args, **kw):
+        args_, kw_ = step_graph.clone_tree((args, tuple(kw.items())))
+        calls.append((args_, dict(kw_)))
+        return fn(*args, **kw)
 
     stepper = step_graph.EagerStep(engine.init_state(cam, cfg, seed=SEED, device=device),
                                    cam, cfg, with_planes=with_planes, with_lines=with_lines)
     staged = runner.stage_frames(frames, device=device)
     stepper.step(*staged[0])
-    lm_cuda.lm_solve = record
+    setattr(module, name, record)
     try:
         for frame in staged[1:]:
             stepper.step(*frame)
     finally:
-        lm_cuda.lm_solve = solve
+        setattr(module, name, fn)
     torch.cuda.synchronize()
     if len(calls) != 2 * (len(frames) - 1):
-        raise RuntimeError(f"lm phase: {len(frames) - 1} steps called lm_solve {len(calls)} "
-                           "times")
-    return [dict(zip(LM_CALLS, calls[i:i + 2])) for i in range(0, len(calls), 2)]
+        raise RuntimeError(f"{len(frames) - 1} steps called {name} {len(calls)} times")
+    return [calls[i:i + 2] for i in range(0, len(calls), 2)]
+
+
+def phase_frames(cam):
+    """The frames of the lm and ransac_score phases beside the room orbit's,
+    and the step's switches for each: the low-texture striped wall's first two
+    (lines on, planes off: live line rows) and the hard scene's first three
+    (depth holes: live inverse-depth points)."""
+    wall = synthetic.StripeWallScene(cam, texture_scale=0.03, stripe_period_z=2400.0)
+    wall_frames = [wall.render(q, p) for q, p in synthetic.lateral_trajectory(2, speed_mm=4.0)]
+    return {"lines": (wall_frames, dict(with_planes=False, with_lines=True)),
+            "points2d": (hard_orbit(cam, 3)[0], {})}
+
+
+def lm_call_sites(cam, cfg, device, frames, with_planes=True, with_lines=False):
+    """The inputs of the two ``lm_cuda.lm_solve`` calls (the hypothesis batch,
+    then the refit + Monte-Carlo batch) of each of ``frames`` but the first,
+    recorded from an eager ``engine.step`` on the card: a list, a frame each,
+    of {name: (inputs, coeffs0, iterations, damping0)}."""
+    return [{name: args for name, (args, _) in zip(LM_CALLS, calls)}
+            for calls in step_calls(lm_cuda, "lm_solve", cam, cfg, device, frames,
+                                    with_planes, with_lines)]
 
 
 def _widened(inputs: lm_cuda.LMInputs, ulps=None) -> lm_cuda.LMInputs:
@@ -1642,20 +1686,17 @@ def lm_sources(cam, cfg, device, frames):
     room-orbit frame (the main path's frame, and the one timed); the low-texture
     striped wall's second frame with lines on (live line rows); of the hard
     scene's second and third frames (depth holes), the one with the most live
-    inverse-depth points.  {source: {name: (inputs, coeffs0, iterations,
-    damping0)}}; each source but the first fails unless its rows are live."""
-    wall = synthetic.StripeWallScene(cam, texture_scale=0.03, stripe_period_z=2400.0)
-    wall_frames = [wall.render(q, p) for q, p in synthetic.lateral_trajectory(2, speed_mm=4.0)]
-    hard_frames, _ = hard_orbit(cam, 3)
-
+    inverse-depth points (``phase_frames``).  {source: {name: (inputs, coeffs0,
+    iterations, damping0)}}; each source but the first fails unless its rows
+    are live."""
     def live(calls, kind):
         return sum(lm_cuda.lm_work(c[0], c[1], 1)["live"][kind] for c in calls.values())
 
+    more = phase_frames(cam)
     sources = {
         "plane": lm_call_sites(cam, cfg, device, frames[:2])[0],
-        "lines": lm_call_sites(cam, cfg, device, wall_frames, with_planes=False,
-                               with_lines=True)[0],
-        "points2d": max(lm_call_sites(cam, cfg, device, hard_frames),
+        "lines": lm_call_sites(cam, cfg, device, more["lines"][0], **more["lines"][1])[0],
+        "points2d": max(lm_call_sites(cam, cfg, device, more["points2d"][0]),
                         key=lambda calls: live(calls, 1)),
     }
     for source, kind in (("lines", 3), ("points2d", 1)):
@@ -1768,6 +1809,170 @@ def check_lm(cam, cfg, device, frames):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 shapes={name: {k: s[k] for k in ("batch", "iterations", "ms", "plain_ms",
                                                  "device_us", "bound_ms", "bound_by")}
+                        for name, s in shapes.items()})
+
+
+def score_call_sites(cam, cfg, device, frames, with_planes=True, with_lines=False):
+    """The inputs of the two ``ransac_score_cuda.score`` calls (the hypotheses,
+    then the refit's pose) of each of ``frames`` but the first, recorded from
+    an eager ``engine.step`` on the card: a list, a frame each, of {name:
+    (coeffs, prepared features, ok, caps)}."""
+    return [{name: (args[0], args[1], kw.get("ok"), kw.get("caps"))
+             for name, (args, kw) in zip(SCORE_CALLS, calls)}
+            for calls in step_calls(ransac_score_cuda, "score", cam, cfg, device, frames,
+                                    with_planes, with_lines)]
+
+
+def score_sources(cam, cfg, device, frames):
+    """The inputs of the ransac_score phase, by source, from the lm phase's
+    frames: the plane step's second room-orbit frame (timed), the striped
+    wall's second frame with lines on, the hard scene's frame (of its second
+    and third) with the most live inverse-depth points.  Each source but the
+    first fails unless its rows are live."""
+    def live(calls, field):
+        return int(getattr(calls["refit"][1], field).sum())
+
+    more = phase_frames(cam)
+    sources = {
+        "plane": score_call_sites(cam, cfg, device, frames[:2])[0],
+        "lines": score_call_sites(cam, cfg, device, more["lines"][0], **more["lines"][1])[0],
+        "points2d": max(score_call_sites(cam, cfg, device, more["points2d"][0]),
+                        key=lambda calls: live(calls, "point2d_mask")),
+    }
+    for source, field in (("lines", "line_mask"), ("points2d", "point2d_mask")):
+        if live(sources[source], field) == 0:
+            raise RuntimeError(f"ransac_score phase: no live {source} rows in its frames")
+    return sources
+
+
+def limit_ulps(values, caps, ransac=config.RansacConfig()):
+    """How far each row's nearest tested value lies from its limit, in ulps of
+    the limit (float32), by type as ``ransac_score_cuda.value_tests`` gives the tests: a
+    decision that two roundings of the same chain take differently lies
+    within a few (``ransac_score_cuda.tested_values``' rows)."""
+    pt, q2, pl, ln = ransac_score_cuda.split_values(values, caps)
+    lim = ransac_score_cuda.limits(ransac)
+
+    def ulps(v, limit):
+        return ((v.abs() - limit).abs() / (torch.finfo(torch.float32).eps * limit)
+                ).nan_to_num(float("inf"))
+
+    return (ulps(pt, lim[0]), ulps(q2, lim[1]).amin(-1),
+            torch.minimum(ulps(pl[..., :3], lim[2]).amin(-1), ulps(pl[..., 3], lim[3])),
+            ulps(ln, lim[4]).amin(-1))
+
+
+def score_agreement(got, got_values, want, want_values, caps, name):
+    """The kernel's scoring (``got``) against the plain version's (``want``),
+    both with ``details``: the tested values' bit-equal share and largest
+    relative difference; the decisions that differ and, of those, the ones
+    whose plain value lies farther than ``SCORE_FLIP_ULPS`` from its limit
+    (``unexplained``); whether the outputs are equal.  Raises where a decision
+    differs unexplained, or where every decision agrees and an output does
+    not."""
+    same = (got_values == want_values) | (got_values.isnan() & want_values.isnan())
+    diff = (got_values - want_values).abs() / want_values.abs().clamp_min(1e-30)
+    tests_got = ransac_score_cuda.value_tests(got_values, caps)
+    tests_want = ransac_score_cuda.value_tests(want_values, caps)
+    near = limit_ulps(want_values, caps)
+    flips = sum(int((a != b).sum()) for a, b in zip(tests_got, tests_want))
+    unexplained = sum(int(((a != b) & (u > SCORE_FLIP_ULPS)).sum())
+                      for a, b, u in zip(tests_got, tests_want, near))
+    outputs_equal = (
+        torch.equal(got.best, want.best)   # the coefficients copied bit for bit, NaN too
+        and torch.equal(got.coeffs.view(torch.int32), want.coeffs.view(torch.int32))
+        and torch.equal(got.score, want.score.float())
+        and torch.equal(got.scores, want.scores.float())
+        and torch.equal(got.counts.long(), want.counts.long())
+        and all(torch.equal(a, b) for a, b in zip(got.masks, want.masks)))
+    fields = dict(values_bit_equal=float(same.double().mean()),
+                  max_value_rel_diff=float(diff[~same].max()) if bool((~same).any()) else 0.0,
+                  decision_flips=flips, unexplained_flips=unexplained,
+                  outputs_equal=outputs_equal, best=int(got.best))
+    if unexplained or (flips == 0 and not outputs_equal):
+        _say("ransac_score", shape=name, **fields)
+        raise RuntimeError(f"ransac_score phase, {name}: the kernel disagrees with its plain "
+                           f"version: {fields}")
+    return fields
+
+
+def score_in_graph_us(cam, cfg, device, frames, profiled=8):
+    """The scoring kernel where the main path runs it: inside the plane step's
+    CUDA graph (``StepGraph``) over ``frames``, the last ``profiled`` under the
+    profiler: its device µs and launches a frame."""
+    staged = runner.stage_frames(frames, device=device)
+    graph = step_graph.StepGraph(engine.init_state(cam, cfg, seed=SEED, device=device), cam,
+                                 cfg)
+    try:
+        for gray, depth in staged[:-profiled]:
+            graph.step(gray, depth)
+        torch.cuda.synchronize()
+        ops = _device_ops(lambda: [graph.step(gray, depth) for gray, depth in staged[-profiled:]])
+    finally:
+        graph.close()
+    mark = LAUNCH_MARKS["ransac_score"]
+    return dict(us=sum(us for name, us in ops if name.startswith(mark)) / profiled,
+                launches=sum(name.startswith(mark) for name, _ in ops) / profiled)
+
+
+def check_ransac_score(cam, cfg, device, frames):
+    """Phase ``ransac_score``: the scoring kernel against its plain version
+    (``score_reference`` on the card) on the inputs of both scoring calls of
+    three frames (:func:`score_sources`), held by :func:`score_agreement`,
+    and ``SCORE_REPEATS`` more launches each equal to the first to the bit.
+    Then, on the plane frame, the times: ``ms`` and ``plain_ms`` a call,
+    ``device_us`` a launch replayed from a CUDA graph, the bound from
+    ``score_work`` (every row live), and µs a frame inside the plane step's
+    graph, where the kernel must launch twice a frame.  No PyTorch call
+    scores RANSAC hypotheses: ``library_ms`` is null.  Returns the kernel
+    line's fields, summed over the two calls of a frame."""
+    shapes = {}
+    for source, calls in score_sources(cam, cfg, device, frames).items():
+        for name, (coeffs, prep, ok, caps) in calls.items():
+            run = functools.partial(ransac_score_cuda.score_cuda, coeffs, prep, cam,
+                                    cfg.ransac, ok, caps)
+            got, got_values = run(details=True)
+            torch.cuda.synchronize()
+            want, want_values = ransac_score_cuda.score_reference(
+                coeffs, prep, cam, cfg.ransac, ok, caps, details=True)
+            repeat = all(_bit_equal(got, run()) for _ in range(SCORE_REPEATS))
+            fields = dict(hypotheses=1 if coeffs.dim() == 1 else coeffs.shape[0],
+                          capacities=list(ransac_score_cuda.capacities(prep)),
+                          live=[int(m.sum()) for m in (prep.point_mask, prep.point2d_mask,
+                                                       prep.plane_mask, prep.line_mask)],
+                          inliers=[int(m.sum()) for m in got.masks], repeat_bit_equal=repeat,
+                          **score_agreement(got, got_values, want, want_values,
+                                            ransac_score_cuda.capacities(prep),
+                                            f"{source} {name}"))
+            if source == "plane":
+                work = ransac_score_cuda.score_work(fields["capacities"], fields["hypotheses"],
+                                                    batched=coeffs.dim() == 2)
+                bound_ms, bound_by = bound_of(work)
+                fields.update(
+                    ms=_median_ms(run),
+                    plain_ms=_median_ms(lambda: ransac_score_cuda.score_reference(
+                        coeffs, prep, cam, cfg.ransac, ok, caps), reps=5),
+                    device_us=graph_launch_us(run), bound_ms=bound_ms, bound_by=bound_by,
+                    flops=work["flops"], bytes=work["bytes"])
+                shapes[name] = fields
+            _say("ransac_score", source=source, shape=name, **fields)
+            if not repeat:
+                raise RuntimeError(f"ransac_score phase, {source} {name}: a launch differs "
+                                   "from the first")
+    in_graph = score_in_graph_us(cam, cfg, device, frames[:16])
+    _say("ransac_score", in_graph=in_graph)
+    if in_graph["launches"] != 2:
+        raise RuntimeError(f"the plane step's graph ran {in_graph['launches']} scoring "
+                           "launches a frame")
+    total = {k: sum(s[k] for s in shapes.values())
+             for k in ("ms", "plain_ms", "device_us", "flops", "bytes")}
+    bound_ms, bound_by = bound_of(total)
+    return dict(max_abs_err=max(s["max_value_rel_diff"] for s in shapes.values()),
+                ms=total["ms"], plain_ms=total["plain_ms"], device_us=total["device_us"],
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                in_graph_us_a_frame=in_graph["us"],
+                shapes={name: {k: s[k] for k in ("hypotheses", "ms", "plain_ms", "device_us",
+                                                 "bound_ms", "bound_by")}
                         for name, s in shapes.items()})
 
 
@@ -2495,6 +2700,7 @@ def main() -> int:
     kernels["cylinders"] = check_cylinders(cam, cfg, device, frames, tunnel_depths)
     kernels["lm_solve"] = check_lm(cam, cfg, device, frames)
     kernels["line_grow"] = check_line_grow(cam, cfg, device)
+    kernels["ransac_score"] = check_ransac_score(cam, cfg, device, frames)
     run_graph_phase(cam, cfg, device, frames, card)
     run_backend_graph_phase(cam, device, card)
     cfg_fwd = dataclasses.replace(cfg, mapping=dataclasses.replace(

@@ -20,13 +20,11 @@ import torch
 
 from ..config import CameraIntrinsics, EngineConfig, RansacConfig
 from ..geometry import pinhole, se3
-from ..ops import lm_cuda
+from ..ops import lm_cuda, ransac_score_cuda
 from ..ops.fast import top_k
 from ..ops.p3p import p3p
-from .features import (LINE_SCORE, PLANE_SCORE, POINT2D_SCORE, POINT_SCORE,
-                       MatchedFeatures)
-from .residuals import (VariationNoise, inlier_masks_prepared, prepare_features,
-                        random_variation)
+from .features import MatchedFeatures
+from .residuals import VariationNoise, prepare_features, random_variation
 
 
 class PoseOptimizationResult(NamedTuple):
@@ -180,16 +178,6 @@ def compact_features(feats: MatchedFeatures, caps: tuple = _REFIT_CAPS
     return _gather_features(feats, ip, mp_, i2, m2_, ik, mk_, il, ml_)
 
 
-def _score_pose(coeffs, prep, cam, ransac_cfg):
-    quat, position = se3.coefficients_to_pose(coeffs)
-    p_in, q_in, k_in, l_in = inlier_masks_prepared(quat, position, prep, cam, ransac_cfg)
-    dt = coeffs.dtype
-    score = (POINT_SCORE * p_in.sum(-1).to(dt) + POINT2D_SCORE * q_in.sum(-1).to(dt)
-             + PLANE_SCORE * k_in.sum(-1).to(dt) + LINE_SCORE * l_in.sum(-1).to(dt))
-    count = p_in.sum(-1) + q_in.sum(-1) + k_in.sum(-1) + l_in.sum(-1)
-    return score, count, (p_in, q_in, k_in, l_in)
-
-
 def compute_optimized_pose(quat0, position0, feats: MatchedFeatures,
                            cam: CameraIntrinsics,
                            ransac_cfg: RansacConfig = RansacConfig(),
@@ -237,18 +225,14 @@ def compute_optimized_pose(quat0, position0, feats: MatchedFeatures,
     else:
         hyp_ok = torch.ones((b,), dtype=torch.bool, device=dev)
 
+    # the hypotheses scored on the first _REFIT_CAPS live rows of each type,
+    # the best one picked and its inlier masks taken over every row: one
+    # launch of the scoring kernel on the card
     prep_all = prepare_features(feats, cam)
-    prep_sc = prepare_features(compact_features(feats), cam)
-    hyp_scores, hyp_counts, _ = _score_pose(hyp_coeffs, prep_sc, cam, ransac_cfg)
-    hyp_scores = torch.where(hyp_ok, hyp_scores, -1.0)
-
-    rank = hyp_scores + 1e-6 * hyp_counts.to(dt)
-    best = torch.argmax(rank, dim=0, keepdim=True)   # [1]: indexing reads no host value
-    best_coeffs = hyp_coeffs[best][0]
-    best_score = hyp_scores[best][0]
-
-    _, _, (p_in, q_in, k_in, l_in) = _score_pose(best_coeffs, prep_all, cam, ransac_cfg)
-    inlier_feats = compact_features(feats.with_masks(p_in, q_in, k_in, l_in))
+    hyp = ransac_score_cuda.score(hyp_coeffs, prep_all, cam, ransac_cfg, ok=hyp_ok,
+                                  caps=_REFIT_CAPS)
+    best_coeffs, best_score = hyp.coeffs, hyp.score
+    inlier_feats = compact_features(feats.with_masks(*hyp.masks))
     if compute_covariance:
         final_coeffs, covariance = refit_with_variance(
             best_coeffs, inlier_feats, cam, draws.noise,
@@ -259,8 +243,8 @@ def compute_optimized_pose(quat0, position0, feats: MatchedFeatures,
                                    iterations=engine_cfg.refit_lm_iterations)
         covariance = torch.eye(6, dtype=dt, device=dev) * 1e-3
 
-    final_score, _, (p_in2, q_in2, k_in2, l_in2) = _score_pose(
-        final_coeffs, prep_all, cam, ransac_cfg)
+    final = ransac_score_cuda.score(final_coeffs, prep_all, cam, ransac_cfg)
+    final_score = final.score
     success = enough & (best_score >= 1.0) & (final_score >= 1.0) \
         & torch.isfinite(final_coeffs).all()
 
@@ -268,8 +252,9 @@ def compute_optimized_pose(quat0, position0, feats: MatchedFeatures,
     quat = se3.quat_normalize(quat)
     return PoseOptimizationResult(
         success=success, quat=quat, position=position, covariance=covariance,
-        point_inliers=p_in2, point2d_inliers=q_in2, plane_inliers=k_in2,
-        line_inliers=l_in2, inlier_score=final_score)
+        point_inliers=final.point_inliers, point2d_inliers=final.point2d_inliers,
+        plane_inliers=final.plane_inliers, line_inliers=final.line_inliers,
+        inlier_score=final_score)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from rgbd_slam_tpu_torch import config, convert, engine, synthetic
-from rgbd_slam_tpu_torch.ops import fast, image, lk_cuda, lm_cuda
+from rgbd_slam_tpu_torch.ops import fast, image, lk_cuda, lm_cuda, ransac_score_cuda
 from rgbd_slam_tpu_torch.pose.optimizer import PoseDraws
 from rgbd_slam_tpu_torch.pose.residuals import VariationNoise, prepare_features
 
@@ -798,8 +798,9 @@ def test_step_graph_equals_the_eager_step(cuda, with_lines):
     graph = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=cuda), cam, cfg,
                                  with_lines=with_lines)
     counters = ((lk_cuda.LAUNCHES, "lk_fwd_bwd"), (components_cuda.LAUNCHES, "components"),
-                (lm_cuda.LAUNCHES, "lm_solve"), (line_grow_cuda.LAUNCHES, "line_grow"))
-    counts = [0, 0, 0, 0]
+                (lm_cuda.LAUNCHES, "lm_solve"), (line_grow_cuda.LAUNCHES, "line_grow"),
+                (ransac_score_cuda.LAUNCHES, "ransac_score"))
+    counts = [0, 0, 0, 0, 0]
     try:
         for i, (gray, depth) in enumerate(frames):
             before = [c[k] for c, k in counters]
@@ -811,9 +812,10 @@ def test_step_graph_equals_the_eager_step(cuda, with_lines):
             assert torch.equal(g_state.generator.get_state(), eager.generator.get_state())
     finally:
         graph.close()
-    # one launch of each kernel a replay (two of the LM kernel; the line
-    # growth kernel with lines on), and as many in the warm-up step
-    assert graph.warmup_steps == 1 and counts == [11, 11, 22, 11 * with_lines], counts
+    # one launch of each kernel a replay (two of the LM and the scoring
+    # kernels; the line growth kernel with lines on), and as many in the
+    # warm-up step
+    assert graph.warmup_steps == 1 and counts == [11, 11, 22, 11 * with_lines, 22], counts
 
 
 @pytest.mark.cuda
@@ -1400,3 +1402,132 @@ def test_plane_kernels_at_other_patch_sizes(cuda, patch):
         chip_smoke.check_cylinders_frame(config.TUM_FR1, det, depth, name=f"{name}_{patch}px")
         _assert_bit_equal(cells_cuda.cell_pass(depth, config.TUM_FR1, det),
                           cells_cuda.cell_pass(depth, config.TUM_FR1, det), name)
+
+
+#: seeds of each kind of feature set the scoring's card test draws: 8 kinds x
+#: 25 seeds = 200 feature sets
+SCORE_SEEDS = 25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["main", "lines_off", "planes_off", "sparse", "empty", "odd",
+                                  "tiny", "wide"])
+def test_ransac_score_kernel_matches_its_plain_version(cuda, kind):
+    """The scoring kernel against its plain version run on the card, on
+    ``SCORE_SEEDS`` seeded feature sets of ``torch_score_cases.KINDS[kind]``
+    (lines or planes all masked, rows past the caps, types that meet inside a
+    warp, two passes of 1,024 rows, nothing live) with 96 hypotheses (a NaN
+    one, two equal ones, a tenth not ok), then the refit's one pose: every
+    tested value equal to the bit, and the masks, counts, scores, best index,
+    its coefficients and score equal.  Tolerance: a decision may differ only
+    where the plain version's value lies within ``SCORE_FLIP_ULPS`` ulps of its
+    limit (``chip_smoke.score_agreement``), since the two round the same chain
+    in the same order; none is expected.  Each launch counts once and repeats
+    to the bit."""
+    import chip_smoke
+    import torch_score_cases as sc
+
+    ransac = config.RansacConfig()
+    for seed in range(SCORE_SEEDS):
+        coeffs, ok, prep, caps = sc.case(seed, kind, device=cuda)
+        for c, o, cp in ((coeffs, ok, caps), (coeffs[seed % coeffs.shape[0]], None, None)):
+            before = ransac_score_cuda.LAUNCHES["ransac_score"]
+            got, got_values = ransac_score_cuda.score(c, prep, sc.CAM, ransac, o, cp,
+                                                      details=True)
+            again = ransac_score_cuda.score(c, prep, sc.CAM, ransac, o, cp)
+            torch.cuda.synchronize()
+            assert ransac_score_cuda.LAUNCHES["ransac_score"] == before + 2
+            want, want_values = ransac_score_cuda.score_reference(c, prep, sc.CAM, ransac, o,
+                                                                  cp, details=True)
+            fields = chip_smoke.score_agreement(got, got_values, want, want_values,
+                                                ransac_score_cuda.capacities(prep),
+                                                f"{kind} {seed}")
+            assert fields["outputs_equal"] and fields["values_bit_equal"] == 1.0, fields
+            _assert_bit_equal(again, got, f"{kind} {seed} repeat")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["main", "lines_off", "planes_off", "sparse"])
+def test_compute_optimized_pose_equals_it_with_the_plain_scoring(cuda, monkeypatch, kind):
+    """``compute_optimized_pose`` on the card with the scoring kernel, and again
+    with the plain scoring patched in, from the same draws (five seeded
+    feature sets): every output equal to the bit; the kernel ran twice a call
+    and the plain version's call not at all."""
+    import torch_score_cases as sc
+    from rgbd_slam_tpu_torch.geometry import se3
+    from rgbd_slam_tpu_torch.pose import optimizer
+
+    ransac, eng = config.RansacConfig(), config.EngineConfig()
+    for seed in range(5):
+        feats, c_true = sc.features(seed, kind)
+        feats = type(feats)(*(t.to(cuda) for t in feats))
+        c0 = (c_true + torch.tensor([8.0, -5.0, 4.0, 0.004, -0.003, 0.002])).to(cuda)
+        quat0, position0 = se3.coefficients_to_pose(c0)
+        generator = torch.Generator(device=cuda).manual_seed(seed)
+        draws = optimizer.draw_pose_draws(feats, eng, generator)
+        before = ransac_score_cuda.LAUNCHES["ransac_score"]
+        got = optimizer.compute_optimized_pose(quat0, position0, feats, sc.CAM, ransac, eng,
+                                               draws=draws)
+        torch.cuda.synchronize()
+        assert ransac_score_cuda.LAUNCHES["ransac_score"] == before + 2
+        with monkeypatch.context() as m:
+            m.setattr(ransac_score_cuda, "score", ransac_score_cuda.score_reference)
+            m.setattr(ransac_score_cuda, "score_cuda", None)
+            want = optimizer.compute_optimized_pose(quat0, position0, feats, sc.CAM, ransac,
+                                                    eng, draws=draws)
+        assert ransac_score_cuda.LAUNCHES["ransac_score"] == before + 2
+        _assert_bit_equal(got, want, f"{kind} {seed}")
+
+
+@pytest.mark.cuda
+def test_ransac_score_kernel_raises_and_never_falls_back(cuda, monkeypatch):
+    """On the card the wrapper launches the kernel or raises: a failed launch
+    and a failed build raise, and the plain version is never called."""
+    import torch_score_cases as sc
+    from rgbd_slam_tpu_torch.ops import nvcc
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain scoring ran on the card")
+
+    monkeypatch.setattr(ransac_score_cuda, "score_reference", refuse)
+    coeffs, ok, prep, caps = sc.case(0, "tiny", device=cuda)
+    got = ransac_score_cuda.score(coeffs, prep, sc.CAM, ok=ok, caps=caps)
+    assert got.best.device.type == "cuda"
+
+    class Refusing:
+        @staticmethod
+        def ransac_score_launch(*args):
+            return 1   # cudaErrorInvalidValue
+
+    monkeypatch.setattr(ransac_score_cuda.LIBRARY, "lib", Refusing())
+    with pytest.raises(RuntimeError, match="scoring kernel launch failed"):
+        ransac_score_cuda.score(coeffs, prep, sc.CAM, ok=ok, caps=caps)
+
+    def no_nvcc(*args, **kw):
+        raise RuntimeError("nvcc failed on ransac_score.cu")
+
+    monkeypatch.setattr(ransac_score_cuda.LIBRARY, "lib", None)
+    monkeypatch.setattr(nvcc, "load_library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ransac_score_cuda.score(coeffs[0], prep, sc.CAM)
+
+
+@pytest.mark.cuda
+def test_graph_step_runs_the_scoring_kernel_and_not_its_plain_version(cuda, monkeypatch):
+    """``run_frames`` on the card (the step as a CUDA graph) over 4 frames with
+    ``score_reference`` patched to raise: the plain scoring is off the main
+    path, and the kernel runs twice a frame and twice in the warm-up step."""
+    from rgbd_slam_tpu_torch import runner
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain scoring ran on the card")
+
+    monkeypatch.setattr(ransac_score_cuda, "score_reference", refuse)
+    cam, cfg = config.TUM_FR1, config.SlamConfig()
+    scene = synthetic.RoomScene(cam, depth_noise=config.DepthNoiseModel())
+    frames = [scene.render(q, p) for q, p in synthetic.orbit_trajectory(4, speed_mm=4.0)]
+    before = ransac_score_cuda.LAUNCHES["ransac_score"]
+    _, traj, stats = runner.run_frames(frames, cam, cfg, device=cuda)
+    assert stats.warmup_steps == 1
+    assert ransac_score_cuda.LAUNCHES["ransac_score"] - before == 2 * (4 + 1)
+    assert np.isfinite(traj.positions_array()).all()

@@ -89,6 +89,7 @@ def test_the_sources_kernels_are_the_ones_chip_smoke_knows():
     assert _globals(_source("components.cu")) == {"components_kernel"}
     assert _globals(_source("lm.cu")) == {"lm_solve_kernel", "lm_solve_kernel_warp"}
     assert _globals(_source("line_grow.cu")) == {"line_grow_kernel"}
+    assert _globals(_source("ransac_score.cu")) == {"ransac_score_kernel"}
     assert {"lk_fwd_bwd_kernel", "lk_pyramid_kernel", "lk_level_kernel"} \
         <= _globals(_source("lk.cu"))
     assert set(chip_smoke.LAUNCH_MARKS) == set(chip_smoke.FUSED_ONLY) \

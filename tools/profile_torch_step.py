@@ -19,7 +19,8 @@ counts, device syncs and host reads per frame, and ``pose_opt``'s device time
 and kernels split into the hypotheses' LM, P3P, scoring and the refit with its
 Monte-Carlo covariance (``POSE_STAGES``; the two LM ranges hold the LM's
 preparation and packing, and the LM kernels themselves, which the profiler
-charges to no range, are ``lm_kernels``: ``OWN_KERNELS``).  Eight more frames (one group
+charges to no range, are ``lm_kernels``: ``OWN_KERNELS``; the scoring kernel is
+charged to ``scoring`` the same way).  Eight more frames (one group
 of the backend's cadence, ``runner.SUMMARY_BATCH``) run under ``torch.cuda.set_sync_debug_mode`` to
 name the package line of every host sync.  With planes on, ``PRIMITIVE_FRAMES``
 more frames run under the profiler with every op of ``find_primitives`` in a
@@ -69,7 +70,8 @@ from rgbd_slam_tpu_torch import (cli, config, engine, runner, step_graph,  # noq
                                  synthetic)
 from rgbd_slam_tpu_torch.features import primitives  # noqa: E402
 from rgbd_slam_tpu_torch.io import datasets  # noqa: E402
-from rgbd_slam_tpu_torch.ops import brief, fast, image, matching, optical_flow  # noqa: E402
+from rgbd_slam_tpu_torch.ops import (brief, fast, image, matching, optical_flow,  # noqa: E402
+                                     ransac_score_cuda)
 from rgbd_slam_tpu_torch.parallel.keyframes import KeyframeWindow  # noqa: E402
 from rgbd_slam_tpu_torch.parallel.pose_graph import PoseGraph  # noqa: E402
 from rgbd_slam_tpu_torch.pose import optimizer  # noqa: E402
@@ -101,15 +103,20 @@ STAGES = {
 
 #: the parts of ``pose_opt`` the profiled frames split it into: the LM of the
 #: RANSAC hypotheses (``lm_solve`` outside the refit), the P3P hypotheses, the
-#: hypotheses' and the final pose's scoring, and the refit with its
-#: Monte-Carlo covariance (one LM batch); the rest of ``pose_opt`` (subset
-#: draws, compaction, feature preparation) is ``pose_opt_other``
+#: hypotheses' and the final pose's scoring (``ransac_score_cuda.score``: the
+#: wrapper's allocations, and its kernel by name, ``OWN_POSE_PARTS``), and the
+#: refit with its Monte-Carlo covariance (one LM batch); the rest of
+#: ``pose_opt`` (subset draws, compaction, feature preparation) is
+#: ``pose_opt_other``
 POSE_STAGES = {
     "lm_hypotheses": [(optimizer, "lm_solve")],
     "p3p": [(optimizer, "p3p")],
-    "scoring": [(optimizer, "_score_pose")],
+    "scoring": [(ransac_score_cuda, "score")],
     "refit_mc": [(optimizer, "refit_with_variance")],
 }
+#: the part of ``pose_opt`` each of its own kernels is charged to, by name
+#: prefix (the LM kernels, which both LM parts launch, are a part of their own)
+OWN_POSE_PARTS = {"lm_solve_kernel": "lm_kernels", "ransac_score_kernel": "scoring"}
 #: prefix of the profiler ranges around the parts of ``pose_opt``
 POSE_PREFIX = "pose:"
 
@@ -201,7 +208,7 @@ RANGE_PREFIX = "stage:"
 #: charges them to no range: they are charged to their stage by name.
 OWN_KERNELS = {"lk_": "optical_flow", "components_kernel": "plane_extract",
                "cells_": "plane_extract", "cylinders_kernel": "plane_extract",
-               "lm_solve_kernel": "pose_opt"}
+               "lm_solve_kernel": "pose_opt", "ransac_score_kernel": "pose_opt"}
 
 
 def own_stage(name: str):
@@ -568,11 +575,20 @@ def main() -> int:
             busy_us += us
             if own_stage(evt.name) is not None:
                 own_us[evt.name.split("(")[0]].append(us)
-    # the LM's launches, which no range sees (OWN_KERNELS), added to pose_opt
-    lm = [us for name, v in own_us.items() if own_stage(name) == "pose_opt" for us in v]
-    pose_parts["lm_kernels"] = {"device_us": sum(lm) / n_prof, "kernels": len(lm) / n_prof}
-    pose_parts["pose_opt"] = {"device_us": pose["device_us"] + sum(lm) / n_prof,
-                              "kernels": pose["kernels"]}
+    # pose_opt's own launches, which no range sees (OWN_KERNELS), added to
+    # their part (OWN_POSE_PARTS) and to pose_opt
+    own = {"device_us": 0.0, "kernels": 0.0}
+    pose_parts.setdefault("lm_kernels", {"device_us": 0.0, "kernels": 0.0})
+    for name, v in own_us.items():
+        if own_stage(name) == "pose_opt":
+            part = next(p for prefix, p in OWN_POSE_PARTS.items() if name.startswith(prefix))
+            add = {"device_us": sum(v) / n_prof, "kernels": len(v) / n_prof}
+            row = pose_parts.setdefault(part, {"device_us": 0.0, "kernels": 0.0})
+            for k in own:
+                row[k] += add[k]
+                own[k] += add[k]
+    pose_parts["pose_opt"] = {"device_us": pose["device_us"] + own["device_us"],
+                              "kernels": pose["kernels"] + own["kernels"]}
     counts = defaultdict(int)
     for avg in prof.key_averages():
         if avg.key in ("cudaStreamSynchronize", "aten::item", "aten::_local_scalar_dense",
