@@ -67,6 +67,17 @@ Phases, one line of output each (any failure raises, so the last line, the
    the regions without a slot (``check_cylinder_stage``, ``CYL_*``); timed on
    the three ``TIMED_FRAMES`` (the tunnel frame's is the JSON line's), held to
    the first design's bits there as the cells are.
+   large_grids: the main path's kernels on what configuration ``kv2_hd``
+   (a Kinect v2's 1920x1080 registered stream) gives them and no 640x480
+   phase does: the fused forward-backward LK at the 1920x1080 camera (level
+   0's window swept in place) against its plain version, timed as above; the
+   cylinder stage's global-memory path (``cylinders_kernel_global``: grids
+   past one CTA's shared memory) against its plain version by the cylinders
+   phase's rules on the room frames of ``TIMED_FRAMES`` and the tunnel's
+   first frame, at 5,184 cells (1920x1080 at 20 px) and 4,800 (640x480 at
+   8 px), each frame timed (``ms``, ``plain_ms``, ``device_us``,
+   ``bound_ms``; the JSON line's on the 1080p tunnel frame), the tunnel
+   frames holding a live region (``check_large_grids``).
    lm: the LM kernel (the pose optimizer's ``lm_solve``, no Pallas port)
    against its plain version on the inputs of both ``lm_solve`` calls (the
    32 RANSAC hypotheses over 6/6/3/6-feature subsets, 10 iterations; the
@@ -142,6 +153,11 @@ Phases, one line of output each (any failure raises, so the last line, the
     backend, the backend path's counts; the tunnel paths check cylinders on
     every frame in place of planes alive.  Each prints the components
     fixpoint's host reads a frame and the frames with a cylinder.
+    Then ``kv2_hd``: the plane path over the first 16 RoomScene orbit frames
+    (depth noise on) at the 1920x1080 camera, a 5,184-cell grid: the launches
+    a frame of the plane path, its cylinder stage on the global-memory path,
+    no failed or lost frame; its ATE is printed (no JAX reference runs at
+    this size).
 11. ``tum_cli``: the 60 frames written as a TUM directory (8-bit RGB and 16-bit
     depth PNGs by this script's own writer, the three list files, a camera YAML
     whose depth camera sits 25 mm off the RGB camera, the depth maps rendered
@@ -165,8 +181,12 @@ Phases, one line of output each (any failure raises, so the last line, the
     single-device ones measure what the collectives cost, not a speed-up.
 14. the kernels' JSON line (launches summed over all paths; every path
     expects two LM launches and two scoring launches a frame, and one components, one cells and one
-    cylinders launch a frame with planes on), the card line again, and the
-    result line.
+    cylinders launch a frame with planes on; the ``kv2_hd`` path's cylinder
+    launches are the ``cylinders_global`` entry's, the global-memory path's),
+    the card line again, and the result line.
+
+Every plane path checks its cylinder section's stamps and, where it found a
+cylinder, live cylinder slots counted in its ``RunStats``.
 
 Every path runs through ``runner.run_frames``, which on the card records the
 step as one CUDA graph at its first frame (one eager warm-up step, whose
@@ -284,6 +304,15 @@ BENCH_LEG_PATHS = {
     "tunnel": ("tunnel", dict(), False),
     "tunnel_ba": ("tunnel", dict(ba_every=8), False),
 }
+#: the Kinect v2's colour camera as ``kinect2_bridge`` publishes it at 1080p
+#: (configuration ``kv2_hd``): a 96x54 grid of 20 px cells
+KV2_HD = config.CameraIntrinsics(width=1920, height=1080, fx=1081.37, fy=1081.37, cx=959.5,
+                                 cy=539.5)
+#: frames of the ``kv2_hd`` path
+HD_FRAMES = 16
+#: a second path of a kernel library in the kernels' JSON line: the cylinder
+#: stage's global-memory path, whose launches ``cylinders`` counts
+SECOND_PATHS = {"cylinders_global": "cylinders"}
 #: frames of the backend path's repeat, of the checkpoint phase's straight run
 #: and of the sharded backend run
 SHORT_RUN_FRAMES = 30
@@ -1507,6 +1536,72 @@ def check_cylinders(cam, cfg, device, frames, tunnel_depths):
     return result
 
 
+def check_large_grids(cfg, device, frames, tunnel_depths):
+    """Phase ``large_grids``: the fused LK at the ``KV2_HD`` camera against
+    its plain version, timed; the cylinder stage's global-memory path against
+    its plain version (``check_cylinders_frame``) on the room frames of
+    ``TIMED_FRAMES`` and the tunnel's first frame at 1920x1080 with 20 px cells
+    and at 640x480 with 8 px cells (``frames``, ``tunnel_depths``), each
+    timed.  Returns the kernel line's fields of the global path on the 1080p
+    tunnel frame."""
+    case = kernel_cases(KV2_HD, cfg, device)[0]
+    err, n_both, flag_diffs, _ = check_case(case)
+    work = case.work()
+    bound_ms, bound_by = bound_of(work)
+    _say("kernel", name=case.name, camera="1920x1080", points=case.points, both_ok=n_both,
+         near_gate_flag_diffs=flag_diffs, max_abs_err_px=err, tol_px=TOL_PX,
+         iterations=work["iterations"], mflop=work["flops"] / 1e6,
+         mbytes=work["bytes"] / 1e6, ms=_median_ms(case.kernel),
+         plain_ms=_median_ms(case.plain), device_us=graph_launch_us(case.kernel),
+         bound_ms=bound_ms, bound_by=bound_by)
+
+    det = cfg.detection
+    scene = synthetic.RoomScene(KV2_HD, depth_noise=config.DepthNoiseModel())
+    orbit = synthetic.orbit_trajectory(JAX_REFERENCE["planes"]["frames"], speed_mm=4.0)
+    hd_depths = {kind: torch.as_tensor(scene.render(*orbit[i])[1] if leg == "room"
+                                       else _tunnel_depths(KV2_HD, i + 1)[i], device=device)
+                 for kind, (leg, i) in TIMED_FRAMES.items()}
+    grids = {"1080p": (KV2_HD, det, hd_depths),
+             "8px": (config.TUM_FR1, dataclasses.replace(det, depth_patch_size_px=8),
+                     timed_depths(frames, tunnel_depths, device))}
+    n_hyp = primitives._msac_iterations(det)
+    result = None
+    for grid_name, (cam, det_g, depths) in grids.items():
+        for kind, dep in depths.items():
+            name = f"{kind}_{grid_name}"
+            inputs, _, err, flips = check_cylinders_frame(cam, det_g, dep, name=name)
+            grid, member, try_cyl, min_act = inputs
+            k, c = member.shape
+            if cylinders_cuda.shared_path(c, k):
+                raise RuntimeError(f"cylinders on {name}: {c} cells took the shared path")
+
+            def stage():
+                return cylinders_cuda.cylinder_stage(grid, member, try_cyl, det_g, min_act)
+
+            live = int(stage().selected.sum())
+            if kind.startswith("tunnel") and live == 0:
+                raise RuntimeError(f"cylinders on {name}: no live region")
+            work = cylinders_cuda.cylinders_work(c, k, n_hyp, primitives.CYL_SUBSEGMENTS,
+                                                 live)
+            bound_ms, bound_by = bound_of(work)
+            fields = dict(
+                max_abs_err=err["axis"], ms=_median_ms(stage),
+                plain_ms=_median_ms(lambda: cylinders_cuda.cylinders_reference(
+                    grid, member, try_cyl, det_g, min_act)),
+                device_us=graph_launch_us(stage), bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+            for f in flips:
+                _say("cylinders_flip", frame=name, **f)
+            _say("kernel", name="cylinders_global", frame=name, cells=c, live_regions=live,
+                 flips=len(flips), **{f"max_err_{k}": v for k, v in err.items()},
+                 mflop=work["flops"] / 1e6, mbytes=work["bytes"] / 1e6,
+                 **{k: fields[k] for k in ("ms", "plain_ms", "device_us", "bound_ms",
+                                           "bound_by")})
+            if name == "tunnel_one_1080p":
+                result = fields
+    return result
+
+
 def step_calls(module, name, cam, cfg, device, frames, with_planes=True, with_lines=False):
     """The arguments, cloned, of the two calls a step makes of ``module.name``
     in each of ``frames`` but the first, recorded from an eager
@@ -2329,6 +2424,8 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
         points_alive=int((state.points.fid >= 0).sum()), planes_alive=planes_alive)
     if with_planes:
         fields.update(frames_with_cylinders=frames_with_cylinders,
+                      cylinders_live=stats.cylinders_live,
+                      cylinders_us=stats.stage_device_us.get("cylinders"),
                       fixpoint_reads_per_frame=fixpoint_reads / stats.frame_count)
     if with_lines:
         fields.update(lines_alive=lines_alive,
@@ -2357,11 +2454,17 @@ def run_path(name, cam, cfg, device, frames, gt, expect_launches, with_planes=Tr
         problems.append(f"{stats.stamped_frames} stamped replays of {stats.frame_count} "
                         "frames")
     problems += replay_order_problems(timer.events, stats.frame_count)
-    stages_us = sum(stats.stage_device_us.values())
+    # a nested section (the cylinders, inside plane_extract) is not a stage of the span
+    stages_us = sum(v for k, v in stats.stage_device_us.items()
+                    if k not in profiling.PLANE_SECTIONS)
     if not (min(stats.stage_device_us.values(), default=-1) >= 0
             and math.isclose(stages_us, stats.graph_span_us, rel_tol=1e-9)):
         problems.append(f"the step's stages {stats.stage_device_us} do not sum to its "
                         f"span {stats.graph_span_us} us")
+    if with_planes and "cylinders" not in stats.stage_device_us:
+        problems.append("no cylinder section among the stamped stages")
+    if frames_with_cylinders and not stats.cylinders_live:
+        problems.append(f"cylinders on {frames_with_cylinders} frames, no live slot counted")
     if not np.isfinite(traj.positions_array()).all() \
             or not np.isfinite(np.array(traj.quaternions)).all():
         problems.append("a pose is not finite")
@@ -2698,6 +2801,7 @@ def main() -> int:
     tunnel_depths = _tunnel_depths(cam, JAX_REFERENCE["tunnel"]["frames"])
     kernels["cells"] = check_cells(cam, cfg, device, frames, tunnel_depths)
     kernels["cylinders"] = check_cylinders(cam, cfg, device, frames, tunnel_depths)
+    kernels["cylinders_global"] = check_large_grids(cfg, device, frames, tunnel_depths)
     kernels["lm_solve"] = check_lm(cam, cfg, device, frames)
     kernels["line_grow"] = check_line_grow(cam, cfg, device)
     kernels["ransac_score"] = check_ransac_score(cam, cfg, device, frames)
@@ -2741,16 +2845,26 @@ def main() -> int:
     for name, (leg, kw, prediction) in BENCH_LEG_PATHS.items():
         paths.append(run_path(name, cam, cfg_pred if prediction else cfg, device, *legs[leg],
                               FUSED_ONLY, reference=name, **kw))
+    hd_frames, hd_gt = room_frames(KV2_HD, HD_FRAMES)
+    hd_counts, _, hd_stats = run_path("kv2_hd", KV2_HD, cfg, device, hd_frames, hd_gt,
+                                      FUSED_ONLY)
+    if hd_stats.success_count != hd_stats.frame_count or hd_stats.lost_count:
+        raise RuntimeError(f"kv2_hd path: {hd_stats.success_count} of {hd_stats.frame_count} "
+                           f"frames tracked, {hd_stats.lost_count} lost")
     counts = [p[0] for p in paths]
     counts.append(run_tum_cli(cam, frames, poses, gt))
     counts.append(run_checkpoint(cam, cfg, device, frames[:n_short]))
     counts.append(run_sharded_ba(ba_short[0][2], ba_short[0][1], n_short))
-    launches = {name: sum(c[name] for c in counts) for name in kernels}
+    launches = {name: sum(c[name] for c in counts) for name in FUSED_ONLY}
+    for name in FUSED_ONLY:
+        launches[name] += hd_counts[name] if name != "cylinders" else 0
+    launches["cylinders_global"] = hd_counts["cylinders"]
 
     _say("wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name], **measured}
+        {"name": name, "route": "cuda", "source": SOURCES[SECOND_PATHS.get(name, name)],
+         "replaces": REPLACES[SECOND_PATHS.get(name, name)], "launches": launches[name],
+         **measured}
         for name, measured in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -66,6 +66,22 @@
 // own, as the plain version's separate tensor ops round, so the thresholds
 // (the axis score, d2 < trunc, the argmin) see the plain arithmetic but for
 // the order of the sums.
+//
+// Two paths, chosen by the grid's size (the wrapper's `shared_path`): the one
+// above while a CTA's inputs and per-cell arrays fit its shared memory (3,576
+// cells at 20 regions: 640x480 at 20 px is 768), and past that the global
+// path (`cylinders_kernel_global`), the same code on the same arithmetic with
+// the per-cell arrays in global memory, where L1 and L2 hold them: each CTA
+// reads the normals, means, planar flags, member rows and candidate flags
+// where they lie (no staging), and keeps its own remaining flags, compacted
+// cells, chunk masks, projected cells and the round's inlier flags (a byte a
+// cell, in place of the register bits) in its slice of a scratch buffer that
+// the wrapper allocates (`cylinders_scratch`, ~38 bytes a cell).  Only the
+// cluster's exchanges (axes, flags, scores) stay in static shared memory.  The
+// sums run in the same order, so the two paths give the same bits.  A cluster
+// that splits the cell arrays over its CTAs' shared memory (distributed shared
+// memory) would hold 4 x 227 KB, ~14,600 cells at 62 bytes a cell: short of
+// the 38,741 cells the components kernel takes.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,6 +103,8 @@ namespace cg = cooperative_groups;
 #define CYL_MAX_SUMS 8
 // a thread keeps the inlier bits of its cells in one 32-bit register
 #define CYL_MAX_CELLS (32 * CYL_THREADS)
+// the global path: k s c stays far below 2^31 and the scratch below 40 MB
+#define CYL_MAX_CELLS_GLOBAL 65536
 #define FULL_MASK 0xffffffffu
 
 struct CylArgs {
@@ -103,6 +121,7 @@ struct CylArgs {
   uint8_t* valids;         // [k, s]
   float* mses;             // [k, s]
   uint8_t* inliers;        // [k, s, c]
+  uint8_t* scratch;        // the global path's cell arrays, cylinders_scratch(c) a CTA; else null
   int c, k, subsegments, n_hyp, min_activated;
   float trunc, min_score;
 };
@@ -251,22 +270,67 @@ __host__ __device__ __forceinline__ size_t cylinders_smem(int c, int k) {
          + align16((size_t)(k > 32 ? k : 32) * c);
 }
 
-__global__ void __cluster_dims__(CYL_CLUSTER, 1, 1) __launch_bounds__(CYL_THREADS)
-    cylinders_kernel(const CylArgs a) {
+// The global path's scratch of one CTA, in its order: the projected cells (two
+// float4s a cell), the compacted cells, a mask a chunk of 32 cells, the
+// remaining flags and the round's inlier flags (a byte a cell each).
+__host__ __device__ __forceinline__ size_t cylinders_scratch(int c) {
+  return (size_t)32 * c + align16((size_t)4 * c) + align16((size_t)4 * ((c + 31) / 32))
+         + 2 * align16((size_t)c);
+}
+
+// The kernel's body, by path: the two kernels below, each a cluster of
+// CYL_CLUSTER CTAs of CYL_THREADS threads a region slot.
+template <bool kGlobal>
+__device__ __forceinline__ void cylinders_body(const CylArgs& a) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int c = a.c, k = a.k;
   const int n_chunks = (c + 31) / 32;
-  float* s_normal = (float*)smem;                                  // [c][3]
-  float* s_mean = (float*)(smem + align16((size_t)12 * c));        // [c][3]
-  uint8_t* s_planar = (uint8_t*)s_mean + align16((size_t)12 * c);  // [c]
-  uint8_t* s_rem = s_planar + align16((size_t)c);                  // [c]
-  int* s_compact = (int*)(s_rem + align16((size_t)c));             // [c]
-  // the remaining cells of a chunk of 32, a bit a cell
-  unsigned* s_mask = (unsigned*)((uint8_t*)s_compact + align16((size_t)4 * c));   // [n_chunks]
-  uint8_t* s_try = (uint8_t*)s_mask + align16((size_t)4 * n_chunks);   // [k]
-  uint8_t* s_member = s_try + align16((size_t)k);                  // [k][c], the gate's
-  float4* s_pc = (float4*)s_member;                                // [c] after the gate
-  float4* s_pn = s_pc + c;                                         // [c]
+  // this CTA has started: the cluster's barrier, waited for before the first
+  // write into another CTA's shared memory, overlaps the staging and the gate
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const float *s_normal, *s_mean;                 // [c][3]
+  const uint8_t *s_planar, *s_try, *s_member;     // [c], [k], [k][c] (the gate's)
+  uint8_t* s_rem;                                 // [c]
+  int* s_compact;                                 // [c]
+  unsigned* s_mask;   // [n_chunks]: the remaining cells of a chunk of 32, a bit a cell
+  float4 *s_pc, *s_pn;                            // [c] each, after the gate
+  uint8_t* s_inl = nullptr;                       // [c], the global path's inlier flags
+  if constexpr (kGlobal) {
+    s_normal = a.normal;
+    s_mean = a.mean;
+    s_planar = a.planar;
+    s_try = a.try_cyl;
+    s_member = a.member;
+    uint8_t* w = a.scratch + (size_t)blockIdx.x * cylinders_scratch(c);
+    s_pc = (float4*)w;
+    s_pn = s_pc + c;
+    s_compact = (int*)(s_pn + c);
+    s_mask = (unsigned*)((uint8_t*)s_compact + align16((size_t)4 * c));
+    s_rem = (uint8_t*)s_mask + align16((size_t)4 * n_chunks);
+    s_inl = s_rem + align16((size_t)c);
+  } else {
+    float* normal = (float*)smem;
+    float* mean = (float*)(smem + align16((size_t)12 * c));
+    uint8_t* planar = (uint8_t*)mean + align16((size_t)12 * c);
+    s_rem = planar + align16((size_t)c);
+    s_compact = (int*)(s_rem + align16((size_t)c));
+    s_mask = (unsigned*)((uint8_t*)s_compact + align16((size_t)4 * c));
+    uint8_t* try_cyl = (uint8_t*)s_mask + align16((size_t)4 * n_chunks);
+    uint8_t* member = try_cyl + align16((size_t)k);
+    s_pc = (float4*)member;   // over the member rows, after the gate
+    s_pn = s_pc + c;
+    // ---- the inputs, all copies in flight at once ----
+    stage_bytes(normal, a.normal, 12 * c);
+    stage_bytes(mean, a.mean, 12 * c);
+    stage_bytes(planar, a.planar, c);
+    stage_bytes(member, a.member, k * c);
+    stage_bytes(try_cyl, a.try_cyl, k);
+    s_normal = normal;
+    s_mean = mean;
+    s_planar = planar;
+    s_try = try_cyl;
+    s_member = member;
+  }
 
   __shared__ float s_axis[CYL_MAX_REGIONS][3];
   __shared__ uint8_t s_axis_ok[CYL_MAX_REGIONS];
@@ -286,18 +350,10 @@ __global__ void __cluster_dims__(CYL_CLUSTER, 1, 1) __launch_bounds__(CYL_THREAD
   const int slot = blockIdx.x / CYL_CLUSTER;
   const int n_slots = gridDim.x / CYL_CLUSTER;
 
-  // this CTA has started: the cluster's barrier, waited for before the first
-  // write into another CTA's shared memory, overlaps the staging and the gate
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-
-  // ---- the inputs, all copies in flight at once ----
-  stage_bytes(s_normal, a.normal, 12 * c);
-  stage_bytes(s_mean, a.mean, 12 * c);
-  stage_bytes(s_planar, a.planar, c);
-  stage_bytes(s_member, a.member, k * c);
-  stage_bytes(s_try, a.try_cyl, k);
-  stage_wait();
-  __syncthreads();
+  if constexpr (!kGlobal) {   // the inputs have landed
+    stage_wait();
+    __syncthreads();
+  }
 
   // ---- the axis gate (_cylinder_axis): region r on CTA r % CYL_CLUSTER ----
   const int gate_r = (int)rank + CYL_CLUSTER * warp;
@@ -409,7 +465,7 @@ __global__ void __cluster_dims__(CYL_CLUSTER, 1, 1) __launch_bounds__(CYL_THREAD
     if (i < c) s_rem[i] = active;
     if (lane == 0) s_mask[i0 >> 5] = bits;
   }
-  __syncthreads();   // every read of the member rows is done
+  __syncthreads();   // every read of the member rows (the shared path's s_pc) is done
   for (int i = tid; i < c; i += CYL_THREADS) {
     const float m0 = s_mean[3 * i], m1 = s_mean[3 * i + 1], m2 = s_mean[3 * i + 2];
     const float n0 = s_normal[3 * i], n1 = s_normal[3 * i + 1], n2 = s_normal[3 * i + 2];
@@ -535,7 +591,10 @@ __global__ void __cluster_dims__(CYL_CLUSTER, 1, 1) __launch_bounds__(CYL_THREAD
     for (int i = tid, m = 0; i < c; i += CYL_THREADS, ++m) {
       const float4 pc = s_pc[i], pn = s_pn[i];
       const bool inl = s_rem[i] && rel_dist2(pc, pn, hbest) < a.trunc;
-      inl_bits |= (inl ? 1u : 0u) << m;
+      if constexpr (kGlobal)
+        s_inl[i] = inl;
+      else
+        inl_bits |= (inl ? 1u : 0u) << m;
       const float iw = inl ? 1.0f : 0.0f;
       sums[0] += pn.x * iw;
       sums[1] += pn.y * iw;
@@ -556,7 +615,8 @@ __global__ void __cluster_dims__(CYL_CLUSTER, 1, 1) __launch_bounds__(CYL_THREAD
     // MSE: (distance to the axis line - radius)^2 over the inliers
     float sq = 0.0f;
     for (int i = tid, m = 0; i < c; i += CYL_THREADS, ++m) {
-      const float iw = ((inl_bits >> m) & 1u) ? 1.0f : 0.0f;
+      const bool inl = kGlobal ? s_inl[i] != 0 : ((inl_bits >> m) & 1u) != 0u;
+      const float iw = inl ? 1.0f : 0.0f;
       const float r0 = s_mean[3 * i] - center[0];
       const float r1 = s_mean[3 * i + 1] - center[1];
       const float r2 = s_mean[3 * i + 2] - center[2];
@@ -580,7 +640,8 @@ __global__ void __cluster_dims__(CYL_CLUSTER, 1, 1) __launch_bounds__(CYL_THREAD
     uint8_t* inl_out = a.inliers + (size_t)rs * c;
     for (int i0 = warp * 32, m = 0; i0 < c; i0 += CYL_THREADS, ++m) {
       const int i = i0 + lane;
-      const bool taken = seg_ok && ((inl_bits >> m) & 1u);
+      const bool taken =
+          seg_ok && (kGlobal ? i < c && s_inl[i] != 0 : ((inl_bits >> m) & 1u) != 0u);
       const bool left = i < c && s_rem[i] && !taken;
       if (leader && i < c) inl_out[i] = taken;
       if (taken) s_rem[i] = 0;
@@ -591,12 +652,29 @@ __global__ void __cluster_dims__(CYL_CLUSTER, 1, 1) __launch_bounds__(CYL_THREAD
   }
 }
 
+// the shared-memory path
+__global__ void __cluster_dims__(CYL_CLUSTER, 1, 1) __launch_bounds__(CYL_THREADS)
+    cylinders_kernel(const CylArgs a) {
+  cylinders_body<false>(a);
+}
+
+// the global-memory path, for grids past one CTA's shared memory
+__global__ void __cluster_dims__(CYL_CLUSTER, 1, 1) __launch_bounds__(CYL_THREADS)
+    cylinders_kernel_global(const CylArgs a) {
+  cylinders_body<true>(a);
+}
+
 extern "C" int cylinders_launch(const CylArgs* args, int slots, void* stream) {
   const CylArgs a = *args;
-  if (a.c <= 0 || a.c > CYL_MAX_CELLS || a.k <= 0 || a.k > CYL_MAX_REGIONS || a.n_hyp <= 0
-      || a.n_hyp > CYL_MAX_HYP || a.subsegments <= 0 || a.subsegments > CYL_MAX_SUBSEGMENTS
-      || slots <= 0 || slots > a.k)
+  const bool global = a.scratch != nullptr;
+  if (a.c <= 0 || a.c > (global ? CYL_MAX_CELLS_GLOBAL : CYL_MAX_CELLS) || a.k <= 0
+      || a.k > CYL_MAX_REGIONS || a.n_hyp <= 0 || a.n_hyp > CYL_MAX_HYP || a.subsegments <= 0
+      || a.subsegments > CYL_MAX_SUBSEGMENTS || slots <= 0 || slots > a.k)
     return (int)cudaErrorInvalidValue;
+  if (global) {
+    cylinders_kernel_global<<<slots * CYL_CLUSTER, CYL_THREADS, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = cylinders_smem(a.c, a.k);
   // the dynamic part beside the ~9 kB of static arrays needs the opt-in above
   // the 48 kB default; set once a device, on the first (eager) launch
@@ -609,11 +687,17 @@ extern "C" int cylinders_launch(const CylArgs* args, int slots, void* stream) {
     cudaFuncAttributes attr;
     e = cudaFuncGetAttributes(&attr, cylinders_kernel);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(cylinders_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      e = cudaFuncSetAttribute(cylinders_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                232448 - (int)attr.sharedSizeBytes);
     if (e != cudaSuccess) return (int)e;
     opted_in[device] = true;
   }
   cylinders_kernel<<<slots * CYL_CLUSTER, CYL_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Bytes of the global path's scratch for `slots` region slots of c cells.
+extern "C" size_t cylinders_scratch_bytes(int c, int slots) {
+  return (size_t)slots * CYL_CLUSTER * cylinders_scratch(c);
 }

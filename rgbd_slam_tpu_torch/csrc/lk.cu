@@ -67,6 +67,13 @@
 // the same code.  What the kernel takes from Hopper is its large shared memory,
 // its asynchronous copies and named barriers.
 //
+// A level whose two buffer pairs do not fit a CTA's shared memory (a window of
+// 120 x 160 at level 0 of a 1920 x 1080 frame needs 362 KB) is swept in
+// place: its template and tile are the level's images themselves, read through
+// L1 and L2, and nothing of it is staged.  The host marks each level (`staged`,
+// level_caps); the levels that fit keep the staged sweep.  Sampling from the
+// image is what sampling from a tile is, so both give the same bits.
+//
 // One build variant (compile-time, off in the normal build): -DLK_PHASE_PROFILE.
 // Thread 0 of the first CTAs then writes clock64() and the global timer at the
 // phase borders of the sweep into a buffer given through lk_profile_attach().
@@ -83,6 +90,8 @@
 #define LK_MARGIN 8  // pixels of the destination staged around the window
 // window rows of the column strip a thread keeps in registers (more would spill)
 #define LK_STRIP 14
+// dynamic shared memory a CTA may hold on Hopper (227 KB), less the static arrays
+#define LK_SMEM_BUDGET (232448 - 1024)
 
 struct LKLevel {
   const float* prev;
@@ -90,6 +99,7 @@ struct LKLevel {
   int h, w;     // level rows, cols
   int wh, ww;   // window rows, cols
   int aligned;  // both images' rows start on 16-byte borders
+  int staged;   // its inputs are staged in shared memory; else swept in place
 };
 
 struct LKParams {
@@ -243,6 +253,7 @@ __device__ __forceinline__ void stage_region(float* out, const float* img, const
 // The staged part of the destination level around the window js: the window
 // and LK_MARGIN pixels on every side, cut to the level.
 __device__ __forceinline__ Region tile_around(const Window& js, const LKLevel& L) {
+  if (!L.staged) return Region{0, 0, L.w, L.h};   // the whole level, in place
   const int w = min(L.ww + 1 + 2 * LK_MARGIN, L.w);
   const int h = min(L.wh + 1 + 2 * LK_MARGIN, L.h);
   return region_of(L, min(max(js.xi - LK_MARGIN, 0), L.w - w),
@@ -257,6 +268,7 @@ __device__ __forceinline__ bool tile_holds(const Region& t, const Window& js,
 
 // The raw (wh+3) x (ww+3) region under the template patch at (tlx, tly).
 __device__ __forceinline__ Region template_region(const LKLevel& L, float tlx, float tly) {
+  if (!L.staged) return Region{0, 0, L.w, L.h};   // the whole level, in place
   const Window ts = window_at(tlx - 1.f, tly - 1.f, L.wh + 2, L.ww + 2, L.h, L.w);
   return region_of(L, ts.xi, ts.yi, L.ww + 3, L.wh + 3);
 }
@@ -274,6 +286,7 @@ __device__ __forceinline__ void stage_level(const float* src, const float* dst,
                                             const LKLevel& L, float tlx, float tly,
                                             const Region& tile, const Scratch& sc, int slot,
                                             int worker, int workers) {
+  if (!L.staged) return;
   stage_region(tmpl_slot(sc, slot), src, L, template_region(L, tlx, tly), worker, workers);
   stage_region(tile_slot(sc, slot), dst, L, tile, worker, workers);
   cp_async_commit();
@@ -326,8 +339,9 @@ __device__ __forceinline__ void template_pixel(const float* p, int stride, float
 // sweeping warps.  The level's inputs are staged (stage_level, waited for and
 // made visible by the caller):
 // `tmpl` holds the region under the template, `tile_buf` the destination tile
-// `tile`.  Runs up to `iterations` Gauss-Newton steps on `dst` from the guess
-// (gx, gy), which is updated in place.  Returns whether the level's structure
+// `tile`; a level swept in place reads `src` and `dst` themselves.  Runs up to
+// `iterations` Gauss-Newton steps on `dst` from the guess (gx, gy), which is
+// updated in place.  Returns whether the level's structure
 // tensor is usable (det > 1e-6) for a valid point.
 //
 // A thread owns one column strip of the window, LK_STRIP rows of one column,
@@ -339,11 +353,13 @@ __device__ __forceinline__ void template_pixel(const float* p, int stride, float
 // threads cannot hold as strips (a window of more than LK_SUM_THREADS strips, or
 // of fewer than LK_STRIP rows) are the tail: its pixels are recomputed from
 // shared memory in every iteration.
-__device__ bool level_sweep(const float* dst, const LKLevel& L, int tag, float tlx,
-                            float tly, bool valid, int iterations, float eps_sq,
+__device__ bool level_sweep(const float* src, const float* dst, const LKLevel& L, int tag,
+                            float tlx, float tly, bool valid, int iterations, float eps_sq,
                             const float* tmpl, float* tile_buf, Region tile, Scratch& sc,
                             float& gx, float& gy) {
   const int ww = L.ww, wh = L.wh, n = wh * ww;
+  if (!L.staged) tmpl = src;
+  const float* tile_src = L.staged ? tile_buf : dst;
   const Window tw = window_at(tlx - 1.f, tly - 1.f, wh + 2, ww + 2, L.h, L.w);
   const Region tr = template_region(L, tlx, tly);
   const int ts = tr.w;
@@ -423,7 +439,7 @@ __device__ bool level_sweep(const float* dst, const LKLevel& L, int tag, float t
       sum_barrier();
       LK_MARK(sc, tag + 500 + it);
     }
-    const float* base = tile_buf + (js.yi - tile.y0) * tile.w + (js.xi - tile.x0);
+    const float* base = tile_src + (js.yi - tile.y0) * tile.w + (js.xi - tile.x0);
     float b[2] = {0.f, 0.f};
     if (active) {
       const float ax = 1.f - js.fx, ay = 1.f - js.fy;
@@ -519,9 +535,10 @@ __device__ void track_direction(const LKParams& p, bool forward, float px, float
       }
     }
     if (!copies) {
-      const bool lvl_ok = level_sweep(forward ? L.next : L.prev, L, pass + 1000 * lvl, tlx,
-                                      tly, valid, p.iterations, p.eps_sq, tmpl_slot(sc, slot),
-                                      tile_slot(sc, slot), tile, sc, gx, gy);
+      const bool lvl_ok = level_sweep(forward ? L.prev : L.next, forward ? L.next : L.prev, L,
+                                      pass + 1000 * lvl, tlx, tly, valid, p.iterations,
+                                      p.eps_sq, tmpl_slot(sc, slot), tile_slot(sc, slot), tile,
+                                      sc, gx, gy);
       publish(sc, gx, gy, lvl_ok);
     }
     __syncthreads();  // the level's result is out, the next level's inputs are in
@@ -557,7 +574,7 @@ __device__ bool track_level(const LKLevel& L, float tlx, float tly, bool valid,
   __syncthreads();
   LK_MARK(sc, 100);
   if (!is_copy_thread()) {
-    const bool lvl_ok = level_sweep(L.next, L, 0, tlx, tly, valid, iterations, eps_sq,
+    const bool lvl_ok = level_sweep(L.prev, L.next, L, 0, tlx, tly, valid, iterations, eps_sq,
                                     tmpl_slot(sc, 0), tile_slot(sc, 0), tile, sc, gx, gy);
     publish(sc, gx, gy, lvl_ok);
   }
@@ -653,16 +670,23 @@ lk_level_kernel(LKLevel L, int iterations, float eps_sq, int tmpl_cap, int tile_
   }
 }
 
-// Sets a level's alignment flag and folds the buffer sizes of its windows into
-// the running maxima; the sizes allow for the widening to 16-byte columns.
+// Sets a level's alignment flag and whether it is staged, and folds the buffer
+// sizes of a staged level's windows into the running maxima; the sizes allow
+// for the widening to 16-byte columns.  A level is staged where the two buffer
+// pairs, at the maxima with it, fit LK_SMEM_BUDGET; else it is swept in place.
 static void level_caps(LKLevel* L, int* tmpl_cap, int* tile_cap) {
   L->aligned = (((uintptr_t)L->prev | (uintptr_t)L->next) % 16 == 0 && L->w % 4 == 0) ? 1 : 0;
   const int tmpl = (L->wh + 3) * ((L->ww + 3 + 6) & ~3);
   const int tile_w = L->ww + 1 + 2 * LK_MARGIN < L->w ? L->ww + 1 + 2 * LK_MARGIN : L->w;
   const int tile_h = L->wh + 1 + 2 * LK_MARGIN < L->h ? L->wh + 1 + 2 * LK_MARGIN : L->h;
   const int tile = tile_h * ((tile_w + 6) & ~3);
-  if (tmpl > *tmpl_cap) *tmpl_cap = tmpl;
-  if (tile > *tile_cap) *tile_cap = tile;
+  const int tmpl_max = tmpl > *tmpl_cap ? tmpl : *tmpl_cap;
+  const int tile_max = tile > *tile_cap ? tile : *tile_cap;
+  L->staged = 2 * ((size_t)tmpl_max + (size_t)tile_max) * sizeof(float) <= LK_SMEM_BUDGET;
+  if (L->staged) {
+    *tmpl_cap = tmpl_max;
+    *tile_cap = tile_max;
+  }
 }
 
 // Dynamic shared memory of a launch, two template regions and two tiles; raises

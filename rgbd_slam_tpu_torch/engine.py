@@ -138,9 +138,14 @@ def draw_step_draws(cfg: SlamConfig, generator: torch.Generator, device=None,
 
 
 def init_state(cam: CameraIntrinsics, cfg: SlamConfig, quat=None, position=None,
-               seed: int = 0, device=None) -> SlamState:
-    """A fresh state on ``device`` (``None``: the card, see ``resolve_device``)."""
+               seed: int = 0, device=None, with_planes: bool = True) -> SlamState:
+    """A fresh state on ``device`` (``None``: the card, see ``resolve_device``).
+    On a card with planes on, raises on a camera and cell size whose grid the
+    plane kernels take on no path (``primitives.check_grid``); the CPU's plain
+    version takes any grid."""
     device = resolve_device(device)
+    if with_planes and device.type == "cuda":
+        primitives.check_grid(cam.height, cam.width, cfg.detection)
     dt = torch.float32
     t_cap = cfg.mapping.max_tracked_points
     generator = torch.Generator(device=device)

@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import profiling
 from ..config import CameraIntrinsics, DetectionConfig
 from ..geometry.covariances import get_depth_quantization
 from ..geometry.eig3 import sym_eig3_smallest
@@ -370,6 +371,19 @@ def _compact_to(cap: int, accept, *arrays):
     return num, outs
 
 
+def check_grid(height: int, width: int, cfg: DetectionConfig):
+    """Raise, with the kernel's own message, on a frame of ``height`` x
+    ``width`` px whose grid of ``cfg.depth_patch_size_px`` cells the card's
+    plane kernels take on no path: the cylinder stage (``MAX_PLANES +
+    MAX_CYLINDERS`` regions) and the components.  Pure arithmetic, so that
+    ``engine.init_state`` refuses such a camera on any device, before the
+    first frame."""
+    patch = cfg.depth_patch_size_px
+    gh, gw = height // patch, width // patch
+    cylinders_cuda.check_grid(gh * gw, MAX_PLANES + MAX_CYLINDERS)
+    components_cuda.check_grid(gh, gw)
+
+
 def find_primitives(depth_mm, cam: CameraIntrinsics,
                     cfg: DetectionConfig = DetectionConfig()):
     """Full CAPE extraction for one frame.  Returns (DetectedPlanes,
@@ -411,9 +425,13 @@ def find_primitives(depth_mm, cam: CameraIntrinsics,
     # plane-vs-cylinder model choice
     is_plane = grown_ok & (score > 100.0)
     try_cyl = grown_ok & ~is_plane & (cand_sizes > 5)
-    # the cylinder stage: axis gate, slot selection, sub-segment MSAC, routing
+    # the cylinder stage: axis gate, slot selection, sub-segment MSAC, routing;
+    # the step's nested section ``cylinders``, and its count of live slots
+    profiling.stamp("cylinders.start")
     cy_axis, axis_ok, cy_selected, cy_centers, cy_radii, cy_valids, cy_mses, cy_inliers = \
         cylinders_cuda.cylinder_stage(grid, member, try_cyl, cfg, min_activated)
+    profiling.stamp("cylinders")
+    profiling.count_cylinders(cy_selected.sum())
     # per-sub-segment model choice against the region's merged-plane MSE
     cyl_better = cy_mses < mse[:, None]
     seg_cyl_better = try_cyl[:, None] & cy_valids & cyl_better

@@ -12,9 +12,13 @@ hold the fill values 0, inf and False.  It is the part of the jitted
 axis gate to the routing back: ``_cylinder_axis`` (:301), the selection,
 ``_fit_cylinder`` (:319) and the one-hot routing (:496-525).  For CUDA tensors
 it launches ``cylinders_kernel`` (``csrc/cylinders.cu``: a thread block
-cluster of 4 CTAs a region slot, the inputs staged in shared memory; a dead
-slot exits after the axis gate and the fill values) or raises; for CPU tensors
-it runs :func:`cylinders_reference`, the port's tensor code of those steps.
+cluster of 4 CTAs a region slot; a dead slot exits after the axis gate and the
+fill values) or raises; for CPU tensors it runs :func:`cylinders_reference`,
+the port's tensor code of those steps.  The grid's size chooses the kernel's
+path (:func:`shared_path`): up to 3,576 cells at 20 regions a CTA stages its
+inputs and keeps its cell arrays in shared memory; past that, up to
+``MAX_CELLS``, it reads them where they lie and keeps its cell arrays in a
+scratch buffer in global memory, with the same arithmetic and bits.
 
 The kernel is compiled with ``nvcc`` on first use (:mod:`.nvcc`, with
 ``-fmad=false``) and bound with ctypes; it launches on the current stream and
@@ -36,8 +40,11 @@ MAX_REGIONS = 64
 MAX_HYPOTHESES = 256
 MAX_SUBSEGMENTS = 8
 #: dynamic shared memory a CTA may hold on Hopper (227 KB), less the kernel's
-#: ~9 kB of static arrays
+#: ~9 kB of static arrays: the shared-memory path's limit
 MAX_SMEM_BYTES = 232448 - 10 * 1024
+#: cells the global-memory path takes (``CYL_MAX_CELLS_GLOBAL``): past the
+#: components kernel's 38,741, with k s c far below 2^31
+MAX_CELLS = 65536
 #: operations :func:`cylinders_work` counts: a (region, cell) pair of the
 #: axis gate (six weighted products and the count), a region's eig3 and
 #: score, and for each live slot: a cell's projection, a hypothesis's triplet
@@ -68,7 +75,7 @@ class _Args(ctypes.Structure):
     """``CylArgs`` of ``csrc/cylinders.cu``, field for field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "normal", "mean", "planar", "member", "try_cyl", "axis", "axis_ok", "selected",
-        "centers", "radii", "valids", "mses", "inliers")]
+        "centers", "radii", "valids", "mses", "inliers", "scratch")]
         + [(name, ctypes.c_int) for name in (
             "c", "k", "subsegments", "n_hyp", "min_activated")]
         + [(name, ctypes.c_float) for name in ("trunc", "min_score")])
@@ -77,6 +84,8 @@ class _Args(ctypes.Structure):
 def _bind(lib):
     lib.cylinders_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
     lib.cylinders_launch.restype = ctypes.c_int
+    lib.cylinders_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.cylinders_scratch_bytes.restype = ctypes.c_size_t
 
 
 LIBRARY = nvcc.Library("cylinders.cu", _bind, launches=("cylinders",), extra_flags=("-fmad=false",))
@@ -152,6 +161,23 @@ def smem_bytes(c: int, k: int) -> int:
             + _align16(4 * ((c + 31) // 32)) + _align16(k) + _align16(max(k, 32) * c))
 
 
+def shared_path(c: int, k: int) -> bool:
+    """Whether the kernel keeps a grid of ``c`` cells and ``k`` regions in
+    one CTA's shared memory (the path of every grid that fits); past it the
+    global-memory path takes the grid."""
+    return smem_bytes(c, k) <= MAX_SMEM_BYTES
+
+
+def check_grid(c: int, k: int):
+    """Raise on a grid of ``c`` cells and ``k`` candidate regions that no path
+    of the kernel takes."""
+    if not 0 < k <= MAX_REGIONS:
+        raise ValueError(f"{k} candidate regions: the cylinders kernel takes 1 to "
+                         f"{MAX_REGIONS}")
+    if not 0 < c <= MAX_CELLS:
+        raise ValueError(f"a grid of {c} cells: the cylinders kernel takes 1 to {MAX_CELLS}")
+
+
 def check_inputs(grid, member, try_cyl, n_hyp: int, subsegments: int):
     """Raise on inputs the kernel does not take."""
     device = member.device
@@ -167,15 +193,10 @@ def check_inputs(grid, member, try_cyl, n_hyp: int, subsegments: int):
         if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be a {dtype} tensor {shape} on {device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not 0 < k <= MAX_REGIONS:
-        raise ValueError(f"{k} candidate regions: the cylinders kernel takes 1 to "
-                         f"{MAX_REGIONS}")
+    check_grid(c, k)
     if not 0 < n_hyp <= MAX_HYPOTHESES or not 0 < subsegments <= MAX_SUBSEGMENTS:
         raise ValueError(f"{n_hyp} hypotheses and {subsegments} sub-segments: the kernel "
                          f"takes up to {MAX_HYPOTHESES} and {MAX_SUBSEGMENTS}")
-    if smem_bytes(c, k) > MAX_SMEM_BYTES:
-        raise ValueError(f"{c} cells and {k} regions need {smem_bytes(c, k)} bytes of shared "
-                         f"memory, more than the {MAX_SMEM_BYTES} one CTA holds")
 
 
 def cylinders_cuda(grid, member, try_cyl, cfg: DetectionConfig, min_activated: int
@@ -199,7 +220,12 @@ def cylinders_cuda(grid, member, try_cyl, cfg: DetectionConfig, min_activated: i
         valids=empty(k, s_, dtype=torch.bool), mses=empty(k, s_),
         inliers=empty(k, s_, c, dtype=torch.bool))
     ins = [t.contiguous() for t in (grid.normal, grid.mean, grid.planar, member, try_cyl)]
+    scratch = None
+    if not shared_path(c, k):
+        scratch = torch.empty(LIBRARY.lib.cylinders_scratch_bytes(c, max_cyl),
+                              dtype=torch.uint8, device=dev)
     args = _Args(*(t.data_ptr() for t in ins), *(t.data_ptr() for t in out),
+                 None if scratch is None else scratch.data_ptr(),
                  c, k, s_, n_hyp, min_activated, cfg.cylinder_ransac_sqrt_max_distance,
                  cfg.cylinder_ransac_min_score)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -23,6 +23,10 @@ boundaries, in the order of the path's :func:`stamps`.  It does nothing unless a
 ``step_graph.StepGraph`` capture with an active recorder is under way
 (:func:`stamping`); there each call records a node into the graph that writes
 the card's ``%globaltimer`` (ns) into the next slot of the graph's stamp buffer.
+
+The cylinder stage's count of live slots: :func:`count_cylinders` hands it (a
+device scalar) to the stepper that runs the step (:func:`counting`), whose
+``cylinders_live`` the runner puts in the frame's summary.
 """
 
 from __future__ import annotations
@@ -44,22 +48,55 @@ STAGES = ("flow", "detect", "associate", "plane_extract", "pose_opt", "map_updat
 #: graph and its search from the seeds (``features.lines.detect_lines``), then
 #: the segments, the endpoint depths and the matching to the line map
 LINE_STAGES = ("line_tiles", "lines")
+#: sections nested in a stage, with planes on: the cylinder stage of
+#: ``features.primitives.find_primitives`` (``ops.cylinders_cuda``), inside
+#: ``plane_extract``.  A nested section has a stamp at its start,
+#: ``<name>.start``, and one at its end, named as the section; the stage that
+#: holds it still runs from the stamp before that start to its own end
+PLANE_SECTIONS = ("cylinders",)
 
 
-def stages(with_lines: bool) -> tuple:
-    """The step's stages on a path, in their order: ``STAGES``, and with lines
-    on ``LINE_STAGES`` after ``associate``.  Planes keep their section either
-    way, so the path's lines alone set the list."""
-    if not with_lines:
-        return STAGES
-    k = STAGES.index("associate") + 1
-    return STAGES[:k] + LINE_STAGES + STAGES[k:]
+def stages(with_lines: bool, with_planes: bool = True) -> tuple:
+    """The step's stages on a path, in the order of their ends: ``STAGES``,
+    with lines on ``LINE_STAGES`` after ``associate``, and with planes on
+    ``PLANE_SECTIONS`` inside ``plane_extract``, before it.  Planes keep their
+    section either way; with them off it holds only the empty plane rows."""
+    out = STAGES
+    if with_lines:
+        k = out.index("associate") + 1
+        out = out[:k] + LINE_STAGES + out[k:]
+    if with_planes:
+        k = out.index("plane_extract")
+        out = out[:k] + PLANE_SECTIONS + out[k:]
+    return out
 
 
-def stamps(with_lines: bool) -> tuple:
+def stamps(with_lines: bool, with_planes: bool = True) -> tuple:
     """The stamps of one replay on a path: its start, then the end of each of
-    :func:`stages`."""
-    return ("start",) + stages(with_lines)
+    :func:`stages`, a nested section's own start before its end."""
+    out = ("start",)
+    for name in stages(with_lines, with_planes):
+        if name in PLANE_SECTIONS:
+            out += (f"{name}.start",)
+        out += (name,)
+    return out
+
+
+def sections(names) -> list:
+    """(section, index of its first stamp, index of its last) of each stage
+    and nested section of a replay's stamps ``names`` (:func:`stamps`), in the
+    order of their ends: a stage runs from the end of the stage before it (the
+    replay's start for the first), a nested section from its own start."""
+    out, last, opened = [], 0, {}
+    for i, name in enumerate(names[1:], 1):
+        if name.endswith(".start"):
+            opened[name[:-len(".start")]] = i
+        elif name in opened:
+            out.append((name, opened.pop(name), i))
+        else:
+            out.append((name, last, i))
+            last = i
+    return out
 
 
 #: entries the event log holds; later ones are counted in ``dropped``
@@ -69,6 +106,7 @@ LOG_LIMIT = 1_000_000
 #: under way, in this thread
 _active = contextvars.ContextVar("recorder", default=None)
 _stamper = contextvars.ContextVar("stamper", default=None)
+_counter = contextvars.ContextVar("counter", default=None)
 _NOTHING = contextlib.nullcontext()
 
 
@@ -160,8 +198,8 @@ class StageTimer:
             self._log(("counter", name, time.perf_counter_ns(), self.counters[name]))
 
     def device_stages(self, names, stamps, offset_ns: int):
-        """One replay's stamps (ns of the card's ``%globaltimer``) of the
-        stages ``names`` (the path's :func:`stages`) into the event log, as
+        """One replay's stamps (ns of the card's ``%globaltimer``; ``names``
+        the path's :func:`stamps` less ``start``) into the event log, as
         stages on the host clock: ``offset_ns`` is the card's clock less
         ``time.perf_counter_ns``."""
         if self.events is not None:
@@ -199,9 +237,10 @@ class StageTimer:
                             "dur": 1e-3 * (end - start), "args": {"parent": parent}})
             elif kind == "device":
                 _, names, times = entry
-                for stage, start, end in zip(names, times, times[1:]):
+                for stage, first, last in sections(("start", *names)):
                     out.append({"name": stage, "ph": "X", "pid": pid, "tid": 2,
-                                "ts": 1e-3 * start, "dur": 1e-3 * (end - start)})
+                                "ts": 1e-3 * times[first],
+                                "dur": 1e-3 * (times[last] - times[first])})
             else:
                 _, name, t, value = entry
                 out.append({"name": name, "ph": "C", "pid": pid, "ts": 1e-3 * t,
@@ -270,3 +309,25 @@ def stamp(name: str):
     stamper = _stamper.get()
     if stamper is not None:
         stamper(name)
+
+
+@contextlib.contextmanager
+def counting(stepper):
+    """Inside the block, :func:`count_cylinders` sets
+    ``stepper.cylinders_live``: what a stepper does around the step it runs
+    (in a ``StepGraph``, around the capture, so that it keeps the graph's own
+    tensor, which each replay rewrites)."""
+    token = _counter.set(stepper)
+    try:
+        yield
+    finally:
+        _counter.reset(token)
+
+
+def count_cylinders(live):
+    """The cylinder stage's selected live region slots (a device scalar), for
+    the frame's summary; it is no ``StepOutput`` field, which stay the JAX
+    package's.  Without a stepper counting, nothing."""
+    stepper = _counter.get()
+    if stepper is not None:
+        stepper.cylinders_live = live

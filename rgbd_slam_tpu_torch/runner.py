@@ -47,7 +47,8 @@ class RunStats:
     span and ``counters`` {name: count} (``profiling.StageTimer``); and, where
     the step runs as a CUDA graph, its device stamps over the frames past the
     first, as µs summed over ``stamped_frames`` replays: each stage
-    (``stage_device_us``, the path's ``profiling.stages``), a replay from its
+    (``stage_device_us``, the path's ``profiling.stages``; a nested section,
+    the cylinders', from its own start stamp), a replay from its
     first stamp to its last (``graph_span_us``), and from the last stamp of the replay
     before to its first (``replay_gap_us``: what the card spends between
     replays, idle or on other work).  Where a frame crosses from the host to
@@ -95,6 +96,9 @@ class RunStats:
     lines_detected: int = 0
     line_matches: int = 0
     lines_alive: int = 0
+    # the cylinder stage's selected live region slots (the MSAC's), summed
+    # over the frames (``profiling.count_cylinders``; 0 with planes off)
+    cylinders_live: int = 0
     # the run's trace
     spans: dict = field(default_factory=dict)
     counters: dict = field(default_factory=dict)
@@ -148,7 +152,7 @@ class RunStats:
 #: then frames 1-8, 9-16, ... (``_HandOver``)
 SUMMARY_BATCH = 8
 #: float32 entries of a frame's summary before the step's stamps
-SUMMARY_WIDTH = 15
+SUMMARY_WIDTH = 16
 #: what a frame source's ``next`` gives at its end
 _END = object()
 
@@ -196,19 +200,23 @@ def stage_frames(frames, chunk: int = 32, device=None):
     return staged
 
 
-def _pack_summary(out: engine.StepOutput, stamps=None):
+def _pack_summary(out: engine.StepOutput, stamps=None, cylinders_live=None):
     """Everything the frame loop reads every frame, as one float32 tensor:
     position, quaternion, success, is_lost, n_evicted, n_plane_merge_dropped,
     n_point_inliers (the JAX runner's summary), n_lines, n_line_matches,
-    n_lines_alive (``SUMMARY_WIDTH``), then the int64 ``stamps`` of the step's
-    graph, if given, as their bit patterns (two entries a stamp), so that they
-    reach the host in the summary's read and keep every ns."""
+    n_lines_alive, the cylinder stage's live slots (``cylinders_live``; 0 where
+    the step counted none) (``SUMMARY_WIDTH``), then the int64 ``stamps`` of the
+    step's graph, if given, as their bit patterns (two entries a stamp), so
+    that they reach the host in the summary's read and keep every ns."""
     f32 = torch.float32
+    live = (torch.zeros_like(out.position[0]) if cylinders_live is None
+            else cylinders_live.to(f32))
     parts = [out.position.to(f32), out.quat.to(f32),
              torch.stack([out.success.to(f32), out.is_lost.to(f32),
                           out.n_evicted.to(f32), out.n_plane_merge_dropped.to(f32),
                           out.n_point_inliers.to(f32), out.n_lines.to(f32),
-                          out.n_line_matches.to(f32), out.n_lines_alive.to(f32)])]
+                          out.n_line_matches.to(f32), out.n_lines_alive.to(f32),
+                          live])]
     if stamps is not None:
         parts.append(stamps.view(f32))
     return torch.cat(parts)
@@ -426,6 +434,7 @@ class _Consumer:
         stats.lines_detected += int(summary[12])
         stats.line_matches += int(summary[13])
         stats.lines_alive = int(summary[14])
+        stats.cylinders_live += int(summary[15])
         self._traj.append(frame.ts, summary[0:3], summary[3:7])
         if self._map_writer is not None and summary[9] > 0.5:   # n_evicted
             with profiling.span("map_export"):
@@ -443,8 +452,9 @@ class _Consumer:
 
     def _add_stamps(self, i: int, stamps, uploaded: bool):
         """Add one replay's stamps (the path's ``profiling.stamps``, ns of the
-        card's clock) to the device sums of ``RunStats``, each stage by its name,
-        and where the frame crossed from the host its upload.  A sequence's first
+        card's clock) to the device sums of ``RunStats``, each stage and nested
+        section by its name (``profiling.sections``), and where the frame
+        crossed from the host its upload.  A sequence's first
         frame gives the clock offset and is left out (its capture runs before)."""
         stats, stepper = self._stats, self._stepper
         if i == 0:
@@ -459,8 +469,8 @@ class _Consumer:
             stats.upload_frames += 1
         if self._last_stamp is not None:
             sums = stats.stage_device_us
-            for stage, start, end in zip(names[1:], times, times[1:]):
-                sums[stage] = sums.get(stage, 0.0) + 1e-3 * (end - start)
+            for stage, first, last in profiling.sections(names):
+                sums[stage] = sums.get(stage, 0.0) + 1e-3 * (times[last] - times[first])
             stats.graph_span_us += 1e-3 * (times[-1] - times[0])
             stats.replay_gap_us += 1e-3 * (times[0] - self._last_stamp)
             stats.stamped_frames += 1
@@ -651,7 +661,8 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
             # whatever happens here, the other ranks stop serving at the end
             closing.callback(stop_serving, ba_mesh, device)
         if state is None:
-            state = engine.init_state(cam, cfg, seed=seed, device=device)
+            state = engine.init_state(cam, cfg, seed=seed, device=device,
+                                      with_planes=with_planes)
         stepper = step_graph.stepper(state, cam, cfg, with_planes=with_planes,
                                      with_lines=with_lines)
         closing.callback(stepper.close)
@@ -698,7 +709,8 @@ def run_frames(frames, cam: CameraIntrinsics, cfg: SlamConfig,
             with profiling.span("frame.pack"):
                 kf_obs = (_pack_keyframe_obs(out, frame_state.points.pos)
                           if backend is not None else None)
-                summary = handover.send(i, _pack_summary(out, stamps))
+                summary = handover.send(i, _pack_summary(out, stamps,
+                                                         getattr(stepper, "cylinders_live", None)))
             if stepper.reuses_outputs:
                 # the next replay overwrites both: keep copies where they are read
                 frame_state, out = consumer.keep(frame_state, out)

@@ -28,13 +28,17 @@ recorded.
   again on every replay.
 * Stamps: recorded while a ``profiling`` recorder is active (``run_frames``'
   ``trace``), the graph holds one stamp node at the start of the step and one
-  at the end of each stage of its path (``profiling.stamps(with_lines)``),
+  at the end of each stage of its path (``profiling.stamps(with_lines,
+  with_planes)``; a nested section also at its start),
   each writing the card's clock into its slot of ``stamps``; a replay
   overwrites them.  Before the capture one stamp between two host clock reads
   gives the card's clock against the host's (``clock_bracket``, into the
   path's offset slot, :func:`stamp_slots`).  The runner stamps a frame's
   upload from the host into the path's two upload slots.  The stamps write
   only their own buffer.
+* The cylinder stage's live slots (``profiling.count_cylinders``) are kept in
+  ``cylinders_live``: in a ``StepGraph`` the graph's tensor, which each replay
+  rewrites, in an ``EagerStep`` the last step's; None with planes off.
 
 :func:`stepper` gives the runner a :class:`StepGraph` on a card and an
 :class:`EagerStep` (``engine.step`` as it is) on the CPU.
@@ -54,12 +58,12 @@ from .ops import nvcc, stamps_cuda
 WARMUP_STEPS = 1
 
 
-def stamp_slots(with_lines: bool) -> tuple[int, tuple[int, int]]:
+def stamp_slots(with_lines: bool, with_planes: bool = True) -> tuple[int, tuple[int, int]]:
     """The last slots of a path's stamp buffer, after the replay's stamps
-    (``profiling.stamps(with_lines)``): the stamp taken between two host clock
-    reads, then the two that the runner takes before and after a frame's
-    upload.  Returns (that offset slot, the two upload slots)."""
-    offset = len(profiling.stamps(with_lines))
+    (``profiling.stamps(with_lines, with_planes)``): the stamp taken between
+    two host clock reads, then the two that the runner takes before and after
+    a frame's upload.  Returns (that offset slot, the two upload slots)."""
+    offset = len(profiling.stamps(with_lines, with_planes))
     return offset, (offset + 1, offset + 2)
 
 
@@ -110,11 +114,15 @@ class EagerStep:
                  with_planes: bool = True, with_lines: bool = False):
         self.state = state
         self._args = (cam, cfg, with_planes, with_lines)
+        #: the last step's live cylinder slots (``profiling.count_cylinders``)
+        self.cylinders_live = None
 
     def step(self, gray, depth):
         cam, cfg, with_planes, with_lines = self._args
-        self.state, out = engine.step(self.state, gray, depth, cam, cfg,
-                                      with_planes=with_planes, with_lines=with_lines)
+        self.cylinders_live = None
+        with profiling.counting(self):
+            self.state, out = engine.step(self.state, gray, depth, cam, cfg,
+                                          with_planes=with_planes, with_lines=with_lines)
         return self.state, out
 
     def close(self):
@@ -155,14 +163,18 @@ class StepGraph:
         self.record_s = 0.0
         #: the stamps of the path's replay, and its buffer's last slots
         #: (:func:`stamp_slots`)
-        self.stamp_names = profiling.stamps(with_lines)
-        self.offset_slot, self.upload_slots = stamp_slots(with_lines)
+        self.stamp_names = profiling.stamps(with_lines, with_planes)
+        self.offset_slot, self.upload_slots = stamp_slots(with_lines, with_planes)
         #: with a recorder at the capture: the replay's stamps (int64 ns on the
-        #: card's clock, ``stamp_names`` then the offset and upload slots: 13
-        #: with lines off, 15 with lines on), and the host's ``perf_counter_ns``
-        #: before and after the stamp in the offset slot
+        #: card's clock, ``stamp_names`` then the offset and upload slots: 15
+        #: with planes on and lines off, 17 with both on, 13 and 15 with planes
+        #: off), and the host's ``perf_counter_ns`` before and after the stamp
+        #: in the offset slot
         self.stamps = None
         self.clock_bracket = None
+        #: the step's live cylinder slots (``profiling.count_cylinders``): the
+        #: graph's own tensor, which each replay rewrites
+        self.cylinders_live = None
 
     @property
     def state(self) -> engine.SlamState:
@@ -208,6 +220,7 @@ class StepGraph:
         if self._graph is not None:
             self._graph.reset()
         self._graph = self._out = self._frame = self._draws = None
+        self.cylinders_live = None
 
     def _record(self, gray, depth):
         t0 = time.perf_counter()
@@ -235,7 +248,7 @@ class StepGraph:
             self.clock_bracket = self._read_clocks(device)
             stamper = _Stamper(self.stamps)
         graph = torch.cuda.CUDAGraph()
-        with profiling.stamping(stamper):
+        with profiling.stamping(stamper), profiling.counting(self):
             self._out, self._launches = capture(graph, lambda: self._commit(*engine.step(
                 self._state, *self._frame, cam, cfg, with_planes=with_planes,
                 with_lines=with_lines, draws=self._draws)))

@@ -381,7 +381,8 @@ def test_summary_and_keyframe_packs_have_the_jax_layout():
     state, out = engine.step(state, gray, torch.zeros_like(gray), SMALL_CAM, cfg,
                              with_planes=False)
     summary = runner._pack_summary(out).numpy()
-    # the JAX runner's 12 entries, then the port's line counts
+    # the JAX runner's 12 entries, then the port's line counts and the step's
+    # live cylinder slots (none given: 0)
     assert summary.shape == (runner.SUMMARY_WIDTH,) and summary.dtype == np.float32
     np.testing.assert_array_equal(summary[:3], out.position.numpy())
     np.testing.assert_array_equal(summary[3:7], out.quat.numpy())
@@ -389,7 +390,7 @@ def test_summary_and_keyframe_packs_have_the_jax_layout():
                                    float(out.n_evicted), float(out.n_plane_merge_dropped),
                                    float(out.n_point_inliers)]
     assert list(summary[12:]) == [float(out.n_lines), float(out.n_line_matches),
-                                  float(out.n_lines_alive)]
+                                  float(out.n_lines_alive), 0.0]
     fobs, fids = runner._pack_keyframe_obs(out, state.points.pos)
     assert fobs.shape == (cfg.mapping.max_points_3d, 7) and fobs.dtype == torch.float32
     assert fids.dtype == torch.int32

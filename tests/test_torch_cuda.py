@@ -37,9 +37,15 @@ def _room_pair(cam, device):
     return g0, g1
 
 
+#: the Kinect v2's 1080p colour camera: level 0's 120x160 window does not fit a
+#: CTA's shared memory twice, so the kernel sweeps that level in place
+KV2_HD = config.CameraIntrinsics(width=1920, height=1080, fx=1081.37, fy=1081.37, cx=959.5,
+                                 cy=539.5)
+
+
 @pytest.mark.cuda
-def test_lk_kernel_matches_reference_at_engine_shapes(cuda):
-    cam = config.TUM_FR1
+@pytest.mark.parametrize("cam", [config.TUM_FR1, KV2_HD], ids=["640x480", "1920x1080"])
+def test_lk_kernel_matches_reference_at_engine_shapes(cuda, cam):
     det = config.DetectionConfig()
     g0, g1 = _room_pair(cam, cuda)
     levels = det.optical_flow_pyramid_depth

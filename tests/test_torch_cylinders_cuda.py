@@ -267,8 +267,8 @@ def test_cylinders_wrapper_raises_and_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="member must be"):
         cylinders_cuda.cylinder_stage(c_grid, card(member.to(torch.uint8)), card(try_cyl),
                                       DET, min_activated)
-    with pytest.raises(ValueError, match="shared memory"):
-        big = 8000
+    with pytest.raises(ValueError, match="cells: the cylinders kernel takes 1 to"):
+        big = cylinders_cuda.MAX_CELLS + 1   # past the global-memory path too
         cylinders_cuda.check_inputs(
             grid._replace(normal=card(torch.zeros(big, 3)), mean=card(torch.zeros(big, 3)),
                           planar=card(torch.zeros(big, dtype=torch.bool))),

@@ -85,7 +85,7 @@ def test_the_sources_kernels_are_the_ones_chip_smoke_knows():
     """Each source's ``__global__`` functions, as the text reads: no mark is
     left of a kernel that went away, and none is missing."""
     assert _globals(_source("cells.cu")) == {"cells_fit_kernel", "cells_edges_kernel"}
-    assert _globals(_source("cylinders.cu")) == {"cylinders_kernel"}
+    assert _globals(_source("cylinders.cu")) == {"cylinders_kernel", "cylinders_kernel_global"}
     assert _globals(_source("components.cu")) == {"components_kernel"}
     assert _globals(_source("lm.cu")) == {"lm_solve_kernel", "lm_solve_kernel_warp"}
     assert _globals(_source("line_grow.cu")) == {"line_grow_kernel"}
@@ -101,6 +101,7 @@ def test_cylinder_limits_match_the_source():
     assert defs["CYL_MAX_REGIONS"] == cylinders_cuda.MAX_REGIONS
     assert defs["CYL_MAX_HYP"] == cylinders_cuda.MAX_HYPOTHESES
     assert defs["CYL_MAX_SUBSEGMENTS"] == cylinders_cuda.MAX_SUBSEGMENTS
+    assert defs["CYL_MAX_CELLS_GLOBAL"] == cylinders_cuda.MAX_CELLS
     # a warp a region in the gate: the cluster's warps cover the regions
     assert defs["CYL_CLUSTER"] * defs["CYL_WARPS"] >= defs["CYL_MAX_REGIONS"]
 
@@ -122,10 +123,12 @@ def test_cylinder_shared_memory_fits_and_the_wrapper_refuses_more(k):
                   if cylinders_cuda.smem_bytes(c, k) <= cylinders_cuda.MAX_SMEM_BYTES)
     assert largest >= 768 and largest < 20_000
     assert static + cylinders_cuda.smem_bytes(largest, k) <= CTA_SMEM_BYTES
-    # the wrapper takes the largest grid and refuses one cell more
+    # the wrapper takes the largest grid on the shared-memory path, and one
+    # cell more on the global-memory path
     cylinders_cuda.check_inputs(*_card_inputs(largest, k), 43, 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        cylinders_cuda.check_inputs(*_card_inputs(largest + 1, k), 43, 3)
+    assert cylinders_cuda.shared_path(largest, k)
+    assert not cylinders_cuda.shared_path(largest + 1, k)
+    cylinders_cuda.check_inputs(*_card_inputs(largest + 1, k), 43, 3)
 
 
 def test_cylinder_shared_memory_at_the_main_path():

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from rgbd_slam_tpu_torch import cli, config, engine, profiling, runner, step_graph
-from rgbd_slam_tpu_torch.ops import stamps_cuda
+from rgbd_slam_tpu_torch.ops import cylinders_cuda, stamps_cuda
 from rgbd_slam_tpu_torch.synthetic import (RoomScene, StripeWallScene, lateral_trajectory,
                                            orbit_trajectory)
 
@@ -206,7 +206,7 @@ def test_the_smoke_test_holds_the_logged_replays_in_order(clock, second_start, f
     stamps, not its stage names: a replay whose first stamp lies before the
     last of the replay before, or a frame with no replay, is a problem."""
     timer = profiling.StageTimer(log=True)
-    stages = profiling.stages(True)
+    stages = profiling.stages(True, False)
     for start in (1_000, second_start):
         timer.device_stages(stages, start + 10 * np.arange(len(stages) + 1), 0)
     assert bool(chip_smoke.replay_order_problems(timer.events, frames)) is found
@@ -228,36 +228,46 @@ def test_the_step_stamps_each_stage_in_order(frames, with_planes, with_lines, mo
     with profiling.stamping(called.append):
         state, _ = engine.step(state, *map(torch.as_tensor, frames[0]), CAM, CFG,
                                with_planes=with_planes, with_lines=with_lines)
-    assert tuple(called) == profiling.stamps(with_lines)[:-1]
+    assert tuple(called) == profiling.stamps(with_lines, with_planes)[:-1]
     with profiling.recording(profiling.StageTimer()):
         engine.step(state, *map(torch.as_tensor, frames[1]), CAM, CFG,
                     with_planes=with_planes, with_lines=with_lines)
-    assert len(called) == len(profiling.stamps(with_lines)) - 1
+    assert len(called) == len(profiling.stamps(with_lines, with_planes)) - 1
 
 
-#: the stamps and the offset slot of the tree before the line sections: every
-#: path with lines off keeps them
+#: the stamps and the offset slot of the tree before the line sections: the
+#: path with lines and planes off keeps them
 LINES_OFF_STAMPS = ("start", "flow", "detect", "associate", "plane_extract", "pose_opt",
                     "map_update", "insert", "next_track", "commit")
 LINES_OFF_OFFSET_SLOT = 10
+#: the planes path's nested section: its start and its end, before ``plane_extract``
+CYLINDER_STAMPS = ("cylinders.start", "cylinders")
 
 
 @pytest.mark.parametrize("with_planes, with_lines", PATHS, ids=PATH_IDS)
 def test_each_path_has_its_stage_list_and_stamp_slots(with_planes, with_lines):
     """A path's stamps are its start and its stages; with lines off they are
     the stamps of the tree before the line sections, and with lines on the
-    two line sections follow ``associate``.  The stamp buffer's offset slot
-    and its two upload slots follow the path's stamps."""
-    names = profiling.stamps(with_lines)
-    assert names == ("start",) + profiling.stages(with_lines)
+    two line sections follow ``associate``; with planes on the cylinder
+    section's two stamps come before ``plane_extract``, and its stage list
+    holds ``cylinders`` there.  The stamp buffer's offset slot and its two
+    upload slots follow the path's stamps."""
+    names = profiling.stamps(with_lines, with_planes)
+    stages = profiling.stages(with_lines, with_planes)
+    assert tuple(n for n in names if not n.endswith(".start")) == ("start",) + stages
+    want = LINES_OFF_STAMPS
     if with_lines:
-        assert names == LINES_OFF_STAMPS[:4] + ("line_tiles", "lines") + LINES_OFF_STAMPS[4:]
-    else:
-        assert names == LINES_OFF_STAMPS and profiling.stages(with_lines) == profiling.STAGES
-    offset, upload = step_graph.stamp_slots(with_lines)
+        want = want[:4] + ("line_tiles", "lines") + want[4:]
+    if with_planes:
+        k = want.index("plane_extract")
+        want = want[:k] + CYLINDER_STAMPS + want[k:]
+    assert names == want
+    if not with_lines and not with_planes:
+        assert stages == profiling.STAGES
+    offset, upload = step_graph.stamp_slots(with_lines, with_planes)
     assert offset == len(names) and upload == (offset + 1, offset + 2)
     if not with_lines:
-        assert offset == LINES_OFF_OFFSET_SLOT
+        assert offset == LINES_OFF_OFFSET_SLOT + 2 * with_planes
 
 
 def test_stamps_cuda_takes_an_int64_buffer_on_a_card_only():
@@ -307,9 +317,9 @@ class StampedStep(step_graph.EagerStep):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        with_lines = self._args[3]
-        self.stamp_names = profiling.stamps(with_lines)
-        self.offset_slot, self.upload_slots = step_graph.stamp_slots(with_lines)
+        with_planes, with_lines = self._args[2:]
+        self.stamp_names = profiling.stamps(with_lines, with_planes)
+        self.offset_slot, self.upload_slots = step_graph.stamp_slots(with_lines, with_planes)
         self.stage_ns = self.stage_times(with_lines)
         self.stamps = torch.zeros(self.upload_slots[-1] + 1, dtype=torch.int64)
         self.clock_bracket = (1_000, 1_400)
@@ -322,7 +332,7 @@ class StampedStep(step_graph.EagerStep):
         times = dict(zip(profiling.STAGES, cls.STAGE_NS.tolist()))
         if with_lines:
             times.update(zip(profiling.LINE_STAGES, cls.LINE_NS.tolist()))
-        return {s: times[s] for s in profiling.stages(with_lines)}
+        return {s: times[s] for s in profiling.stages(with_lines, False)}
 
     def step(self, gray, depth):
         start = self.T0 + 10_000 * self.frame
@@ -350,7 +360,7 @@ def test_run_stats_from_summaries_that_carry_stamps(frames, monkeypatch, tmp_pat
     assert stats.stamped_frames == n
     assert stats.stage_device_us == {s: pytest.approx(1e-3 * ns * n)
                                      for s, ns in stage_ns.items()}
-    assert list(stats.stage_device_us) == list(profiling.stages(with_lines))
+    assert list(stats.stage_device_us) == list(profiling.stages(with_lines, False))
     span = sum(stage_ns.values())
     assert stats.graph_span_us == pytest.approx(1e-3 * span * n)
     assert sum(stats.stage_device_us.values()) == pytest.approx(stats.graph_span_us)
@@ -362,7 +372,8 @@ def test_run_stats_from_summaries_that_carry_stamps(frames, monkeypatch, tmp_pat
     timer.export(str(path))
     device = [e for e in json.loads(path.read_text())["traceEvents"]
               if e["ph"] == "X" and e["tid"] == 2]
-    assert [e["name"] for e in device] == list(profiling.stages(with_lines)) * len(frames)
+    assert [e["name"] for e in device] == list(profiling.stages(with_lines, False)) \
+        * len(frames)
     # on the host clock: the card's stamp less the offset, in µs
     assert device[0]["ts"] == pytest.approx(1e-3 * (StampedStep.T0 - stats.clock_offset_ns))
 
@@ -380,7 +391,8 @@ def test_summary_rows_keep_every_ns_of_the_stamps():
     summary, got = runner._split_summary(runner._pack_summary(out, stamps).numpy())
     np.testing.assert_array_equal(got, stamps.numpy())
     assert summary.shape == (runner.SUMMARY_WIDTH,) and summary[11] == 42.0
-    assert list(summary[12:]) == [7.0, 5.0, 9.0]
+    # the line counts, then the step's live cylinder slots (none given: 0)
+    assert list(summary[12:]) == [7.0, 5.0, 9.0, 0.0]
     plain, none = runner._split_summary(runner._pack_summary(out).numpy())
     assert none is None and np.array_equal(plain, summary)
 
@@ -400,7 +412,8 @@ def test_a_frame_from_the_host_is_stamped_around_its_upload(frames, monkeypatch)
     def fake_stamp(slots, slot):
         # 300 ns and 100 ns before the start of the step that follows
         start = StampedStep.T0 + 10_000 * holder["step"].frame
-        slots[slot] = start - (300 if slot == step_graph.stamp_slots(False)[1][0] else 100)
+        slots[slot] = start - (300 if slot == step_graph.stamp_slots(False, False)[1][0]
+                               else 100)
 
     monkeypatch.setattr(step_graph, "stepper", Stepper)
     monkeypatch.setattr(runner, "_on_host", lambda x, device: True)
@@ -411,6 +424,86 @@ def test_a_frame_from_the_host_is_stamped_around_its_upload(frames, monkeypatch)
     assert stats.counters["uploads"] == 2 * len(frames)
     # the upload lies inside the gap between two replays
     assert stats.replay_gap_us > stats.upload_device_us
+
+
+class NestedStampedStep(step_graph.EagerStep):
+    """``engine.step`` with the planes path's stamps as ``StepGraph`` keeps
+    them: each stamp at ``T0 + 10,000 f + OFFSETS[name]`` ns in frame ``f``,
+    the cylinder section's two inside ``plane_extract``."""
+
+    T0 = 7_000_000_000_000
+    OFFSETS = {"start": 0, "flow": 100, "detect": 300, "associate": 600,
+               "cylinders.start": 700, "cylinders": 730, "plane_extract": 1_000,
+               "pose_opt": 1_500, "map_update": 2_100, "insert": 2_800,
+               "next_track": 3_600, "commit": 4_500}
+    reuses_outputs = True
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.stamp_names = profiling.stamps(False, True)
+        self.offset_slot, self.upload_slots = step_graph.stamp_slots(False, True)
+        self.stamps = torch.zeros(self.upload_slots[-1] + 1, dtype=torch.int64)
+        self.clock_bracket = (1_000, 1_400)
+        self.frame = 0
+
+    def step(self, gray, depth):
+        start = self.T0 + 10_000 * self.frame
+        self.stamps[:len(self.stamp_names)] = torch.tensor(
+            [start + self.OFFSETS[n] for n in self.stamp_names])
+        self.frame += 1
+        state, out = super().step(gray, depth)
+        return step_graph.clone_tree(state), step_graph.clone_tree(out)
+
+
+def test_the_planes_path_nests_the_cylinder_section_in_plane_extract(frames, monkeypatch):
+    """On the planes path the replay's stamps hold the cylinder section's
+    start and end; ``stage_device_us["cylinders"]`` sums the section alone and
+    ``stage_device_us["plane_extract"]`` still runs from the ``associate``
+    stamp to its own, the section included; the stages without the nested
+    section add up to the span."""
+    monkeypatch.setattr(step_graph, "stepper", NestedStampedStep)
+    names = profiling.stamps(False, True)
+    assert names.index("cylinders.start") == names.index("associate") + 1
+    assert names.index("cylinders") + 1 == names.index("plane_extract")
+    _, _, stats = runner.run_frames(frames, CAM, CFG, device="cpu", on_frame=lambda *a: None)
+    n = len(frames) - 1
+    at = NestedStampedStep.OFFSETS
+    assert stats.stamped_frames == n
+    assert list(stats.stage_device_us) == list(profiling.stages(False, True))
+    assert stats.stage_device_us["cylinders"] == pytest.approx(1e-3 * 30 * n)
+    assert stats.stage_device_us["plane_extract"] == pytest.approx(
+        1e-3 * (at["plane_extract"] - at["associate"]) * n)
+    outer = {k: v for k, v in stats.stage_device_us.items() if k != "cylinders"}
+    assert sum(outer.values()) == pytest.approx(stats.graph_span_us)
+    assert stats.graph_span_us == pytest.approx(1e-3 * at["commit"] * n)
+
+
+def test_run_stats_sum_the_live_cylinder_slots_from_the_summary(frames, monkeypatch):
+    """The cylinder stage's selected slots of each frame (``profiling.count_cylinders``
+    in ``find_primitives``) ride in the frame's summary row, and ``RunStats``
+    sums them over the frames: on the planes path the stage's own counts, on
+    the points path 0."""
+    counted = []
+    stage = cylinders_cuda.cylinder_stage
+
+    def spy(grid, member, try_cyl, cfg, min_activated):
+        # every region with cells a candidate, so that slots are taken
+        out = stage(grid, member, member.any(dim=-1), cfg, min_activated)
+        counted.append(int(out.selected.sum()))
+        return out
+
+    monkeypatch.setattr(cylinders_cuda, "cylinder_stage", spy)
+    _, _, stats = runner.run_frames(frames, CAM, CFG, device="cpu")
+    assert len(counted) == len(frames) and sum(counted) > 0
+    assert stats.cylinders_live == sum(counted)
+    _, _, points = runner.run_frames(frames, CAM, CFG, with_planes=False, device="cpu")
+    assert points.cylinders_live == 0
+    # the count is the summary's entry after the line counts
+    state = engine.init_state(CAM, CFG, seed=0, device="cpu")
+    stepper = step_graph.EagerStep(state, CAM, CFG)
+    _, out = stepper.step(*map(torch.as_tensor, frames[0]))
+    row = runner._pack_summary(out, None, stepper.cylinders_live).numpy()
+    assert row[15] == counted[-1] == int(stepper.cylinders_live)
 
 
 def test_program_trace_skips_the_sequences_the_harness_profiles():
@@ -522,7 +615,8 @@ def _leaves_equal(a, b, what):
 def test_stamps_change_no_bit_of_the_step(cuda):
     """30 frames at 640x480 through a step graph recorded with stamps (a
     recorder active) and one without: every leaf of the state and of the
-    outputs equal to the bit at every frame; ten stamps a replay, in order."""
+    outputs equal to the bit at every frame; twelve stamps a replay (the
+    cylinder section's two among them), in order."""
     cam, cfg = config.TUM_FR1, config.SlamConfig()
     frames = _room_frames(30, cuda)
     plain = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=cuda), cam, cfg)
@@ -534,7 +628,7 @@ def test_stamps_change_no_bit_of_the_step(cuda):
                 s_state, s_out = stamped.step(gray, depth)
             _leaves_equal(p_state, s_state, f"frame {i} state")
             _leaves_equal(p_out, s_out, f"frame {i} output")
-            times = stamped.stamps.cpu().numpy()[:len(profiling.stamps(False))]
+            times = stamped.stamps.cpu().numpy()[:len(profiling.stamps(False, True))]
             assert (np.diff(times) >= 0).all() and times[0] > 0, (i, times)
         assert plain.stamps is None
     finally:
@@ -544,21 +638,26 @@ def test_stamps_change_no_bit_of_the_step(cuda):
 
 @pytest.mark.cuda
 def test_run_frames_stamps_ten_a_replay_on_the_card(cuda):
-    """``run_frames`` over 20 frames: ten stamps a replay, non-decreasing; the
-    stages sum to the graph's span; span and gap together are the frames'
-    wall time on the host within 5%."""
+    """``run_frames`` over 20 frames: twelve stamps a replay (the ten of the
+    stages, and the cylinder section's start and end inside ``plane_extract``),
+    non-decreasing; the stages sum to the graph's span, the nested section
+    lies inside its stage; span and gap together are the frames' wall time on
+    the host within 5%."""
     cam, cfg = config.TUM_FR1, config.SlamConfig()
     frames = _room_frames(20, cuda)
     timer = profiling.StageTimer(log=True)
     _, _, stats = runner.run_frames(frames, cam, cfg, device=cuda, trace=timer)
     assert stats.stamped_frames == 19
-    assert sum(stats.stage_device_us.values()) == pytest.approx(stats.graph_span_us)
+    stages = {k: v for k, v in stats.stage_device_us.items()
+              if k not in profiling.PLANE_SECTIONS}
+    assert sum(stages.values()) == pytest.approx(stats.graph_span_us)
     assert all(v >= 0 for v in stats.stage_device_us.values())
+    assert 0 < stats.stage_device_us["cylinders"] < stats.stage_device_us["plane_extract"]
     device = [e for e in timer.events if e[0] == "device"]
     assert len(device) == 20
     for _, names, times in device:
-        assert names == profiling.STAGES
-        assert len(times) == 10 and (np.diff(times) >= 0).all()
+        assert names == profiling.stamps(False, True)[1:]
+        assert len(times) == 12 and (np.diff(times) >= 0).all()
     wall_us = 1e6 * (stats.total_step_s - stats.compile_s)
     assert stats.graph_span_us + stats.replay_gap_us == pytest.approx(wall_us, rel=0.05)
 
@@ -584,7 +683,7 @@ def test_the_line_sections_are_stamped_on_the_card(cuda):
                                  **kw)
     stamped = step_graph.StepGraph(engine.init_state(cam, cfg, seed=0, device=cuda), cam, cfg,
                                    **kw)
-    names = profiling.stamps(True)
+    names = profiling.stamps(True, False)
     try:
         for i, (gray, depth) in enumerate(frames[:10]):
             p_state, p_out = plain.step(gray, depth)
@@ -601,7 +700,7 @@ def test_the_line_sections_are_stamped_on_the_card(cuda):
     timer = profiling.StageTimer(log=True)
     _, _, stats = runner.run_frames(frames, cam, cfg, device=cuda, trace=timer, **kw)
     assert stats.stamped_frames == 19
-    assert list(stats.stage_device_us) == list(profiling.stages(True))
+    assert list(stats.stage_device_us) == list(profiling.stages(True, False))
     assert sum(stats.stage_device_us.values()) == pytest.approx(stats.graph_span_us)
     assert stats.stage_device_us["line_tiles"] > 0 and stats.stage_device_us["lines"] > 0
     assert [len(e[2]) for e in timer.events if e[0] == "device"] == [12] * 20

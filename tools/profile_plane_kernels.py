@@ -118,8 +118,8 @@ STAMPS = {
         (_INCLUDE, _INCLUDE + _SPLIT_HEAD),
         ("  const int n_slots = gridDim.x / CYL_CLUSTER;\n",
          "  const int n_slots = gridDim.x / CYL_CLUSTER;\n  SPLIT_BEGIN(threadIdx.x == 0);\n"),
-        ("  stage_wait();\n  __syncthreads();\n",
-         "  stage_wait();\n  __syncthreads();\n  SPLIT(0);\n"),
+        ("    stage_wait();\n    __syncthreads();\n  }\n",
+         "    stage_wait();\n    __syncthreads();\n  }\n  SPLIT(0);\n"),
         ("    for (int j = 0; j < 7; ++j) acc[j] = warp_sum(acc[j]);\n",
          "    for (int j = 0; j < 7; ++j) acc[j] = warp_sum(acc[j]);\n    SPLIT(1);\n"),
         ("    gate_ok = (score >= a.min_score) && (acc[6] >= 3.0f);\n",
